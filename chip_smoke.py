@@ -1,0 +1,640 @@
+"""Drive the PyTorch port on one CUDA card and hold its kernels to account.
+
+    python3 chip_smoke.py [--seed 0]
+
+Phases (each prints its seconds; any failure is an uncaught exception and
+a non-zero exit):
+  0. environment: card name and power limit, torch/CUDA versions, and the
+     build of the four CUDA kernels from `src/repro_torch/kernels/csrc`.
+  1. each kernel against its plain PyTorch version on ragged small shapes
+     (exact for the integer kernels, allclose for bit_matvec).
+  2. the main path through the normal entry points at the `medium` preset:
+     mine -> greedy/optpes -> verify/coverage -> deploy + serve 2000
+     requests (each batch == serve_reference) -> warm-started sweep, then
+     the same sequence on the CPU (plain versions); orders, selections,
+     match sets and ServeStats must agree.
+  3. the same classes at the repo's production shapes
+     (configs/tiering_scsk.py: 2^17 vocabulary, 2^20 queries, 4096-query
+     serve batches), cut to 2^16 clauses and 2^20 docs so that every operand
+     is resident on one 80 GB card; greedy == optpes (up to exact ties),
+     serve == serve_reference on two batches. Launch counts are read from
+     this run. Then each kernel again against its plain version at these
+     shapes, with its timing and bound.
+The last lines are the kernels' JSON record, the card line, and the
+contract line {"ok": true, "device": {...}}.
+
+Imports nothing of JAX or of the JAX package `repro`.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import math
+import statistics
+import subprocess
+import sys
+import time
+import types
+from pathlib import Path
+
+import numpy as np
+import torch
+
+HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
+FP64_FLOPS = 34e12             # H100 SXM FP64 outside the tensor cores (ditto)
+
+# production shapes (configs/tiering_scsk.py) and the cuts one card forces
+VOCAB = 2 ** 17                # serve_route vocabulary -> Wv = 4096
+N_QUERIES = 2 ** 20            # solve_dense_m queries -> Wq = 32768
+N_CLAUSES = 2 ** 16            # cut from solve_dense_m's 2^17
+N_DOCS = 2 ** 20               # cut from 2^22..2^23 -> Wd = 32768
+SERVE_B, SERVE_L = 4096, 8     # serve_route batch
+REFRESH_K = 4096               # tiering_scsk refresh_k
+REDUCED = {
+    "clauses": "2^16 token singletons and pairs (solve_dense_m has 2^17)",
+    "docs": "2^20 (solve_dense_m 2^23, serve_route 2^22; 2^20 is the low "
+            "end of the paper's |D| range)",
+    "solve_steps": "max_steps=128 per solver",
+}
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]
+
+
+def check(cond: bool, what: str) -> None:
+    if not cond:
+        raise AssertionError(what)
+
+
+def time_ms(fn, reps: int, warmup: int = 1) -> float:
+    """Median device time of `fn()` over `reps` runs, by CUDA events."""
+    for _ in range(warmup):
+        fn()
+    starts = [torch.cuda.Event(enable_timing=True) for _ in range(reps)]
+    ends = [torch.cuda.Event(enable_timing=True) for _ in range(reps)]
+    for s, e in zip(starts, ends):
+        s.record()
+        fn()
+        e.record()
+    torch.cuda.synchronize()
+    return statistics.median(s.elapsed_time(e) for s, e in zip(starts, ends))
+
+
+# -- phase 1: kernels against their plain versions on ragged small shapes ------
+
+def rand_words(gen, shape, device) -> torch.Tensor:
+    return torch.randint(-2 ** 31, 2 ** 31, shape, dtype=torch.int32,
+                         device=device, generator=gen)
+
+
+def sparse_words(gen, shape, p, device) -> torch.Tensor:
+    from repro_torch.core import bitset
+    bits = torch.rand(shape[:-1] + (shape[-1] * 32,), generator=gen,
+                      device=device) < p
+    return bitset.pack(bits)
+
+
+def phase1_small(device) -> float:
+    from repro_torch.kernels import ops, ref
+    gen = torch.Generator(device).manual_seed(11)
+    worst = 0.0                                  # bit_matvec max abs error
+
+    def misaligned(t):      # same values, data pointer 4 bytes past 16
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+        v = buf[1:].view(t.shape)
+        v.copy_(t)
+        return v
+
+    for c, w in [(1, 1), (3, 2), (13, 3), (130, 5), (64, 33), (300, 17),
+                 (257, 1024), (1000, 4)]:
+        a = rand_words(gen, (c, w), device)
+        a[0] = -1                                    # an all-ones row (bit 31 set)
+        mask = rand_words(gen, (w,), device)
+        for aa in (a, misaligned(a)):
+            got = ops.coverage_gain(aa, mask)
+            check(torch.equal(got, ref.coverage_gain(aa, mask)),
+                  f"coverage_gain {c}x{w}")
+        for r in (1, 3):
+            x = torch.rand((w * 32, r), generator=gen, device=device)
+            want = ref.bit_matvec(a, x)
+            for aa in (a, misaligned(a)):
+                got = ops.bit_matvec(aa, x)
+                torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
+                worst = max(worst, float((got - want).abs().max()))
+
+    for b, k, wv in [(1, 1, 1), (7, 3, 2), (65, 17, 3), (130, 70, 5),
+                     (16, 1, 9), (33, 5, 4096), (9, 4, 20000)]:
+        q = rand_words(gen, (b, wv), device)
+        cl = sparse_words(gen, (k, wv), 2.0 / (wv * 32), device)
+        cl[: k // 2] &= q[: k // 2]                  # some clauses match
+        got = ops.clause_match(q, cl)
+        check(torch.equal(got, ref.clause_match(q, cl)),
+              f"clause_match {b}x{k}x{wv}")
+    q = rand_words(gen, (5, 2), device)
+    empty = torch.zeros((0, 2), dtype=torch.int32, device=device)
+    check(not ops.clause_match(q, empty).any(), "clause_match K=0")
+    check(ops.clause_match(empty, q).shape == (0,), "clause_match B=0")
+
+    for b, ell, v, w in [(19, 4, 37, 5), (64, 8, 100, 8), (7, 1, 3, 1),
+                         (300, 3, 50, 33), (0, 2, 4, 4)]:
+        t1 = rand_words(gen, (v, w), device)
+        t2 = t1 | rand_words(gen, (v, w), device)
+        toks = torch.randint(-1, v, (b, ell), dtype=torch.int32, device=device,
+                             generator=gen)
+        if b:
+            toks[0] = -1                             # a query with no token
+        sel = torch.rand(b, generator=gen, device=device) < 0.5
+        for s in (None, sel):
+            got = ops.tier_match(t1, t2, s, toks)
+            check(torch.equal(got, ref.tier_match(t1, t2, s, toks)),
+                  f"tier_match {b}x{ell} over [{v}, {w}]")
+    torch.cuda.synchronize()
+    return worst
+
+
+# -- phase 2: the main path through the normal entry points (medium) ----------
+
+def run_pipeline(pipe, n_requests: int = 2000, batch: int = 128) -> dict:
+    """The quickstart / launch.serve sequence on a mined pipeline."""
+    out: dict = {}
+    t = time.perf_counter()
+    for solver in ("greedy", "optpes"):
+        pipe.solve(solver, budget_frac=0.5)
+        out[solver] = pipe.result
+    out["solve_s"] = time.perf_counter() - t
+    check(pipe.verify(), "Theorem 3.1 violated")
+    out["coverage"] = pipe.coverage()
+    engine = pipe.deploy()
+    lg = pipe.log
+    rng = np.random.default_rng(1)
+    probs = lg.test_weights / lg.test_weights.sum()
+    served, matches = 0, []
+    t = time.perf_counter()
+    while served < n_requests:
+        n = min(batch, n_requests - served)
+        qs = [lg.queries[i] for i in rng.choice(lg.n_queries, size=n, p=probs)]
+        got = engine.serve(qs)
+        ref = engine.serve_reference(qs)
+        check(all(np.array_equal(a, b) for a, b in zip(got, ref)),
+              "serve != serve_reference")
+        matches.extend(got)
+        served += n
+    out["serve_s"] = time.perf_counter() - t
+    out["matches"] = matches
+    out["stats"] = engine.stats.to_dict()
+    n = pipe.corpus.n_docs
+    t = time.perf_counter()
+    out["sweep"] = pipe.sweep([n // 4, n // 2], "greedy")
+    out["sweep_s"] = time.perf_counter() - t
+    return out
+
+
+def phase2(counts, scale: str = "medium", device=None) -> dict:
+    from repro_torch import api
+    from repro_torch.kernels import _build
+    t = time.perf_counter()
+    pipe = api.TieringPipeline.from_synthetic(0, scale, device=device) \
+        .mine(min_support=1e-3)
+    mine_s = time.perf_counter() - t
+    log(f"[phase 2] {scale}: {pipe.summary()}  mine {mine_s:.1f}s")
+    _build.reset_launches()
+    gpu = run_pipeline(pipe)
+    counts.update(_build.LAUNCHES)
+    cpu = run_pipeline(api.TieringPipeline.from_data(pipe.data, device="cpu"))
+    for solver in ("greedy", "optpes"):
+        g, c = gpu[solver], cpu[solver]
+        check(g.order == c.order, f"{solver} order differs from the CPU run")
+        check(np.array_equal(g.selected, c.selected), f"{solver} selection differs")
+        check(math.isclose(g.f_final, c.f_final, rel_tol=1e-5),
+              f"{solver} f_final {g.f_final} vs {c.f_final}")
+        check(g.g_final == c.g_final, f"{solver} g_final differs")
+    div = first_divergence(pipe.problem, gpu["greedy"].order,
+                           gpu["optpes"].order)
+    check(div is None or div[1], f"greedy and optpes orders differ at {div}")
+    check([r.order for r in gpu["sweep"]] == [r.order for r in cpu["sweep"]],
+          "sweep order differs from the CPU run")
+    check(len(gpu["matches"]) == len(cpu["matches"]) and all(
+        np.array_equal(a, b) for a, b in zip(gpu["matches"], cpu["matches"])),
+        "match sets differ from the CPU run")
+    check(gpu["stats"] == cpu["stats"], "ServeStats differ from the CPU run")
+    check(gpu["coverage"] == cpu["coverage"], "coverage differs from the CPU run")
+    log(f"[phase 2] cuda: solve {gpu['solve_s']:.2f}s serve {gpu['serve_s']:.2f}s "
+        f"sweep {gpu['sweep_s']:.2f}s | cpu: solve {cpu['solve_s']:.2f}s "
+        f"serve {cpu['serve_s']:.2f}s sweep {cpu['sweep_s']:.2f}s")
+    log(f"[phase 2] greedy/optpes: {len(gpu['greedy'].order)} selections, "
+        f"f={gpu['greedy'].f_final:.6f} g={gpu['greedy'].g_final:.0f}; "
+        f"coverage {gpu['coverage']}; stats {gpu['stats']}")
+    log(f"[phase 2] launches {dict(counts)}; orders, selections, match sets "
+        f"and ServeStats equal to the device='cpu' run")
+    check(all(v > 0 for v in counts.values()), f"a kernel never launched: {counts}")
+    return gpu
+
+
+# -- phase 3: the production shapes -------------------------------------------
+
+def zipf(n: int, a: float, device) -> torch.Tensor:
+    p = 1.0 / torch.arange(1, n + 1, device=device, dtype=torch.float64) ** a
+    return p / p.sum()
+
+
+def make_postings(gen, v: int, wd: int, device) -> torch.Tensor:
+    """Token t's row has density about 2^-k(t), k from 3 (rank 0) to 14
+    (rank V-1) falling with Zipf rank: the AND of k random words."""
+    ks = (3 + torch.floor(11 * torch.log2(1.0 + torch.arange(v, dtype=torch.float64))
+                          / math.log2(v))).clamp(3, 14).long().tolist()
+    post = torch.empty((v, wd), dtype=torch.int32, device=device)
+    rows = 256
+    for r0 in range(0, v, rows):
+        kk = ks[r0:r0 + rows]                        # non-decreasing
+        acc = rand_words(gen, (len(kk), wd), device)
+        for level in range(2, kk[-1] + 1):
+            s = next(i for i, k in enumerate(kk) if k >= level)
+            acc[s:] &= rand_words(gen, (len(kk) - s, wd), device)
+        post[r0:r0 + len(kk)] = acc
+    return post
+
+
+def doc_tokens(postings: torch.Tensor, n_docs: int):
+    """CSR of each document's tokens from the packed postings: (ptr [n+1],
+    tok [nnz]), tokens ascending within a document."""
+    v, wd = postings.shape
+    dev = postings.device
+    shifts = torch.arange(32, dtype=torch.int32, device=dev)
+    toks, docs = [], []
+    for r0 in range(0, v, 4096):
+        blk = postings[r0:r0 + 4096]
+        t, w = torch.nonzero(blk, as_tuple=True)
+        bits = ((blk[t, w][:, None] >> shifts) & 1).bool()
+        m, b = torch.nonzero(bits, as_tuple=True)
+        toks.append(t[m] + r0)
+        docs.append(w[m] * 32 + b)
+    tok, doc = torch.cat(toks), torch.cat(docs)
+    order = torch.sort(doc * v + tok).indices
+    ptr = torch.zeros(n_docs + 1, dtype=torch.int64, device=dev)
+    ptr[1:] = torch.cumsum(torch.bincount(doc, minlength=n_docs), 0)
+    return ptr, tok[order]
+
+
+def make_deployment(seed: int, device, *, v=VOCAB, n_docs=N_DOCS,
+                    n_queries=N_QUERIES, n_clauses=N_CLAUSES) -> types.SimpleNamespace:
+    """A seeded deployment at the production shapes, built on `device`.
+
+    Postings are random with Zipf-falling densities; queries are 1..8
+    tokens sub-sampled from random documents' term sets (as
+    `data/synthetic.make_query_log` does, so every query matches); train
+    and test weights are two multinomial draws from a Zipf over the query
+    pool; the clauses are the top-weighted singletons and pairs of the
+    train log (the size <= 2 part of what FPGrowth mines).
+    """
+    from repro_torch.core import bitset
+    from repro_torch.kernels import ops
+    gen = torch.Generator(device).manual_seed(seed)
+    wd, wq = bitset.n_words(n_docs), bitset.n_words(n_queries)
+    postings = make_postings(gen, v, wd, device)
+    ptr, dtok = doc_tokens(postings, n_docs)
+
+    # queries: distinct tokens of a random non-empty document; duplicates
+    # dropped, then a random n_queries of them in random order
+    n_cand = 2 * n_queries
+    dlen = ptr[1:] - ptr[:-1]
+    docs = torch.nonzero(dlen > 0)[:, 0]
+    d = docs[torch.randint(0, len(docs), (n_cand,), device=device, generator=gen)]
+    lens = torch.empty(n_cand, device=device).geometric_(0.3, generator=gen)
+    lens = torch.minimum(lens.clamp(1, SERVE_L).long(), dlen[d])
+    pick = (torch.rand((n_cand, SERVE_L), device=device, generator=gen)
+            * dlen[d][:, None]).long()
+    qt = dtok[ptr[d][:, None] + pick]
+    slot = torch.arange(SERVE_L, device=device)
+    qt = torch.sort(torch.where(slot[None] < lens[:, None], qt, v), 1).values
+    dup = torch.zeros_like(qt, dtype=torch.bool)
+    dup[:, 1:] = qt[:, 1:] == qt[:, :-1]
+    qt = torch.unique(torch.sort(torch.where(dup, v, qt), 1).values, dim=0)
+    check(len(qt) >= n_queries, f"only {len(qt)} distinct queries")
+    qt = qt[torch.randperm(len(qt), generator=gen, device=device)[:n_queries]]
+
+    # Zipf train/test weights as two multinomial draws over the query pool
+    pool = zipf(n_queries, 0.9, device)
+    pool = pool[torch.randperm(n_queries, generator=gen, device=device)]
+
+    def draw(n):
+        ids = torch.multinomial(pool, n, replacement=True, generator=gen)
+        return (torch.bincount(ids, minlength=n_queries).double() / n).float()
+
+    wtr, wte = draw(2 ** 24), draw(2 ** 24)
+
+    # each query's sub-tuples of size <= 2 as keys a*V+b (a == b: singleton)
+    iu, ju = torch.triu_indices(SERVE_L, SERVE_L, 1, device=device)
+    keys = torch.cat([qt * v + qt, qt[:, iu] * v + qt[:, ju]], 1)
+    ok = torch.cat([qt < v, qt[:, ju] < v], 1)
+    qid = torch.arange(n_queries, device=device)[:, None].expand_as(keys)[ok]
+    keys = keys[ok]
+
+    # clauses: the n/2 singletons and n/2 pairs of most train weight, ties
+    # by key; kept in key order
+    uk, inv = torch.unique(keys, return_inverse=True)
+    support = torch.zeros(len(uk), dtype=torch.float64, device=device)
+    support.index_add_(0, inv, wtr[qid].double())
+    is_single = (uk // v) == (uk % v)
+    top = []
+    for part in (is_single, ~is_single):
+        kk, ss = uk[part], support[part]
+        check(len(kk) >= n_clauses // 2, "too few distinct sub-tuples")
+        top.append(kk[torch.sort(-ss, stable=True).indices[:n_clauses // 2]])
+    ckeys = torch.sort(torch.cat(top)).values
+    ca, cb = ckeys // v, ckeys % v
+    ctoks = torch.stack([ca, torch.where(cb == ca, -1, cb)], 1).to(torch.int32)
+    cdb = torch.empty((n_clauses, wd), dtype=torch.int32, device=device)
+    for s in range(0, n_clauses, 4096):
+        cdb[s:s + 4096] = ops.match_batch(postings, ctoks[s:s + 4096])
+
+    # clause_query_bits: bit q of row c iff clause c ⊆ query q, by looking
+    # each query's sub-tuples up among the sorted clause keys
+    pos = torch.searchsorted(ckeys, keys).clamp(max=n_clauses - 1)
+    hit = ckeys[pos] == keys
+    c, q = pos[hit], qid[hit]
+    with_clause = float(torch.bincount(q, minlength=n_queries).gt(0).float().mean())
+    cqb = torch.zeros(n_clauses * wq, dtype=torch.int32, device=device)
+    # distinct (clause, query) pairs: the sum of their bits is their OR
+    cqb.index_add_(0, c * wq + (q >> 5), bitset._as_int32(1 << (q & 31)))
+    cqb = cqb.view(n_clauses, wq)
+
+    qt32 = torch.where(qt < v, qt, -1).to(torch.int32)
+    clauses = [tuple(t for t in row if t >= 0) for row in ctoks.tolist()]
+    return types.SimpleNamespace(
+        postings=postings, clause_doc_bits=cdb, clause_query_bits=cqb,
+        clauses=clauses, query_tokens=qt32, train_weights=wtr,
+        test_weights=wte, vocab_size=v, n_docs=n_docs, n_queries=n_queries,
+        with_clause=with_clause, doc_len=float(dlen.float().mean()), gen=gen)
+
+
+def first_divergence(problem, a: list[int], b: list[int]):
+    """(index, exact_tie) of the first place two orders differ, or None."""
+    from repro_torch.core.greedy import ratio_of
+    i = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
+    if i is None:
+        return None if len(a) == len(b) else (min(len(a), len(b)), False)
+    st = problem.state_for(a[:i])
+    r = ratio_of(problem.f_gains(st.covered_q), problem.g_gains(st.covered_d))
+    return i, bool(r[a[i]] == r[b[i]])
+
+
+def phase3(seed: int, counts: dict, dev=torch.device("cuda"),
+           min_peak: int = 40 * 2 ** 30, **sizes) -> dict:
+    from repro_torch.core import bitset, registry
+    from repro_torch.core.config import SolveConfig
+    from repro_torch.core.problem import SCSKProblem
+    from repro_torch.core.tiering import ClauseTiering
+    from repro_torch.kernels import _build, ops
+    from repro_torch.serve.engine import TieredEngine
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    d = make_deployment(seed, dev, **sizes)
+    torch.cuda.synchronize()
+    log(f"[phase 3] deployment built in {time.perf_counter() - t:.1f}s: "
+        f"V={d.vocab_size} docs={d.n_docs} queries={d.n_queries} "
+        f"clauses={len(d.clauses)}; mean doc length {d.doc_len:.2f} tokens; "
+        f"{d.with_clause:.3f} of queries contain a clause; "
+        f"reduced {json.dumps(REDUCED)}")
+
+    _build.reset_launches()
+    problem = SCSKProblem(d.clause_query_bits, d.clause_doc_bits,
+                          d.train_weights, d.test_weights,
+                          d.n_queries, d.n_docs)
+    budget = float(int(d.n_docs * 0.5))
+    results = {}
+    for solver, opts in (("greedy", {}), ("optpes", {"k": REFRESH_K})):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        res = registry.solve(problem, SolveConfig(
+            budget=budget, solver=solver, max_steps=128, options=opts))
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t
+        steps = np.diff(res.time_history) * 1e3
+        results[solver] = res
+        log(f"[phase 3] {res.summary()} in {dt:.2f}s; per selection ms: "
+            f"median {np.median(steps):.3f} max {steps.max():.3f}")
+    div = first_divergence(problem, results["greedy"].order,
+                           results["optpes"].order)
+    if div is not None:
+        log(f"[phase 3] greedy and optpes orders first differ at {div[0]} "
+            f"(exact ratio tie: {div[1]})")
+        check(div[1], "greedy and optpes orders differ without a tie")
+
+    tiering = ClauseTiering.from_selection(d, results["greedy"].selected)
+    engine = TieredEngine(d.postings, tiering, d.n_docs)
+    test_p = d.test_weights.double() / d.test_weights.double().sum()
+    batches = []
+    for _ in range(2):
+        ids = torch.multinomial(test_p, SERVE_B, replacement=True,
+                                generator=d.gen)
+        toks = d.query_tokens[ids].tolist()
+        qs = [tuple(t for t in row if t >= 0) for row in toks]
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        got = engine.serve(qs)
+        dt = time.perf_counter() - t
+        ref = engine.serve_reference(qs)
+        check(all(np.array_equal(a, b) for a, b in zip(got, ref)),
+              "phase 3 serve != serve_reference")
+        batches.append((qs, dt, sum(len(m) for m in got)))
+    torch.cuda.synchronize()
+    counts.update(_build.LAUNCHES)
+    s = engine.stats
+    log(f"[phase 3] serve batches of {SERVE_B}: "
+        + ", ".join(f"{dt * 1e3:.1f} ms ({n} matched docs)" for _, dt, n in batches)
+        + f"; == serve_reference; tier1_fraction {s.tier1_fraction:.4f} "
+          f"(eligible share), tier-1 docs {tiering.tier1_docs.mean():.4f}, "
+          f"cost_saving {s.cost_saving:.4f}")
+    peak = torch.cuda.max_memory_allocated()
+    log(f"[phase 3] launches {dict(counts)}; max_memory_allocated "
+        f"{peak / 2 ** 30:.2f} GiB")
+    check(all(v > 0 for v in counts.values()), f"a kernel never launched: {counts}")
+    check(peak >= min_peak, f"phase 3 held less than {min_peak / 2 ** 30} GiB")
+    # where a serve batch's time goes: the engine's steps, one at a time
+    qs = batches[0][0]
+    live = engine._live
+
+    def host_ms(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    toks, ms_tok = host_ms(lambda: engine._tokens(qs))
+    qbits, ms_pack = host_ms(lambda: bitset.pack_tokens(toks, d.vocab_size))
+    (match, _), ms_match = host_ms(lambda: ops.fused_match(
+        qbits, live.clause_bits, toks, live.postings_t1, engine.postings_t2))
+    _, ms_ids = host_ms(lambda: bitset.rows_to_indices(match, d.n_docs))
+    log(f"[phase 3] serve batch breakdown (host clock, ms): token batch to "
+        f"device {ms_tok:.2f}, pack_tokens {ms_pack:.2f}, fused_match "
+        f"{ms_match:.2f}, doc ids {ms_ids:.2f}")
+    state = problem.state_for(results["greedy"].order)
+    return dict(problem=problem, state=state, engine=engine, tokens=toks,
+                qbits=qbits, peak=peak, gen=d.gen)
+
+
+def phase1_scale(p3: dict) -> list[dict]:
+    """Each kernel at the phase-3 shapes: agreement with its plain version
+    (on a seeded sample of 512 rows where the plain output would be the full
+    matrix), median time, plain time and bound."""
+    from repro_torch.core import bitset
+    from repro_torch.kernels import ops, ref
+    problem, state, engine = p3["problem"], p3["state"], p3["engine"]
+    gen = p3["gen"]
+    rec = []
+
+    def bound(nbytes, flops=0.0):
+        t_b, t_f = nbytes / HBM_BYTES_PER_S, flops / FP64_FLOPS
+        return max(t_b, t_f) * 1e3, "bytes" if t_b >= t_f else "operations"
+
+    def sample(n):
+        return torch.randperm(n, generator=gen, device=gen.device)[:512]
+
+    # coverage_gain: g-gains of every clause at the greedy prefix
+    a, mask = problem.clause_doc_bits, state.covered_d
+    c, w = a.shape
+    out = ops.coverage_gain(a, mask)
+    idx = sample(c)
+    err = int((out[idx] - ref.coverage_gain(a[idx], mask)).abs().max())
+    check(err == 0, "coverage_gain disagrees at scale")
+    b_ms, b_by = bound(4 * (c * w + w + c))
+    rec.append(dict(name="coverage_gain", max_abs_err=err,
+                    ms=time_ms(lambda: ops.coverage_gain(a, mask), 20),
+                    plain_ms=time_ms(lambda: ref.coverage_gain(a, mask), 2),
+                    bound_ms=b_ms, bound_by=b_by, shape=[c, w]))
+
+    # bit_matvec: f-gains of every clause at the greedy prefix (R = 1)
+    a = problem.clause_query_bits
+    x = (problem.query_weights
+         * (1.0 - bitset.unpack(state.covered_q).float()))[:, None]
+    c, w = a.shape
+    out = ops.bit_matvec(a, x)
+    idx = sample(c)
+    want = ref.bit_matvec(a[idx], x)
+    torch.testing.assert_close(out[idx], want, rtol=1e-4, atol=1e-6)
+    err = float((out[idx] - want).abs().max())
+    nnz = int(ops.coverage_gain(a, torch.zeros_like(a[0])).sum())
+    b_ms, b_by = bound(4 * (c * w + w * 32 + c), flops=float(nnz))
+    rec.append(dict(name="bit_matvec", max_abs_err=err,
+                    ms=time_ms(lambda: ops.bit_matvec(a, x), 20),
+                    plain_ms=time_ms(lambda: ref.bit_matvec(a, x), 2),
+                    bound_ms=b_ms, bound_by=b_by, shape=[c, w, 1], nnz=nnz))
+
+    # clause_match: ψ over a serve batch against the deployed clauses
+    q, cl = p3["qbits"], engine._live.clause_bits
+    out = ops.clause_match(q, cl)
+    err = int((out != ref.clause_match(q, cl)).sum())
+    check(err == 0, "clause_match disagrees at scale")
+    (bq, wv), k = q.shape, cl.shape[0]
+    b_ms, b_by = bound(4 * (bq + k) * wv + bq)
+    rec.append(dict(name="clause_match", max_abs_err=err,
+                    ms=time_ms(lambda: ops.clause_match(q, cl), 20),
+                    plain_ms=time_ms(lambda: ref.clause_match(q, cl), 2),
+                    bound_ms=b_ms, bound_by=b_by, shape=[bq, k, wv]))
+
+    # tier_match: the tier-selected AND-match of that batch
+    toks, t1, t2 = p3["tokens"], engine.postings_t1, engine.postings_t2
+    sel = out
+    got = ops.tier_match(t1, t2, sel, toks)
+    err = int((got != ref.tier_match(t1, t2, sel, toks)).sum())
+    check(err == 0, "tier_match disagrees at scale")
+    (bq, ell), w = toks.shape, t2.shape[1]
+    # each needed postings row is read once: distinct (tier, token) pairs
+    rows = (sel.long()[:, None] * t2.shape[0] + toks.long())[toks >= 0]
+    n_rows = int(torch.unique(rows).numel())
+    b_ms, b_by = bound(4 * (n_rows * w + bq * w + bq * ell) + bq)
+    rec.append(dict(name="tier_match", max_abs_err=err,
+                    ms=time_ms(lambda: ops.tier_match(t1, t2, sel, toks), 20),
+                    plain_ms=time_ms(lambda: ref.tier_match(t1, t2, sel, toks), 2),
+                    bound_ms=b_ms, bound_by=b_by, shape=[bq, ell, w],
+                    distinct_rows=n_rows))
+    return rec
+
+
+SOURCES = {
+    "coverage_gain": ("src/repro_torch/kernels/csrc/coverage_gain.cu",
+                      "src/repro/kernels/coverage_gain.py:33"),
+    "bit_matvec": ("src/repro_torch/kernels/csrc/bit_matvec.cu",
+                   "src/repro/kernels/bit_matvec.py:80"),
+    "clause_match": ("src/repro_torch/kernels/csrc/clause_match.cu",
+                     "src/repro/kernels/clause_match.py:67"),
+    "tier_match": ("src/repro_torch/kernels/csrc/tier_match.cu",
+                   "src/repro/kernels/fused_match.py:80"),
+}
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs only on the card",
+              file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    from repro_torch.kernels import _build
+    torch.backends.cuda.matmul.allow_tf32 = False   # no TF32 in any matmul
+    torch.backends.cudnn.allow_tf32 = False
+    t_all = time.perf_counter()
+
+    t = time.perf_counter()
+    card = card_line()
+    log(f"[phase 0] card: {card}")
+    log(f"[phase 0] torch {torch.__version__} cuda {torch.version.cuda} "
+        f"device {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
+    _build.lib()
+    ptxas = [ln.strip() for ln in _build.build_info["log"].splitlines()
+             if "registers" in ln or "spill" in ln]
+    log(f"[phase 0] kernels built in {_build.build_info['seconds']:.1f}s "
+        f"-> {_build.build_info['path']}")
+    for ln in ptxas:
+        log(f"[phase 0]   ptxas {ln}")
+    log(f"[phase 0] {time.perf_counter() - t:.1f}s")
+
+    t = time.perf_counter()
+    worst = phase1_small(torch.device("cuda"))
+    log(f"[phase 1] ragged shapes: integer kernels equal, bit_matvec max abs "
+        f"err {worst:.3g} (rtol 1e-5, atol 1e-4); "
+        f"{time.perf_counter() - t:.1f}s")
+
+    t = time.perf_counter()
+    medium_counts: dict = {}
+    phase2(medium_counts)
+    log(f"[phase 2] {time.perf_counter() - t:.1f}s")
+
+    t = time.perf_counter()
+    counts: dict = {}
+    p3 = phase3(args.seed, counts)
+    log(f"[phase 3] {time.perf_counter() - t:.1f}s")
+
+    t = time.perf_counter()
+    rec = phase1_scale(p3)
+    for r in rec:
+        src, tpu = SOURCES[r["name"]]
+        r.update(route="cuda", source=src, replaces=tpu,
+                 launches=counts[r["name"]],
+                 launches_medium=medium_counts[r["name"]], library_ms=None)
+        log(f"[phase 1] at scale {r['name']} {r['shape']}: {r['ms']:.3f} ms "
+            f"(bound {r['bound_ms']:.3f} ms by {r['bound_by']}, plain "
+            f"{r['plain_ms']:.3f} ms), max abs err {r['max_abs_err']:.3g}")
+    log(f"[phase 1] at scale: {time.perf_counter() - t:.1f}s; "
+        f"total {time.perf_counter() - t_all:.1f}s")
+    print(json.dumps({"kernels": rec}))
+    print(card_line())
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

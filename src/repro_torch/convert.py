@@ -1,0 +1,58 @@
+"""Carry the reference's state into the port.
+
+The counterpart of a weight converter: each function takes a reference
+object's arrays as numpy (uint32 words, f32 weights, bool masks) and builds
+the port's object on a given device, so both packages can compute on
+identical operands.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.core import bitset
+from repro_torch.core.problem import SCSKProblem
+from repro_torch.core.state import SolverState
+from repro_torch.core.tiering import ClauseTiering
+from repro_torch.device import resolve_device
+
+
+def problem_from_numpy(clause_query_bits: np.ndarray,
+                       clause_doc_bits: np.ndarray,
+                       query_weights: np.ndarray, test_weights: np.ndarray,
+                       n_queries: int, n_docs: int,
+                       device=None) -> SCSKProblem:
+    """An `SCSKProblem` from a reference problem's arrays (words uint32,
+    weights f32 already padded to Wq*32)."""
+    dev = resolve_device(device)
+    return SCSKProblem(
+        clause_query_bits=bitset.to_tensor(clause_query_bits, dev),
+        clause_doc_bits=bitset.to_tensor(clause_doc_bits, dev),
+        query_weights=torch.as_tensor(np.asarray(query_weights, np.float32),
+                                      device=dev),
+        test_weights=torch.as_tensor(np.asarray(test_weights, np.float32),
+                                     device=dev),
+        n_queries=int(n_queries), n_docs=int(n_docs))
+
+
+def state_from_numpy(covered_q: np.ndarray, covered_d: np.ndarray,
+                     selected: np.ndarray, g_used: float, step: int,
+                     device=None) -> SolverState:
+    """A `SolverState` from a reference state's arrays."""
+    dev = resolve_device(device)
+    return SolverState(
+        covered_q=bitset.to_tensor(covered_q, dev),
+        covered_d=bitset.to_tensor(covered_d, dev),
+        selected=torch.as_tensor(np.asarray(selected, bool), device=dev),
+        g_used=torch.tensor(np.float32(g_used), device=dev),
+        step=int(step))
+
+
+def tiering_from_numpy(clauses, clause_vocab_bits: np.ndarray,
+                       tier1_docs: np.ndarray, vocab_size: int) -> ClauseTiering:
+    """A `ClauseTiering` from a reference tiering's fields (host arrays)."""
+    return ClauseTiering(
+        clauses=[tuple(int(t) for t in c) for c in clauses],
+        clause_vocab_bits=np.asarray(clause_vocab_bits, np.uint32),
+        tier1_docs=np.asarray(tier1_docs, bool),
+        vocab_size=int(vocab_size))

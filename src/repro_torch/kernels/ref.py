@@ -1,0 +1,89 @@
+"""Plain PyTorch versions of the four kernels.
+
+The port's counterpart of `repro.kernels.ref`: the semantics of record.
+A wrapper in `ops` takes these only for tensors on the CPU; on the card
+`chip_smoke.py` holds each CUDA kernel against them. Each one works in
+chunks of about `CHUNK_BYTES` of intermediate, so it also runs at the
+production shapes on the card, where an unchunked unpack would not fit.
+
+Words are int32 with the uint32 bit pattern (see `core.bitset`).
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core import bitset
+
+WORD = 32
+CHUNK_BYTES = 1 << 28
+
+
+def bit_matvec(a_bits: torch.Tensor, x: torch.Tensor,
+               chunk_w: int = 256) -> torch.Tensor:
+    """unpack(a_bits [C, W]) @ x [W*32, R] -> f32 [C, R].
+
+    Summed in f64 over `chunk_w`-word slabs and rounded once to f32, as the
+    CUDA kernel does: the result is the correctly rounded sum whatever the
+    order, so the CPU and the card agree on every f-gain."""
+    c, w = a_bits.shape
+    out = torch.zeros((c, x.shape[1]), dtype=torch.float64, device=x.device)
+    x64 = x.to(torch.float64)
+    cw = max(1, min(chunk_w, w))
+    rows = max(1, CHUNK_BYTES // (cw * WORD * 12))
+    for r0 in range(0, c, rows):
+        acc = out[r0:r0 + rows]
+        for w0 in range(0, w, cw):
+            acc += bitset.unpack(a_bits[r0:r0 + rows, w0:w0 + cw]).to(torch.float64) \
+                @ x64[w0 * WORD:(w0 + cw) * WORD]
+    return out.to(torch.float32)
+
+
+def coverage_gain(a_bits: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """popcount(a_bits [C, W] & ~mask [W]) per row -> int32 [C]."""
+    c, w = a_bits.shape
+    out = torch.empty(c, dtype=torch.int32, device=a_bits.device)
+    rows = max(1, CHUNK_BYTES // max(1, w * 8))
+    for r0 in range(0, c, rows):
+        out[r0:r0 + rows] = bitset.count_and_not(a_bits[r0:r0 + rows], mask)
+    return out
+
+
+def clause_match(query_bits: torch.Tensor,
+                 clause_bits: torch.Tensor) -> torch.Tensor:
+    """eligible [B] bool = ∃k . clause_bits[k] ⊆ query_bits[b] (ψ^clause)."""
+    b, wv = query_bits.shape
+    k = clause_bits.shape[0]
+    out = torch.zeros(b, dtype=torch.bool, device=query_bits.device)
+    if k == 0 or b == 0:
+        return out
+    miss_q = ~query_bits
+    ks = max(1, min(k, CHUNK_BYTES // max(1, wv * 4)))
+    bs = max(1, CHUNK_BYTES // max(1, ks * wv * 4))
+    for b0 in range(0, b, bs):
+        q = miss_q[b0:b0 + bs, None, :]
+        for k0 in range(0, k, ks):
+            sub = ((clause_bits[None, k0:k0 + ks] & q) == 0).all(-1)
+            out[b0:b0 + bs] |= sub.any(-1)
+    return out
+
+
+def tier_match(t1: torch.Tensor, t2: torch.Tensor, sel: torch.Tensor | None,
+               tokens: torch.Tensor) -> torch.Tensor:
+    """Per query, the AND of its tokens' postings rows, taken from `t1`
+    where `sel` is set and from `t2` elsewhere (everywhere when `sel` is
+    None). A -1 token is skipped; a query with none gets all-ones."""
+    b, ell = tokens.shape
+    w = t2.shape[1]
+    out = torch.full((b, w), -1, dtype=torch.int32, device=t2.device)
+    valid = tokens >= 0
+    safe = torch.where(valid, tokens, 0).long()
+    rows = max(1, CHUNK_BYTES // max(1, w * 4 * 3))
+    for b0 in range(0, b, rows):
+        acc = out[b0:b0 + rows]
+        for j in range(ell):
+            tok = safe[b0:b0 + rows, j]
+            got = t2[tok]
+            if sel is not None:
+                got = torch.where(sel[b0:b0 + rows, None], t1[tok], got)
+            acc &= torch.where(valid[b0:b0 + rows, j, None], got, -1)
+    return out
