@@ -5,21 +5,35 @@
 Phases (each prints its seconds; any failure is an uncaught exception and
 a non-zero exit):
   0. environment: card name and power limit, torch/CUDA versions, and the
-     build of the four CUDA kernels from `src/repro_torch/kernels/csrc`.
+     build of the six CUDA kernels from `src/repro_torch/kernels/csrc`.
   1. each kernel against its plain PyTorch version on ragged small shapes
-     (exact for the integer kernels, allclose for bit_matvec).
-  2. the main path through the normal entry points at the `medium` preset:
-     mine -> greedy/optpes -> verify/coverage -> deploy + serve 2000
-     requests (each batch == serve_reference) -> warm-started sweep, then
-     the same sequence on the CPU (plain versions); orders, selections,
-     match sets and ServeStats must agree.
-  3. the same classes at the repo's production shapes
-     (configs/tiering_scsk.py: 2^17 vocabulary, 2^20 queries, 4096-query
-     serve batches), cut to 2^16 clauses and 2^20 docs so that every operand
-     is resident on one 80 GB card; greedy == optpes (up to exact ties),
-     serve == serve_reference on two batches. Launch counts are read from
-     this run. Then each kernel again against its plain version at these
-     shapes, with its timing and bound.
+     (exact for the integer kernels, allclose for bit_matvec);
+     partition_gain also against coverage_gain, sparse_gain on masks on
+     both sides of its shared-memory limit.
+  2. at the `medium` preset, on the card and then on the CPU (plain
+     versions), through the normal entry points:
+     a. the main path: mine -> greedy/optpes -> verify/coverage -> deploy +
+        serve 2000 requests (each batch == serve_reference) -> warm-started
+        sweep;
+     b. per-shard budgets: greedy/optpes with budget_split="traffic" over 4
+        shards, a partitioned sweep, a warm refit onto the test weights;
+        then the sparse greedy round over padded doc-id lists against the
+        dense greedy step on the same problem.
+     Orders, selections, caps, fills, match sets and ServeStats must agree
+     between the two devices.
+  3. the production shapes (configs/tiering_scsk.py: 2^17 vocabulary, 2^20
+     queries, 4096-query serve batches), cut to 2^16 clauses and 2^20 docs
+     so that every operand is resident on one 80 GB card:
+     a. greedy == optpes (up to exact ties), serve == serve_reference on two
+        batches;
+     b. greedy and optpes under 8 per-shard caps set to half of the global
+        greedy's fills (the caps bind): equal orders, every fill <= cap;
+     c. the sparse round over the clauses with |m(c)| <= 4096 against dense
+        greedy over the same rows: equal orders and covered docs.
+     Launch counts are read from each path's own run. Then each kernel
+     against its plain version at these shapes, with its timing and bound,
+     and sparse_gain once more at solve_sparse_xl's own shapes (2^20 lists
+     of 4096 ids over 2^28 docs, the L2 route).
 The last lines are the kernels' JSON record, the card line, and the
 contract line {"ok": true, "device": {...}}.
 
@@ -28,6 +42,7 @@ Imports nothing of JAX or of the JAX package `repro`.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import math
 import statistics
@@ -50,11 +65,17 @@ N_CLAUSES = 2 ** 16            # cut from solve_dense_m's 2^17
 N_DOCS = 2 ** 20               # cut from 2^22..2^23 -> Wd = 32768
 SERVE_B, SERVE_L = 4096, 8     # serve_route batch
 REFRESH_K = 4096               # tiering_scsk refresh_k
+N_PARTS = 8                    # per-shard caps at the production shapes
+SPARSE_M = 4096                # solve_sparse_xl's padded list length
+XL_CLAUSES, XL_DOCS = 2 ** 20, 2 ** 28   # solve_sparse_xl, uncut
+MAIN_KERNELS = ("coverage_gain", "bit_matvec", "clause_match", "tier_match")
 REDUCED = {
     "clauses": "2^16 token singletons and pairs (solve_dense_m has 2^17)",
     "docs": "2^20 (solve_dense_m 2^23, serve_route 2^22; 2^20 is the low "
             "end of the paper's |D| range)",
-    "solve_steps": "max_steps=128 per solver",
+    "solve_steps": "max_steps=128 per solver and per sparse round",
+    "sparse_round": "the phase-3 clauses with |m(c)| <= 4096 (the rest get "
+                    "an all -1 list and start selected)",
 }
 
 
@@ -156,6 +177,46 @@ def phase1_small(device) -> float:
             got = ops.tier_match(t1, t2, s, toks)
             check(torch.equal(got, ref.tier_match(t1, t2, s, toks)),
                   f"tier_match {b}x{ell} over [{v}, {w}]")
+
+    # partition_gain: the reference test's four cases, then offsets that are
+    # not multiples of 4 words (11 words in 3 parts: 0, 4, 8, 11), one word
+    # per part, and P = W
+    from repro_torch.core.constraint import partition_bounds
+    for c, w, parts in [(37, 11, 3), (5, 3, 1), (130, 33, 5), (64, 8, 8),
+                        (300, 17, 17), (257, 1024, 8), (1000, 4, 3),
+                        (66, 64, 7)]:
+        bounds = partition_bounds(w * 32, parts)
+        a = rand_words(gen, (c, w), device)
+        a[0] = -1
+        mask = rand_words(gen, (w,), device)
+        for aa in (a, misaligned(a)):
+            for mm in (mask, misaligned(mask)):
+                got = ops.partition_gain(aa, mm, bounds)
+                check(torch.equal(got, ref.partition_gain(aa, mm, bounds)),
+                      f"partition_gain {c}x{w} over {bounds}")
+                check(torch.equal(got.sum(-1, dtype=torch.int32),
+                                  ops.coverage_gain(aa, mm)),
+                      f"partition_gain {c}x{w} does not sum to coverage_gain")
+
+    # sparse_gain: -1 at random places; masks on both sides of the
+    # shared-memory limit (58112 words is the largest that is staged)
+    from repro_torch.kernels.sparse_gain import SMEM_BYTES, smem_route
+    limit = SMEM_BYTES // 4
+    for c, m, w in [(1, 4, 2), (5, 7, 4), (33, 40, 64), (128, 65, 16),
+                    (300, 1, 1), (64, 4096, 32768), (97, 333, limit),
+                    (97, 333, limit + 1), (40, 1024, 2 ** 20)]:
+        ids = torch.randint(0, w * 32, (c, m), dtype=torch.int32,
+                            device=device, generator=gen)
+        ids[torch.rand((c, m), generator=gen, device=device) < 0.3] = -1
+        ids[0] = -1                                  # a row of padding only
+        mask = rand_words(gen, (w,), device)
+        for ii in (ids, misaligned(ids)):
+            got = ops.sparse_gain(ii, mask)
+            check(torch.equal(got, ref.sparse_gain(ii, mask)),
+                  f"sparse_gain {c}x{m} over {w} words "
+                  f"({'smem' if smem_route(w) else 'l2'} route)")
+    check(smem_route(limit) and not smem_route(limit + 1),
+          "the shared-memory limit is not where phase 1 tests it")
     torch.cuda.synchronize()
     return worst
 
@@ -170,6 +231,8 @@ def run_pipeline(pipe, n_requests: int = 2000, batch: int = 128) -> dict:
         pipe.solve(solver, budget_frac=0.5)
         out[solver] = pipe.result
     out["solve_s"] = time.perf_counter() - t
+    out["div"] = first_divergence(pipe.problem, out["greedy"].order,
+                                  out["optpes"].order)
     check(pipe.verify(), "Theorem 3.1 violated")
     out["coverage"] = pipe.coverage()
     engine = pipe.deploy()
@@ -197,6 +260,137 @@ def run_pipeline(pipe, n_requests: int = 2000, batch: int = 128) -> dict:
     return out
 
 
+def add_counts(total: dict, launches: dict) -> None:
+    for k, v in launches.items():
+        total[k] = total.get(k, 0) + v
+
+
+def ordered_or_tied(problem, a: list[int], b: list[int], what: str) -> None:
+    """Two solvers' orders are equal, or first differ at an exact f/g tie."""
+    div = first_divergence(problem, a, b)
+    check(div is None or div[1], f"{what}: orders differ at {div} without a tie")
+
+
+def sparse_round(problem, ids, state, budget: float, steps: int) -> dict:
+    """`sparse_greedy_step` over the -1-padded `ids` against the dense
+    `greedy_step` on the same problem, from the same `state`, step for step,
+    until both stop or `steps` selections: same clause, same stop, same
+    covered docs."""
+    from repro_torch.core.greedy import greedy_step
+    from repro_torch.core.sparse_step import sparse_greedy_step
+    sp = (state.covered_q, state.covered_d, state.selected, state.g_used)
+    order = []
+    stop = False
+    t_sparse = t_dense = 0.0
+    for _ in range(steps):
+        t = time.perf_counter()
+        *sp, j, stop = sparse_greedy_step(
+            ids, problem.clause_query_bits, problem.query_weights, *sp, budget)
+        t_sparse += time.perf_counter() - t
+        t = time.perf_counter()
+        state, jd, dstop = greedy_step(problem, state, budget)
+        t_dense += time.perf_counter() - t
+        check((j, stop) == (jd, dstop),
+              f"sparse round picked ({j}, {stop}), dense ({jd}, {dstop}) "
+              f"at step {len(order)}")
+        if stop:
+            break
+        order.append(j)
+    check(torch.equal(sp[1], state.covered_d), "sparse round covered_d != dense")
+    check(float(sp[3]) == float(state.g_used), "sparse round g_used != dense")
+    return dict(order=order, stop=stop, covered_d=sp[1], g_used=float(sp[3]),
+                sparse_s=t_sparse, dense_s=t_dense)
+
+
+def run_partitioned(pipe, n_shards: int = 4, steps: int = 128) -> dict:
+    """Per-shard budgets through the pipeline (traffic split over
+    `n_shards`), a partitioned sweep, a warm refit onto the test weights,
+    then the sparse greedy round on the same problem."""
+    from repro_torch.core import constraint as tc
+    from repro_torch.data import incidence
+    out: dict = {}
+    split = dict(budget_split="traffic", n_shards=n_shards)
+    t = time.perf_counter()
+    for solver in ("greedy", "optpes"):
+        r = pipe.solve(solver, budget_frac=0.5, **split).result
+        check(np.all(r.extra["g_part"] <= r.extra["caps"]),
+              f"partitioned {solver} overfills a shard: {r.extra}")
+        out[solver] = r
+    ordered_or_tied(pipe.problem, out["greedy"].order, out["optpes"].order,
+                    "partitioned greedy vs optpes (medium)")
+    check(pipe.verify(), "Theorem 3.1 violated under per-shard budgets")
+    out["solve_s"] = time.perf_counter() - t
+    n = pipe.corpus.n_docs
+    t = time.perf_counter()
+    out["sweep"] = pipe.sweep([n // 4, n // 2], "greedy", **split)
+    for r in out["sweep"]:
+        check(np.all(r.extra["g_part"] <= r.extra["caps"]),
+              "partitioned sweep overfills a shard")
+    out["sweep_s"] = time.perf_counter() - t
+
+    # warm refit onto the test weights: the traffic split is re-allocated
+    # and the warm state trimmed of clauses touching over-cap shards
+    prev = pipe.solve("greedy", budget_frac=0.5, **split).result
+    test_w = pipe.log.test_weights
+    new = pipe.partition_constraint(float(int(n * 0.5)), "traffic", n_shards,
+                                    weights=np.asarray(test_w, np.float64))
+    _, dropped = tc.trim_state(pipe.problem.with_weights(test_w), prev.state,
+                               new)
+    t = time.perf_counter()
+    r = pipe.refit(test_w, state=prev.state).result
+    out["refit_s"] = time.perf_counter() - t
+    check(np.array_equal(r.extra["caps"], new.caps.astype(np.float64)),
+          "refit did not re-allocate the caps from the new weights")
+    check(np.all(r.extra["g_part"] <= r.extra["caps"]), "refit overfills a shard")
+    out["refit"], out["refit_prev_caps"] = r, prev.extra["caps"]
+    out["refit_dropped"] = dropped.tolist()
+
+    # the sparse round: the same clauses as -1-padded sorted doc-id lists
+    ids = torch.from_numpy(incidence.padded_id_lists(
+        pipe.data.clause_doc_bits, n)).to(pipe.device)
+    problem = pipe.problem
+    out["sparse"] = sparse_round(problem, ids, problem.init_state(),
+                                 float(int(n * 0.5)), steps)
+    out["sparse_m"] = ids.shape[1]
+    return out
+
+
+def compare_partitioned(gpu: dict, cpu: dict) -> None:
+    """The per-shard-budget path gave the same results on both devices."""
+    for key in ("greedy", "optpes", "refit"):
+        g, c = gpu[key], cpu[key]
+        check(g.order == c.order, f"partitioned {key} order differs from the CPU run")
+        for e in ("caps", "g_part"):
+            check(np.array_equal(g.extra[e], c.extra[e]),
+                  f"partitioned {key} {e} differs from the CPU run")
+    for g, c in zip(gpu["sweep"], cpu["sweep"]):
+        check(g.order == c.order and np.array_equal(g.extra["caps"], c.extra["caps"])
+              and np.array_equal(g.extra["g_part"], c.extra["g_part"]),
+              "partitioned sweep differs from the CPU run")
+    check(gpu["refit_dropped"] == cpu["refit_dropped"], "refit trimmed differently")
+    gs, cs = gpu["sparse"], cpu["sparse"]
+    check(gs["order"] == cs["order"] and gs["stop"] == cs["stop"]
+          and torch.equal(gs["covered_d"].cpu(), cs["covered_d"]),
+          "sparse round differs from the CPU run")
+    g = gpu
+    log(f"[phase 2] per-shard budgets (4 shards, traffic split): greedy "
+        f"{len(g['greedy'].order)} / optpes {len(g['optpes'].order)} "
+        f"selections, caps {g['greedy'].extra['caps'].tolist()} fills "
+        f"{g['greedy'].extra['g_part'].tolist()}; sweep orders "
+        f"{[len(r.order) for r in g['sweep']]}; refit caps "
+        f"{g['refit_prev_caps'].tolist()} -> {g['refit'].extra['caps'].tolist()}"
+        f", {len(g['refit_dropped'])} warm clauses trimmed, "
+        f"{len(g['refit'].order)} new selections")
+    log(f"[phase 2] sparse round (M={g['sparse_m']}): {len(gs['order'])} "
+        f"selections (stop {gs['stop']}), g={gs['g_used']:.0f}, == dense greedy")
+    log(f"[phase 2] per-shard path cuda: solve {g['solve_s']:.2f}s sweep "
+        f"{g['sweep_s']:.2f}s refit {g['refit_s']:.2f}s sparse round "
+        f"{gs['sparse_s']:.2f}s (dense {gs['dense_s']:.2f}s) | cpu: solve "
+        f"{cpu['solve_s']:.2f}s sweep {cpu['sweep_s']:.2f}s refit "
+        f"{cpu['refit_s']:.2f}s sparse round {cs['sparse_s']:.2f}s "
+        f"(dense {cs['dense_s']:.2f}s)")
+
+
 def phase2(counts, scale: str = "medium", device=None) -> dict:
     from repro_torch import api
     from repro_torch.kernels import _build
@@ -208,7 +402,14 @@ def phase2(counts, scale: str = "medium", device=None) -> dict:
     _build.reset_launches()
     gpu = run_pipeline(pipe)
     counts.update(_build.LAUNCHES)
-    cpu = run_pipeline(api.TieringPipeline.from_data(pipe.data, device="cpu"))
+    check(all(counts[k] > 0 for k in MAIN_KERNELS),
+          f"a kernel of the main path never launched: {counts}")
+    _build.reset_launches()
+    gpu_part = run_partitioned(pipe)
+    add_counts(counts, _build.LAUNCHES)
+    cpu_pipe = api.TieringPipeline.from_data(pipe.data, device="cpu")
+    cpu = run_pipeline(cpu_pipe)
+    cpu_part = run_partitioned(cpu_pipe)
     for solver in ("greedy", "optpes"):
         g, c = gpu[solver], cpu[solver]
         check(g.order == c.order, f"{solver} order differs from the CPU run")
@@ -216,8 +417,7 @@ def phase2(counts, scale: str = "medium", device=None) -> dict:
         check(math.isclose(g.f_final, c.f_final, rel_tol=1e-5),
               f"{solver} f_final {g.f_final} vs {c.f_final}")
         check(g.g_final == c.g_final, f"{solver} g_final differs")
-    div = first_divergence(pipe.problem, gpu["greedy"].order,
-                           gpu["optpes"].order)
+    div = gpu["div"]
     check(div is None or div[1], f"greedy and optpes orders differ at {div}")
     check([r.order for r in gpu["sweep"]] == [r.order for r in cpu["sweep"]],
           "sweep order differs from the CPU run")
@@ -232,8 +432,9 @@ def phase2(counts, scale: str = "medium", device=None) -> dict:
     log(f"[phase 2] greedy/optpes: {len(gpu['greedy'].order)} selections, "
         f"f={gpu['greedy'].f_final:.6f} g={gpu['greedy'].g_final:.0f}; "
         f"coverage {gpu['coverage']}; stats {gpu['stats']}")
-    log(f"[phase 2] launches {dict(counts)}; orders, selections, match sets "
-        f"and ServeStats equal to the device='cpu' run")
+    compare_partitioned(gpu_part, cpu_part)
+    log(f"[phase 2] launches {dict(counts)}; orders, selections, caps, fills, "
+        f"match sets and ServeStats equal to the device='cpu' run")
     check(all(v > 0 for v in counts.values()), f"a kernel never launched: {counts}")
     return gpu
 
@@ -456,7 +657,8 @@ def phase3(seed: int, counts: dict, dev=torch.device("cuda"),
     peak = torch.cuda.max_memory_allocated()
     log(f"[phase 3] launches {dict(counts)}; max_memory_allocated "
         f"{peak / 2 ** 30:.2f} GiB")
-    check(all(v > 0 for v in counts.values()), f"a kernel never launched: {counts}")
+    check(all(counts[k] > 0 for k in MAIN_KERNELS),
+          f"a kernel of the main path never launched: {counts}")
     check(peak >= min_peak, f"phase 3 held less than {min_peak / 2 ** 30} GiB")
     # where a serve batch's time goes: the engine's steps, one at a time
     qs = batches[0][0]
@@ -479,7 +681,124 @@ def phase3(seed: int, counts: dict, dev=torch.device("cuda"),
         f"{ms_match:.2f}, doc ids {ms_ids:.2f}")
     state = problem.state_for(results["greedy"].order)
     return dict(problem=problem, state=state, engine=engine, tokens=toks,
-                qbits=qbits, peak=peak, gen=d.gen)
+                qbits=qbits, peak=peak, gen=d.gen,
+                greedy_order=results["greedy"].order)
+
+
+def phase3_shards(p3: dict, counts: dict) -> dict:
+    """Partitioned greedy and optpes at the production shapes: 8 word-aligned
+    shards, each capped at half of the global greedy's fill there after 128
+    selections, so the caps bind."""
+    from repro_torch.core import bitset, registry
+    from repro_torch.core.config import SolveConfig
+    from repro_torch.core.constraint import PartitionedBudget, partition_bounds
+    from repro_torch.kernels import _build
+    problem, state = p3["problem"], p3["state"]
+    bounds = partition_bounds(problem.n_docs, N_PARTS)
+    covered = bitset.to_numpy(state.covered_d)
+    global_fills = np.array([bitset.np_popcount(covered[lo:hi])
+                             for lo, hi in zip(bounds, bounds[1:])], np.float64)
+    constraint = PartitionedBudget(global_fills / 2, bounds)
+    caps = constraint.caps.astype(np.float64)
+    check(np.any(global_fills > caps), "the per-shard caps do not bind")
+    _build.reset_launches()
+    results, per_sel = {}, {}
+    for solver, opts in (("greedy", {}), ("optpes", {"k": REFRESH_K})):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        res = registry.solve(problem, SolveConfig(
+            budget=constraint.total, solver=solver, constraint=constraint,
+            max_steps=128, options=opts))
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t
+        steps = np.diff(res.time_history) * 1e3
+        results[solver] = res
+        per_sel[solver] = float(np.median(steps)) if len(steps) else None
+        check(np.all(res.extra["g_part"] <= caps), f"{solver} overfills a shard")
+        log(f"[phase 3] per-shard {res.summary()} in {dt:.2f}s; per selection "
+            f"ms: median {per_sel[solver]} max "
+            f"{steps.max() if len(steps) else None}; fills "
+            f"{res.extra['g_part'].tolist()}")
+    add_counts(counts, _build.LAUNCHES)
+    check(_build.LAUNCHES["partition_gain"] > 0 and _build.LAUNCHES["bit_matvec"] > 0,
+          f"a kernel of the per-shard path never launched: {_build.LAUNCHES}")
+    ordered_or_tied(problem, results["greedy"].order, results["optpes"].order,
+                    "per-shard greedy vs optpes (production shapes)")
+    glob = p3["greedy_order"]
+    depart = next((i for i, (x, y) in enumerate(zip(glob, results["greedy"].order))
+                   if x != y), None)
+    log(f"[phase 3] per-shard caps {caps.tolist()} (global greedy fills "
+        f"{global_fills.tolist()}); per-shard greedy departs from the global "
+        f"order at selection {depart}; launches {dict(_build.LAUNCHES)}")
+    return dict(per_selection_ms=per_sel, caps=caps.tolist(),
+                fills=results["greedy"].extra["g_part"].tolist(),
+                selections=len(results["greedy"].order), depart=depart)
+
+
+def padded_ids_device(words: torch.Tensor, keep: torch.Tensor, m: int,
+                      rows: int = 4096) -> torch.Tensor:
+    """Each kept row's set bits as a sorted int32 list padded with -1 to
+    `m` (all -1 for the other rows), built on the device in row chunks.
+    Every kept row must have at most `m` bits."""
+    c = words.shape[0]
+    dev = words.device
+    ids = torch.full((c, m), -1, dtype=torch.int32, device=dev)
+    shifts = torch.arange(32, dtype=torch.int32, device=dev)
+    for r0 in range(0, c, rows):
+        blk = words[r0:r0 + rows] * keep[r0:r0 + rows, None]
+        r, w = torch.nonzero(blk, as_tuple=True)          # row-major
+        bits = ((blk[r, w][:, None] >> shifts) & 1).bool()
+        k, b = torch.nonzero(bits, as_tuple=True)         # bit-ascending
+        row, doc = r[k], w[k] * 32 + b
+        n = torch.bincount(row, minlength=blk.shape[0])
+        start = torch.cumsum(n, 0) - n
+        pos = torch.arange(len(row), device=dev) - start[row]
+        ids[r0 + row, pos] = doc.to(torch.int32)
+    return ids
+
+
+def phase3_sparse(p3: dict, counts: dict) -> dict:
+    """The sparse greedy round at the production shapes over the clauses
+    with |m(c)| <= SPARSE_M, against dense greedy over the same rows (the
+    longer clauses get an all -1 list and start selected in both)."""
+    from repro_torch.core.state import SolverState
+    from repro_torch.kernels import _build, ops
+    problem = p3["problem"]
+    dev = problem.device
+    sizes = ops.coverage_gain(problem.clause_doc_bits,
+                              torch.zeros_like(problem.clause_doc_bits[0]))
+    short = sizes <= SPARSE_M
+    ids = padded_ids_device(problem.clause_doc_bits, short, SPARSE_M)
+    check(torch.equal((ids >= 0).sum(1, dtype=torch.int32),
+                      torch.where(short, sizes, 0)), "padded id lists lost ids")
+    start = SolverState(
+        covered_q=torch.zeros_like(problem.clause_query_bits[0]),
+        covered_d=torch.zeros_like(problem.clause_doc_bits[0]),
+        selected=~short, g_used=torch.zeros((), device=dev), step=0)
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t = time.perf_counter()
+    res = sparse_round(problem, ids, start, float(int(problem.n_docs * 0.5)), 128)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t
+    add_counts(counts, _build.LAUNCHES)
+    check(_build.LAUNCHES["sparse_gain"] > 0, "the sparse round never launched sparse_gain")
+    n = max(1, len(res["order"]))
+    log(f"[phase 3] sparse round over {int(short.sum())} of {len(short)} "
+        f"clauses (M={SPARSE_M}): {len(res['order'])} selections, "
+        f"g={res['g_used']:.0f}, == dense greedy (orders and covered docs); "
+        f"{dt:.2f}s, per selection sparse {res['sparse_s'] / n * 1e3:.3f} ms vs "
+        f"dense {res['dense_s'] / n * 1e3:.3f} ms; launches {dict(_build.LAUNCHES)}")
+    return dict(ids=ids, covered_d=res["covered_d"], selections=len(res["order"]),
+                sparse_ms=res["sparse_s"] / n * 1e3,
+                dense_ms=res["dense_s"] / n * 1e3)
+
+
+def bound(nbytes, flops=0.0) -> tuple[float, str]:
+    """The least time (ms) the card could take and what sets it: bytes over
+    the HBM rate or FP64 operations over the FP64 rate."""
+    t_b, t_f = nbytes / HBM_BYTES_PER_S, flops / FP64_FLOPS
+    return max(t_b, t_f) * 1e3, "bytes" if t_b >= t_f else "operations"
 
 
 def phase1_scale(p3: dict) -> list[dict]:
@@ -491,10 +810,6 @@ def phase1_scale(p3: dict) -> list[dict]:
     problem, state, engine = p3["problem"], p3["state"], p3["engine"]
     gen = p3["gen"]
     rec = []
-
-    def bound(nbytes, flops=0.0):
-        t_b, t_f = nbytes / HBM_BYTES_PER_S, flops / FP64_FLOPS
-        return max(t_b, t_f) * 1e3, "bytes" if t_b >= t_f else "operations"
 
     def sample(n):
         return torch.randperm(n, generator=gen, device=gen.device)[:512]
@@ -557,7 +872,67 @@ def phase1_scale(p3: dict) -> list[dict]:
                     plain_ms=time_ms(lambda: ref.tier_match(t1, t2, sel, toks), 2),
                     bound_ms=b_ms, bound_by=b_by, shape=[bq, ell, w],
                     distinct_rows=n_rows))
+
+    # partition_gain: the 8 per-shard g-gains of every clause at the prefix
+    from repro_torch.core.constraint import partition_bounds
+    a, mask = problem.clause_doc_bits, state.covered_d
+    bounds = partition_bounds(problem.n_docs, N_PARTS)
+    (c, w), p = a.shape, len(bounds) - 1
+    out = ops.partition_gain(a, mask, bounds)
+    idx = sample(c)
+    err = int((out[idx] - ref.partition_gain(a[idx], mask, bounds)).abs().max())
+    check(err == 0, "partition_gain disagrees at scale")
+    b_ms, b_by = bound(4 * (c * w + w + c * p))
+    rec.append(dict(name="partition_gain", max_abs_err=err,
+                    ms=time_ms(lambda: ops.partition_gain(a, mask, bounds), 20),
+                    plain_ms=time_ms(lambda: ref.partition_gain(a, mask, bounds), 2),
+                    bound_ms=b_ms, bound_by=b_by, shape=[c, w, p]))
+
+    # sparse_gain: the phase-3 id lists against the sparse round's covered
+    # docs (2^20 docs: the shared-memory route)
+    ids, mask = p3["sparse"]["ids"], p3["sparse"]["covered_d"]
+    rec.append(sparse_record(ids, mask, sample(ids.shape[0]), "smem"))
     return rec
+
+
+def sparse_record(ids: torch.Tensor, mask: torch.Tensor, idx: torch.Tensor,
+                  route: str) -> dict:
+    """sparse_gain on `ids` against `mask`: agreement with the plain version
+    on the rows `idx`, median time, plain time and bound."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.sparse_gain import smem_route
+    check(smem_route(mask.shape[0]) == (route == "smem"),
+          f"sparse_gain takes another route than {route} here")
+    out = ops.sparse_gain(ids, mask)
+    err = int((out[idx] - ref.sparse_gain(ids[idx], mask)).abs().max())
+    check(err == 0, f"sparse_gain disagrees at scale ({route} route)")
+    (c, m), w = ids.shape, mask.shape[0]
+    b_ms, b_by = bound(4 * (c * m + w + c))
+    return dict(name="sparse_gain", max_abs_err=err,
+                ms=time_ms(lambda: ops.sparse_gain(ids, mask), 20),
+                plain_ms=time_ms(lambda: ref.sparse_gain(ids, mask), 2),
+                bound_ms=b_ms, bound_by=b_by, shape=[c, m, w], route_used=route,
+                valid_ids=int((ids >= 0).sum()))
+
+
+def phase1_xl(seed: int, dev=torch.device("cuda")) -> dict:
+    """sparse_gain at solve_sparse_xl's own shapes, uncut: 2^20 sorted lists
+    of up to 4096 doc ids over 2^28 docs (16 GiB of ids, a 32 MiB covered
+    bitset: the L2 route), made on the card from `seed`."""
+    gen = torch.Generator(dev).manual_seed(seed + 1)
+    ids = torch.empty((XL_CLAUSES, SPARSE_M), dtype=torch.int32, device=dev)
+    slot = torch.arange(SPARSE_M, device=dev)
+    rows = min(2 ** 16, XL_CLAUSES)
+    for r0 in range(0, XL_CLAUSES, rows):
+        blk = torch.randint(0, XL_DOCS, (rows, SPARSE_M), dtype=torch.int32,
+                            device=dev, generator=gen)
+        blk = torch.sort(blk, dim=1).values
+        lens = torch.randint(1, SPARSE_M + 1, (rows, 1), device=dev, generator=gen)
+        ids[r0:r0 + rows] = torch.where(slot[None] < lens, blk, -1)
+    mask = rand_words(gen, (XL_DOCS // 32,), dev)
+    idx = torch.randperm(XL_CLAUSES, generator=gen, device=dev)[:512]
+    torch.cuda.synchronize()
+    return sparse_record(ids, mask, idx, "l2")
 
 
 SOURCES = {
@@ -569,6 +944,10 @@ SOURCES = {
                      "src/repro/kernels/clause_match.py:67"),
     "tier_match": ("src/repro_torch/kernels/csrc/tier_match.cu",
                    "src/repro/kernels/fused_match.py:80"),
+    "partition_gain": ("src/repro_torch/kernels/csrc/partition_gain.cu",
+                       "src/repro/kernels/partition_gain.py:57"),
+    "sparse_gain": ("src/repro_torch/kernels/csrc/sparse_gain.cu",
+                    "src/repro/kernels/sparse_gain.py:41"),
 }
 
 
@@ -614,10 +993,26 @@ def main() -> int:
     t = time.perf_counter()
     counts: dict = {}
     p3 = phase3(args.seed, counts)
-    log(f"[phase 3] {time.perf_counter() - t:.1f}s")
+    p3["shards"] = phase3_shards(p3, counts)
+    p3["sparse"] = phase3_sparse(p3, counts)
+    check(all(v > 0 for v in counts.values()) and len(counts) == len(SOURCES),
+          f"a kernel never launched in phase 3: {counts}")
+    log(f"[phase 3] launches {dict(counts)}; {time.perf_counter() - t:.1f}s")
 
     t = time.perf_counter()
     rec = phase1_scale(p3)
+    shards = p3["shards"]
+    del p3                       # free the production operands (~50 GiB)
+    gc.collect()
+    torch.cuda.empty_cache()
+    xl = phase1_xl(args.seed)
+    log(f"[phase 1] at scale sparse_gain {xl['shape']} (solve_sparse_xl, L2 "
+        f"route): {xl['ms']:.3f} ms (bound {xl['bound_ms']:.3f} ms by "
+        f"{xl['bound_by']}, plain {xl['plain_ms']:.3f} ms), max abs err "
+        f"{xl['max_abs_err']}")
+    next(r for r in rec if r["name"] == "sparse_gain")["l2_route"] = xl
+    log(f"[phase 3] per-shard per-selection ms (median): "
+        f"{json.dumps(shards['per_selection_ms'])}")
     for r in rec:
         src, tpu = SOURCES[r["name"]]
         r.update(route="cuda", source=src, replaces=tpu,

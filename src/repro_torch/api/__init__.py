@@ -2,7 +2,12 @@
 
   * `SolverState`, `SolveConfig`, `solve`, `solve_sweep`, `register_solver`,
     `Trace` — as in `repro.api`, for the ported solvers (greedy, optpes).
-  * `TieringPipeline` — data -> mine -> solve -> tiering -> deploy.
+  * `GlobalBudget`, `KnapsackConstraint`, `PartitionedBudget`,
+    `partition_bounds`, `partition_capacities`, `trim_state`,
+    `partition_budgets`, `shard_traffic_shares` — per-shard budgets.
+  * `TieringPipeline` — data -> mine -> solve -> tiering -> deploy, with
+    shard-aware `solve(budget_split=..., n_shards=...)`, `sweep` and
+    `refit`.
 
 Quickstart:
 
@@ -15,7 +20,9 @@ Quickstart:
     engine = pipe.deploy()                # serve.TieredEngine
 """
 from repro_torch.core.config import SolveConfig                      # noqa: F401
-from repro_torch.core.constraint import GlobalBudget                 # noqa: F401
+from repro_torch.core.constraint import (                            # noqa: F401
+    GlobalBudget, KnapsackConstraint, PartitionedBudget, partition_bounds,
+    partition_capacities, trim_state)
 from repro_torch.core.problem import SCSKProblem, SolverResult       # noqa: F401
 from repro_torch.core.registry import (                              # noqa: F401
     SolverSpec, get_solver, list_solvers, register_solver, solve, solve_sweep)
@@ -24,10 +31,15 @@ from repro_torch.core.trace import Trace                             # noqa: F40
 
 # importing the core package registers the solvers
 import repro_torch.core  # noqa: F401,E402
+from repro_torch.api.partition import (  # noqa: F401,E402
+    partition_budgets, shard_traffic_shares)
 from repro_torch.api.pipeline import TieringPipeline  # noqa: F401,E402
 
 __all__ = [
-    "GlobalBudget", "SCSKProblem", "SolveConfig",
-    "SolverResult", "SolverSpec", "SolverState", "TieringPipeline", "Trace",
-    "get_solver", "list_solvers", "register_solver", "solve", "solve_sweep",
+    "GlobalBudget", "KnapsackConstraint", "PartitionedBudget", "SCSKProblem",
+    "SolveConfig", "SolverResult", "SolverSpec", "SolverState",
+    "TieringPipeline", "Trace", "get_solver", "list_solvers",
+    "partition_bounds", "partition_budgets", "partition_capacities",
+    "register_solver", "shard_traffic_shares", "solve", "solve_sweep",
+    "trim_state",
 ]

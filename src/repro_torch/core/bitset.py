@@ -130,6 +130,36 @@ def count_and_not(a: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     return popcount(a & ~mask)
 
 
+def bit_get(words: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Gather bits at positions `idx` from a flat bitset `words` [W]."""
+    idx = idx.to(torch.int64)
+    return ((words[idx >> 5] >> (idx & 31)) & 1).bool()
+
+
+def from_indices(idx: torch.Tensor, n_bits: int,
+                 valid: torch.Tensor | None = None, *,
+                 unique: bool = False) -> torch.Tensor:
+    """Scatter-OR indices into a fresh bitset [W] on `idx`'s device.
+
+    `valid` masks padded entries; indices whose word lies outside [0, W)
+    are dropped, as the reference drops them. With `unique=False` repeated
+    indices set their bit once (they are de-duplicated first); with
+    `unique=True` (indices known distinct, e.g. sorted match-set lists) the
+    scatter-add of distinct powers of two is their OR directly.
+    """
+    w = n_words(n_bits)
+    idx = idx.to(torch.int64).reshape(-1)
+    keep = (idx >= 0) & (idx < w * WORD)
+    if valid is not None:
+        keep &= valid.reshape(-1)
+    idx = idx[keep]
+    if not unique:
+        idx = torch.unique(idx)
+    out = torch.zeros(w, dtype=torch.int64, device=idx.device)
+    out.index_add_(0, idx >> 5, torch.ones_like(idx) << (idx & 31))
+    return _as_int32(out)
+
+
 def or_rows(words: torch.Tensor, axis: int = 0) -> torch.Tensor:
     """OR-reduce a stack of bitsets (pairwise tree; empty stack -> zeros)."""
     x = words.movedim(axis, 0)

@@ -1,8 +1,6 @@
 """SolveConfig: one config object for every solver behind `repro_torch.api`.
 
-A copy of `repro.core.config`. The port implements the single global
-budget; a partitioned config (`budget_split`, a multi-part `constraint`)
-is accepted here and refused by `core.constraint.resolve_constraint`.
+A copy of `repro.core.config`.
 
 Replaces the per-solver keyword soup (`budget`, `max_steps`, `record_every`,
 `time_limit`, `seed`, plus solver-specific knobs) with a single frozen
@@ -62,6 +60,13 @@ class SolveConfig:
             raise ValueError(
                 f"unknown budget_split: {self.budget_split!r} "
                 "(a mapping, a cap sequence, or 'traffic')")
+
+    @property
+    def partitioned(self) -> bool:
+        """True when this config implies a multi-partition constraint."""
+        if self.constraint is not None:
+            return getattr(self.constraint, "n_parts", 1) > 1
+        return self.budget_split is not None
 
     def replace(self, **kw) -> "SolveConfig":
         return dataclasses.replace(self, **kw)

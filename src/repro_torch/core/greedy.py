@@ -1,8 +1,9 @@
 """Cost-aware greedy for SCSK (paper eq. 13) — dense recompute-all variant.
 
 The port's counterpart of `repro.core.greedy`. Each step evaluates f(j|X)
-and g(j|X) for every candidate (one `bit_matvec` and one `coverage_gain`
-launch) and adds argmax_{feasible} f(j|X)/g(j|X). Opt/Pes greedy must select
+and g(j|X) for every candidate (one `bit_matvec` launch, and one
+`coverage_gain` launch, or one `partition_gain` launch under per-shard
+budgets) and adds argmax_{feasible} f(j|X)/g(j|X). Opt/Pes greedy must select
 the same sequence (up to exact ties).
 
 Registered as "greedy". Warm-startable: pass the `state` of a previous
@@ -33,7 +34,8 @@ def greedy_step(problem: SCSKProblem, state: SolverState, budget, *,
                 cost_aware: bool = True, truncate: bool = False):
     """One greedy selection over a SolverState.
 
-    `budget` is a scalar knapsack budget or a `GlobalBudget`.
+    `budget` is a scalar knapsack budget or any `KnapsackConstraint` (a
+    `PartitionedBudget` masks candidates that overflow any per-shard cap).
     Returns (state, j, stop) with `j` and `stop` read to the host (the one
     sync of the step). `truncate=False` masks the score to feasible
     candidates ("exhaust": classic greedy); `truncate=True` ranks ALL
@@ -57,6 +59,7 @@ def greedy_step(problem: SCSKProblem, state: SolverState, budget, *,
 
 
 @register_solver("greedy", supports_state=True, supports_truncate=True,
+                 supports_partition=True,
                  description="dense cost-ratio greedy (paper eq. 13)")
 def solve_greedy(problem: SCSKProblem, config: SolveConfig,
                  state: SolverState | None = None) -> SolverResult:

@@ -4,9 +4,10 @@ The port's counterpart of `repro.core.optpes`. Every candidate whose
 *optimistic* ratio f̄/g̲ beats the best *pessimistic* ratio f̲/ḡ is in the
 refresh set C. Each round gathers the top-K optimistic members of C,
 re-evaluates their exact gains with one `bit_matvec` and one
-`coverage_gain` launch over the gathered rows, and selects once the exact
-argmax provably dominates every non-refreshed optimistic ratio (Theorem
-4.2 guarantees j^(t) ∈ C, so this terminates with the exact greedy choice).
+`coverage_gain` (per-shard budgets: `partition_gain`) launch over the
+gathered rows, and selects once the exact argmax provably dominates every
+non-refreshed optimistic ratio (Theorem 4.2 guarantees j^(t) ∈ C, so this
+terminates with the exact greedy choice).
 
 Bounds maintained per candidate (all eq.-14-style updates, Thm 4.1):
   f̄ upper / f̲ lower bounds of f(j|X);  ḡ upper / g̲ lower bounds of g(j|X),
@@ -115,7 +116,7 @@ def optpes_round(problem: SCSKProblem, rs: RoundState, constraint, *,
     return bool(did), bool(any_feasible), j
 
 
-@register_solver("optpes", supports_state=True,
+@register_solver("optpes", supports_state=True, supports_partition=True,
                  description="batched optimistic/pessimistic greedy (Alg. 2)")
 def solve_optpes(problem: SCSKProblem, config: SolveConfig,
                  state: SolverState | None = None) -> SolverResult:

@@ -9,6 +9,8 @@ State is two packed bitsets (covered queries, covered docs). Marginal gains
 are one kernel call each:
     f(j|X) for all j = A_q  @ (w ⊙ uncovered_q)   (ops.bit_matvec)
     g(j|X) for all j = popcount(A_d & ~covered_d)  (ops.coverage_gain)
+and, under per-shard budgets, g_k(j|X) for every partition k at once
+(ops.partition_gain).
 """
 from __future__ import annotations
 
@@ -52,6 +54,30 @@ class SCSKProblem:
             test_weights=torch.from_numpy(wte).to(dev),
             n_queries=data.n_queries,
             n_docs=data.n_docs,
+        )
+
+    def with_weights(self, train_weights, test_weights=None) -> "SCSKProblem":
+        """Reweighted copy for the same query universe (re-tiering).
+
+        Swaps only the empirical distribution; the packed clause/query/doc
+        bitsets are shared with `self`. Weights may be length `n_queries`
+        (zero-padded here, like `from_data`) or already padded to `wq * 32`.
+        """
+        def pad(w) -> torch.Tensor:
+            w = np.asarray(w, np.float32)
+            if w.shape != (self.n_queries,) and w.shape != (self.wq * 32,):
+                raise ValueError(
+                    f"weights must have shape ({self.n_queries},) or "
+                    f"({self.wq * 32},), got {w.shape}")
+            padded = np.zeros(self.wq * 32, np.float32)
+            padded[:w.shape[0]] = w
+            return torch.from_numpy(padded).to(self.device)
+
+        return dataclasses.replace(
+            self,
+            query_weights=pad(train_weights),
+            test_weights=self.test_weights if test_weights is None
+            else pad(test_weights),
         )
 
     # -- shapes ---------------------------------------------------------------
@@ -127,18 +153,32 @@ class SCSKProblem:
         return ops.bit_matvec(a, x[:, None])[:, 0]
 
     def g_gains(self, covered_d: torch.Tensor, *,
-                rows: torch.Tensor | None = None) -> torch.Tensor:
-        """g(j|X) for all clauses (or a gathered row subset), as f32."""
+                rows: torch.Tensor | None = None,
+                bounds: tuple[int, ...] | None = None) -> torch.Tensor:
+        """g(j|X) for all clauses (or a gathered row subset), as f32 [C].
+
+        With `bounds` (word offsets of a doc-space partition, see
+        `core.constraint`), the per-partition cost gains g_k(j|X) as
+        f32 [C, P] from one `ops.partition_gain` launch."""
         a = self.clause_doc_bits if rows is None else rows
-        return ops.coverage_gain(a, covered_d).to(torch.float32)
+        if bounds is None:
+            return ops.coverage_gain(a, covered_d).to(torch.float32)
+        return ops.partition_gain(a, covered_d, bounds).to(torch.float32)
 
     def f_value(self, covered_q: torch.Tensor) -> torch.Tensor:
         return torch.sum(self.query_weights
                          * bitset.unpack(covered_q).to(torch.float32))
 
-    def g_value(self, covered_d: torch.Tensor) -> torch.Tensor:
-        """g(X) = |covered_d| as an f32 0-d tensor."""
-        return bitset.popcount(covered_d).to(torch.float32)
+    def g_value(self, covered_d: torch.Tensor,
+                bounds: tuple[int, ...] | None = None) -> torch.Tensor:
+        """g(X) = |covered_d| as an f32 0-d tensor; with `bounds`, the
+        per-partition fills g_k(X) as f32 [P]."""
+        if bounds is None:
+            return bitset.popcount(covered_d).to(torch.float32)
+        per_word = bitset.word_popcount(covered_d)
+        return torch.stack([per_word[lo:hi].sum()
+                            for lo, hi in zip(bounds, bounds[1:])]
+                           ).to(torch.float32)
 
     def add_clause(self, covered_q: torch.Tensor, covered_d: torch.Tensor, j):
         return (covered_q | self.clause_query_bits[j],

@@ -16,7 +16,11 @@ from __future__ import annotations
 import dataclasses
 from typing import Callable
 
+import numpy as np
+
+from repro_torch.core import bitset
 from repro_torch.core.config import SolveConfig
+from repro_torch.core.constraint import resolve_constraint
 from repro_torch.core.problem import SolverResult
 from repro_torch.core.state import SolverState
 
@@ -29,11 +33,13 @@ class SolverSpec:
     fn: Callable  # (problem, config, state) -> SolverResult
     supports_state: bool = False     # accepts state= for warm starts
     supports_truncate: bool = False  # implements stop_policy="truncate"
+    supports_partition: bool = False  # masks per-partition knapsack caps
     description: str = ""
 
 
 def register_solver(name: str, *, supports_state: bool = False,
-                    supports_truncate: bool = False, description: str = ""):
+                    supports_truncate: bool = False,
+                    supports_partition: bool = False, description: str = ""):
     """Decorator: register `fn(problem, config, state=None) -> SolverResult`."""
     def deco(fn):
         if name in _REGISTRY and _REGISTRY[name].fn is not fn:
@@ -41,6 +47,7 @@ def register_solver(name: str, *, supports_state: bool = False,
         _REGISTRY[name] = SolverSpec(
             name=name, fn=fn, supports_state=supports_state,
             supports_truncate=supports_truncate,
+            supports_partition=supports_partition,
             description=description or (fn.__doc__ or "").strip().split("\n")[0])
         return fn
     return deco
@@ -67,7 +74,20 @@ def solve(problem, config: SolveConfig,
     if config.stop_policy == "truncate" and not spec.supports_truncate:
         raise ValueError(
             f"solver {spec.name!r} does not implement stop_policy='truncate'")
-    return spec.fn(problem, config, state)
+    if config.partitioned and not spec.supports_partition:
+        raise ValueError(
+            f"solver {spec.name!r} does not implement partitioned budgets "
+            f"(budget_split); solvers that do: "
+            f"{[n for n, s in _REGISTRY.items() if s.supports_partition]}")
+    result = spec.fn(problem, config, state)
+    if config.partitioned and result.state is not None:
+        # per-partition fill report: g_k(X), the caps and the bounds
+        constraint = resolve_constraint(problem, config)
+        result.extra["g_part"] = constraint.np_value(
+            bitset.to_numpy(result.state.covered_d))
+        result.extra["caps"] = constraint.caps.astype(np.float64)
+        result.extra["bounds"] = constraint.bounds
+    return result
 
 
 def solve_sweep(problem, budgets: list[float],
@@ -90,11 +110,24 @@ def solve_sweep(problem, budgets: list[float],
             f"starts and the 'truncate' stop policy; solvers that can: "
             f"{[n for n, s in _REGISTRY.items() if s.supports_state and s.supports_truncate]}")
     cfg = config.replace(stop_policy="truncate")
+    base_constraint = None
+    if config.partitioned:
+        # per-point constraints keep the same split shares, rescaled to each
+        # total; the truncate ranking never reads the caps, so the selection
+        # path stays budget-independent and warm == cold per point
+        base_constraint = resolve_constraint(problem, config)
+        if not hasattr(base_constraint, "scaled"):
+            raise ValueError("budget_split sweeps need a PartitionedBudget "
+                             "(or a constraint implementing .scaled)")
     state = None
     results: list[SolverResult] = []
     order: list[int] = []
     for b in budgets:
-        r = solve(problem, cfg.replace(budget=float(b)), state=state)
+        step_cfg = cfg.replace(budget=float(b))
+        if base_constraint is not None:
+            step_cfg = step_cfg.replace(
+                constraint=base_constraint.scaled(float(b)))
+        r = solve(problem, step_cfg, state=state)
         order = order + r.order
         r.order = list(order)
         results.append(r)

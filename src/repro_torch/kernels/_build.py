@@ -30,7 +30,8 @@ LIB_NAME = "librepro_torch_kernels.so"
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-KERNELS = ("coverage_gain", "bit_matvec", "clause_match", "tier_match")
+KERNELS = ("coverage_gain", "bit_matvec", "clause_match", "tier_match",
+           "partition_gain", "sparse_gain")
 LAUNCHES: dict[str, int] = {k: 0 for k in KERNELS}
 
 _P, _I64, _INT = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
@@ -39,6 +40,8 @@ _SIGNATURES = {
     "bit_matvec_launch": [_P, _P, _P, _I64, _I64, _I64, _INT, _P],
     "clause_match_launch": [_P, _P, _P, _I64, _I64, _I64, _P],
     "tier_match_launch": [_P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _INT, _P],
+    "partition_gain_launch": [_P, _P, _P, _P, _I64, _I64, _I64, _INT, _P],
+    "sparse_gain_launch": [_P, _P, _P, _I64, _I64, _I64, _INT, _INT, _P],
 }
 
 _lib: ctypes.CDLL | None = None

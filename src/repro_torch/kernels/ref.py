@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the four kernels.
+"""Plain PyTorch versions of the kernels.
 
 The port's counterpart of `repro.kernels.ref`: the semantics of record.
 A wrapper in `ops` takes these only for tensors on the CPU; on the card
@@ -45,6 +45,38 @@ def coverage_gain(a_bits: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     rows = max(1, CHUNK_BYTES // max(1, w * 8))
     for r0 in range(0, c, rows):
         out[r0:r0 + rows] = bitset.count_and_not(a_bits[r0:r0 + rows], mask)
+    return out
+
+
+def partition_gain(a_bits: torch.Tensor, mask: torch.Tensor,
+                   bounds: tuple[int, ...]) -> torch.Tensor:
+    """popcount(a_bits[:, lo_k:hi_k] & ~mask[lo_k:hi_k]) per row and
+    partition -> int32 [C, P]; `bounds` are the P+1 word offsets. Integer
+    sums, exact at any size (the reference's `_partition_gain_xla`)."""
+    c, w = a_bits.shape
+    p = len(bounds) - 1
+    out = torch.empty((c, p), dtype=torch.int32, device=a_bits.device)
+    rows = max(1, CHUNK_BYTES // max(1, w * 8))
+    for r0 in range(0, c, rows):
+        blk = a_bits[r0:r0 + rows]
+        for k, (lo, hi) in enumerate(zip(bounds, bounds[1:])):
+            out[r0:r0 + rows, k] = bitset.count_and_not(blk[:, lo:hi],
+                                                        mask[lo:hi])
+    return out
+
+
+def sparse_gain(doc_ids: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """|{m : doc_ids[c, m] >= 0 and bit(mask, doc_ids[c, m]) == 0}| per row
+    -> int32 [C]; `doc_ids` int32 [C, M] padded with -1 anywhere."""
+    c, m = doc_ids.shape
+    out = torch.empty(c, dtype=torch.int32, device=doc_ids.device)
+    rows = max(1, CHUNK_BYTES // max(1, m * 24))
+    for r0 in range(0, c, rows):
+        ids = doc_ids[r0:r0 + rows]
+        valid = ids >= 0
+        idx = torch.where(valid, ids, 0)
+        fresh = valid & ~bitset.bit_get(mask, idx)
+        out[r0:r0 + rows] = fresh.sum(-1, dtype=torch.int32)
     return out
 
 

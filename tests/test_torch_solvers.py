@@ -129,8 +129,23 @@ def test_greedy_step_with_no_candidate_stops_at_index_zero(pipes):
 
 
 def test_partitioned_budgets_are_refused(pipes):
+    """Per-shard budgets are refused where they cannot be honoured: an
+    unresolved "traffic" split at the registry level, and a solver that
+    does not mask per-partition caps."""
     _, tp = pipes
-    with pytest.raises(NotImplementedError, match="item 7"):
-        tp.solve("greedy", budget_frac=0.5, budget_split=[10.0, 10.0])
+    with pytest.raises(ValueError, match="traffic"):
+        registry.solve(tp.problem, SolveConfig(
+            budget=100.0, solver="greedy", budget_split="traffic"))
+
+    @registry.register_solver("no-partition", supports_state=True)
+    def _solve(problem, config, state=None):
+        raise AssertionError("must be refused before it runs")
+
+    try:
+        with pytest.raises(ValueError, match="partitioned"):
+            registry.solve(tp.problem, SolveConfig(
+                budget=100.0, solver="no-partition", budget_split=[50.0, 50.0]))
+    finally:
+        del registry._REGISTRY["no-partition"]
     with pytest.raises(KeyError):
         registry.get_solver("lazy")
