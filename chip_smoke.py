@@ -5,7 +5,7 @@
 Phases (each prints its seconds; any failure is an uncaught exception and
 a non-zero exit):
   0. environment: card name and power limit, torch/CUDA versions, and the
-     build of the six CUDA kernels from `src/repro_torch/kernels/csrc`.
+     build of the seven CUDA kernels from `src/repro_torch/kernels/csrc`.
   1. each kernel against its plain PyTorch version on ragged small shapes
      (exact for the integer kernels, allclose for bit_matvec);
      partition_gain also against coverage_gain, sparse_gain on masks on
@@ -34,6 +34,20 @@ a non-zero exit):
      against its plain version at these shapes, with its timing and bound,
      and sparse_gain once more at solve_sparse_xl's own shapes (2^20 lists
      of 4096 ids over 2^28 docs, the L2 route).
+  4. the LM serving path, once the tiering operands are freed:
+     a. flash_attention against its plain version on ragged shapes (f32
+        and bf16), then at gemma2-2b's shapes: prefill at S = 8192 and
+        32768 (the plain version on 512-query blocks there), decode against
+        a strided slice of a 32768-position cache; timed at the model's
+        four settings beside one compiled flex_attention call (softcap as its
+        score_mod, causal + window as its block mask), and beside one SDPA
+        call in the setting where SDPA computes the same function (no
+        softcap, no window);
+     b. gemma2-2b at full width and depth (26 layers), parameters made on
+        the card from --seed: decode_step == forward over a 64-token prompt
+        (f32 and bf16), card == CPU at 2 layers over 256 tokens, then
+        prefill B=1 x 32768 and decode steps at B=8 against a 32768-position
+        cache (28 GB), each run's flash_attention launches counted.
 The last lines are the kernels' JSON record, the card line, and the
 contract line {"ok": true, "device": {...}}.
 
@@ -42,9 +56,11 @@ Imports nothing of JAX or of the JAX package `repro`.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import gc
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -435,7 +451,8 @@ def phase2(counts, scale: str = "medium", device=None) -> dict:
     compare_partitioned(gpu_part, cpu_part)
     log(f"[phase 2] launches {dict(counts)}; orders, selections, caps, fills, "
         f"match sets and ServeStats equal to the device='cpu' run")
-    check(all(v > 0 for v in counts.values()), f"a kernel never launched: {counts}")
+    check(all(counts[k] > 0 for k in TIERING_KERNELS)
+          and counts["flash_attention"] == 0, f"a kernel never launched: {counts}")
     return gpu
 
 
@@ -935,6 +952,461 @@ def phase1_xl(seed: int, dev=torch.device("cuda")) -> dict:
     return sparse_record(ids, mask, idx, "l2")
 
 
+# -- phase 4: the LM serving path (gemma2-2b) on flash_attention --------------
+
+BF16_TC_FLOPS = 989e12         # H100 SXM dense bf16 tensor cores (data sheet)
+PREFILL_B, PREFILL_S = 1, 32768          # registry prefill_32k: 32 x 32768
+DECODE_B, DECODE_S = 8, 32768            # registry decode_32k: 128 x 32768
+DECODE_STEPS = 4                         # timed steps, after one warm-up step
+LM_REDUCED = {
+    "prefill_batch": "1 (prefill_32k has 32); length 32768 kept",
+    "decode_batch": "8 (decode_32k has 128, whose cache would be 446 GB); "
+                    "cache length 32768 kept",
+    "decode_steps": f"1 warm-up + {DECODE_STEPS} timed, at cur_len "
+                    f"{DECODE_S - DECODE_STEPS - 1}..{DECODE_S - 1}",
+    "weights": "random from --seed (init_params' distributions)",
+}
+BF16_TOL = 5e-2       # bf16 activations: a few 2^-8 ulps of values near 1
+# the reference's flash-attention cases (tests/test_flash_attention.py) and
+# ragged ones: both row tiles, every head dim, kv_len inside the cache
+FA_CASES = [
+    # b, sq, skv, hq, hkv, d, causal, window, cap, q_offset, kv_len
+    (1, 16, 16, 2, 1, 8, True, None, None, 0, None),
+    (2, 32, 32, 4, 2, 16, True, None, None, 0, None),
+    (1, 32, 32, 4, 4, 8, True, 8, None, 0, None),
+    (1, 24, 24, 2, 1, 8, True, None, 20.0, 0, None),
+    (1, 16, 16, 8, 2, 8, False, None, None, 0, None),
+    (1, 1, 48, 4, 2, 8, True, None, None, 47, None),
+    (1, 1, 48, 4, 2, 8, True, 16, 30.0, 40, None),
+    (1, 20, 36, 2, 2, 8, True, None, None, 16, None),
+    (1, 300, 300, 4, 2, 16, True, 100, 50.0, 0, None),
+    (2, 257, 257, 8, 4, 32, True, 64, None, 0, None),
+    (3, 129, 129, 16, 2, 64, True, None, 50.0, 0, None),
+    (1, 77, 200, 6, 2, 128, False, None, None, 0, 150),
+    (2, 5, 333, 8, 4, 256, True, 100, 50.0, 320, 325),
+    (1, 200, 200, 2, 2, 8, True, 1, None, 0, None),
+    (2, 1, 1000, 8, 4, 256, True, None, None, 999, None),
+]
+
+
+def attention_pairs(sq: int, q_offset: int, kv_len: int, causal: bool = True,
+                    window: int | None = None) -> int:
+    """Unmasked (query, key) pairs of one query head."""
+    p = torch.arange(sq, dtype=torch.int64) + q_offset
+    hi = torch.clamp(p, max=kv_len - 1) if causal else torch.full_like(p, kv_len - 1)
+    lo = (p - window + 1).clamp(min=0) if window is not None else torch.zeros_like(p)
+    return int((hi - lo + 1).clamp(min=0).sum())
+
+
+def fa_bound(q, k, causal, window, q_offset, kv_len) -> tuple[float, str]:
+    """The least time (ms) of one flash_attention call and what sets it: 4*D
+    FLOPs per unmasked pair and query head over the bf16 tensor-core peak,
+    or the bytes of q, the output and the unmasked K/V rows over HBM."""
+    b, sq, hq, d = q.shape
+    hkv = k.shape[2]
+    pairs = attention_pairs(sq, q_offset, kv_len, causal, window)
+    flops = 4.0 * d * pairs * b * hq
+    live_keys = attention_pairs(1, q_offset, kv_len, causal, window) \
+        if sq == 1 else kv_len
+    nbytes = (2 * q.numel() + 2 * b * live_keys * hkv * d) * q.element_size()
+    t_b, t_f = nbytes / HBM_BYTES_PER_S, flops / BF16_TC_FLOPS
+    return max(t_b, t_f) * 1e3, "bytes" if t_b >= t_f else "operations"
+
+
+def phase4_kernel_small(dev) -> dict:
+    """flash_attention against its plain version on ragged shapes, f32
+    (rtol = atol = 2e-4) and bf16 (2e-2, the reference's tolerances)."""
+    from repro_torch.kernels import ops, ref
+    gen = torch.Generator(dev).manual_seed(13)
+    worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    for b, sq, skv, hq, hkv, d, causal, window, cap, qo, kvl in FA_CASES:
+        q = torch.randn((b, sq, hq, d), generator=gen, device=dev)
+        k = torch.randn((b, skv, hkv, d), generator=gen, device=dev)
+        v = torch.randn((b, skv, hkv, d), generator=gen, device=dev)
+        kw = dict(causal=causal, window=window, softcap=cap, q_offset=qo, kv_len=kvl)
+        for dt, tol in ((torch.float32, 2e-4), (torch.bfloat16, 2e-2)):
+            qq, kk, vv = q.to(dt), k.to(dt), v.to(dt)
+            got = ops.flash_attention(qq, kk, vv, **kw)
+            want = ref.flash_attention(qq, kk, vv, **kw)
+            check(got.dtype == dt and bool(torch.isfinite(got).all()),
+                  f"flash_attention {dt} not finite at {(b, sq, skv, hq, hkv, d)}")
+            torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol,
+                                       msg=lambda m: f"flash_attention {dt} "
+                                       f"{(b, sq, skv, hq, hkv, d, causal, window, cap, qo, kvl)}: {m}")
+            worst[dt] = max(worst[dt], float((got.float() - want.float()).abs().max()))
+    torch.cuda.synchronize()
+    log(f"[phase 4] flash_attention == plain on {len(FA_CASES)} ragged cases: "
+        f"max abs err f32 {worst[torch.float32]:.3g} (2e-4), bf16 "
+        f"{worst[torch.bfloat16]:.3g} (2e-2)")
+    return {"f32": worst[torch.float32], "bf16": worst[torch.bfloat16]}
+
+
+def sdpa_call(q, k, v, causal: bool):
+    """One scaled_dot_product_attention call on [B, H, S, D] copies of the
+    operands (made here, not timed): the yardstick, never on the port's
+    path. Returns (fn, out in [B, S, H, D])."""
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+
+    def fn():
+        return torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=causal, enable_gqa=True)
+    return fn, fn().transpose(1, 2)
+
+
+_FLEX = {}
+
+
+def flex_call(q, k, v, *, window, cap, q_offset=0, kv_len=None):
+    """One compiled torch.nn.attention.flex_attention call that computes the
+    kernel's function: the softcap as its score_mod, causal + window at
+    q_offset as its block mask, on [B, H, S, D] copies of the first kv_len
+    keys (made here, not timed). The library yardstick, never on the port's
+    path. Returns (fn, out in [B, S, H, D])."""
+    from torch.nn.attention.flex_attention import create_block_mask, flex_attention
+    if "fn" not in _FLEX:
+        _FLEX["fn"] = torch.compile(flex_attention, dynamic=False)
+    kvl = k.shape[1] if kv_len is None else kv_len
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k[:, :kvl], v[:, :kvl]))
+
+    def mask_mod(b, h, qi, ki):
+        keep = qi + q_offset >= ki
+        return keep & (qi + q_offset - ki < window) if window is not None else keep
+
+    def score_mod(score, b, h, qi, ki):
+        return cap * torch.tanh(score / cap)
+
+    mask = create_block_mask(mask_mod, None, None, q.shape[1], kvl, device=q.device)
+
+    def fn():
+        return _FLEX["fn"](qt, kt, vt, score_mod=score_mod if cap else None,
+                           block_mask=mask, enable_gqa=True)
+    return fn, fn().transpose(1, 2)
+
+
+def fa_record(q, k, v, *, window, cap, q_offset=0, kv_len=None, reps=10,
+              plain_reps=2) -> dict:
+    """Time one model-shape flash_attention call beside its plain version,
+    one flex_attention call (held to the kernel at the reference's bf16
+    tolerance) and its bound."""
+    from repro_torch.kernels import ops, ref
+    kvl = k.shape[1] if kv_len is None else kv_len
+    kw = dict(causal=True, window=window, softcap=cap, q_offset=q_offset, kv_len=kv_len)
+    b_ms, b_by = fa_bound(q, k, True, window, q_offset, kvl)
+    got = ops.flash_attention(q, k, v, **kw)
+    t = time.perf_counter()
+    lib, want = flex_call(q, k, v, window=window, cap=cap, q_offset=q_offset, kv_len=kv_len)
+    compile_s = time.perf_counter() - t
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2, atol=2e-2,
+                               msg=lambda m: f"flash_attention != flex_attention "
+                               f"at {list(q.shape)} window={window} q_offset={q_offset}: {m}")
+    return dict(ms=time_ms(lambda: ops.flash_attention(q, k, v, **kw), reps),
+                plain_ms=time_ms(lambda: ref.flash_attention(q, k, v, **kw), plain_reps),
+                library_ms=time_ms(lib, reps), library_call="flex_attention "
+                "(torch.compile; softcap score_mod, causal+window block mask)",
+                library_err=float((got.float() - want.float()).abs().max()),
+                library_compile_s=compile_s,
+                bound_ms=b_ms, bound_by=b_by, shape=list(q.shape) + [k.shape[1]],
+                window=window, softcap=cap, q_offset=q_offset, kv_len=kvl)
+
+
+def phase4_kernel_model(seed: int, dev) -> dict:
+    """flash_attention at gemma2-2b's shapes (Hq 8, Hkv 4, D 256) against its
+    plain version, in bf16 and on f32 copies of the same operands: prefill
+    at S = 8192 and 32768 (window 4096 or none, softcap 50) and decode
+    (Sq = 1) against a strided slice of a layer-stacked 32768-position
+    cache. Then timed at the model's four settings."""
+    from repro_torch.configs.gemma2_2b import CONFIG as cfg
+    from repro_torch.kernels import ops, ref
+    gen = torch.Generator(dev).manual_seed(seed + 3)
+    hq, hkv, d, win, cap = cfg.n_heads, cfg.n_kv_heads, cfg.d_head, cfg.local_window, cfg.attn_softcap
+    bf = torch.bfloat16
+    worst = {"f32": 0.0, "bf16": 0.0, "abs": 0.0}
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=dev, dtype=bf)
+
+    def agree(q, k, v, what, rows=None, **kw):
+        """The kernel on the bf16 operands and on f32 copies of them against
+        the plain version on the f32 copies. Each query position is held to
+        the size of its own output (a late row of a global layer is ~0.01):
+        |err| <= 2e-4 * rms(row) in f32, and in bf16 that plus the output's
+        rounding, 2^-8 * |want|. For each `rows` block (r0, n) the plain
+        version runs on q[:, r0:r0+n] alone, at q_offset r0."""
+        outs = {"f32": ops.flash_attention(q.float(), k.float(), v.float(), **kw),
+                "bf16": ops.flash_attention(q, k, v, **kw)}
+        for r0, n in rows or [(0, q.shape[1])]:
+            kvl = kw.get("kv_len") or r0 + n
+            want = ref.flash_attention(
+                q[:, r0:r0 + n].float(), k[:, :kvl].float(), v[:, :kvl].float(),
+                **dict(kw, q_offset=kw.get("q_offset", 0) + r0))
+            rms = want.pow(2).mean(dim=(2, 3), keepdim=True).sqrt()
+            for name, out in outs.items():
+                got = out[:, r0:r0 + n].float()
+                lim = 2e-4 * rms + (2.0 ** -8 * want.abs() if name == "bf16" else 0.0)
+                err = (got - want).abs()
+                ratio = float((err / lim).max())
+                check(bool(torch.isfinite(got).all()) and ratio <= 1.0,
+                      f"flash_attention {name} {what} rows {r0}..{r0 + n - 1}: error "
+                      f"{ratio:.3g} x its limit (max abs err {float(err.max()):.3g})")
+                worst[name] = max(worst[name], ratio)
+                worst["abs"] = max(worst["abs"], float(err.max()))
+
+    s = 8192
+    q, k, v = rnd(1, s, hq, d), rnd(1, s, hkv, d), rnd(1, s, hkv, d)
+    for w in (win, None):
+        agree(q, k, v, f"prefill S={s} window={w}", window=w, softcap=cap)
+
+    # decode: one layer's slice of a [2, B, Smax, Hkv, D] cache
+    cache_k = rnd(2, DECODE_B, DECODE_S, hkv, d)
+    cache_v = rnd(2, DECODE_B, DECODE_S, hkv, d)
+    qd = rnd(DECODE_B, 1, hq, d)
+    for cur in (0, 4095, 4096, DECODE_S - 1):
+        for w in (win, None):
+            agree(qd, cache_k[1], cache_v[1], f"decode cur_len={cur} window={w}",
+                  window=w, softcap=cap, q_offset=cur, kv_len=cur + 1)
+
+    # prefill S = 32768: the plain version on 512-query blocks
+    s = PREFILL_S
+    q, k, v = rnd(1, s, hq, d), rnd(1, s, hkv, d), rnd(1, s, hkv, d)
+    for w in (win, None):
+        agree(q, k, v, f"prefill S={s} window={w}", window=w, softcap=cap,
+              rows=[(r, 512) for r in (0, 4096 - 256, s // 2 + 100, s - 512)])
+    torch.cuda.synchronize()
+    log(f"[phase 4] flash_attention == plain at gemma2-2b shapes (prefill "
+        f"8192 and {PREFILL_S}, decode at cur_len 0/4095/4096/{DECODE_S - 1}, "
+        f"window {win} and global, softcap {cap}): worst error / limit f32 "
+        f"{worst['f32']:.3g}, bf16 {worst['bf16']:.3g} (limit 2e-4 x row rms, "
+        f"+ 2^-8 |want| in bf16); max abs err {worst['abs']:.3g}")
+
+    rec = {"prefill_global": fa_record(q, k, v, window=None, cap=cap, reps=5),
+           "prefill_local": fa_record(q, k, v, window=win, cap=cap, reps=10)}
+    cur = DECODE_S - 1
+    for name, w in (("decode_global", None), ("decode_local", win)):
+        rec[name] = fa_record(qd, cache_k[1], cache_v[1], window=w, cap=cap,
+                              q_offset=cur, kv_len=cur + 1, reps=20)
+
+    # SDPA where one call computes the same function (no softcap, no
+    # window); the kernel timed in that setting too
+    lib = {}
+    fn, want = sdpa_call(q, k, v, causal=True)
+    got = ops.flash_attention(q, k, v)
+    sdpa_err = float((got.float() - want.float()).abs().max())
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2, atol=2e-2,
+                               msg=lambda m: f"flash_attention != SDPA, prefill: {m}")
+    b_ms, b_by = fa_bound(q, k, True, None, 0, s)
+    lib["prefill"] = dict(ms=time_ms(lambda: ops.flash_attention(q, k, v), 5),
+                          library_ms=time_ms(fn, 5), bound_ms=b_ms, bound_by=b_by,
+                          shape=list(q.shape) + [s])
+    kd, vd = cache_k[1][:, :cur + 1], cache_v[1][:, :cur + 1]
+    fn, want = sdpa_call(qd, kd, vd, causal=False)   # one query sees every key
+    kw = dict(q_offset=cur, kv_len=cur + 1)
+    got = ops.flash_attention(qd, cache_k[1], cache_v[1], **kw)
+    sdpa_err = max(sdpa_err, float((got.float() - want.float()).abs().max()))
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2, atol=2e-2,
+                               msg=lambda m: f"flash_attention != SDPA, decode: {m}")
+    b_ms, b_by = fa_bound(qd, cache_k[1], True, None, cur, cur + 1)
+    lib["decode"] = dict(ms=time_ms(lambda: ops.flash_attention(qd, cache_k[1], cache_v[1], **kw), 20),
+                         library_ms=time_ms(fn, 20), bound_ms=b_ms, bound_by=b_by,
+                         shape=list(qd.shape) + [cur + 1])
+    for name, r in list(rec.items()) + [(f"sdpa setting {n}", r) for n, r in lib.items()]:
+        log(f"[phase 4] flash_attention {name} {r['shape']}: {r['ms']:.3f} ms "
+            f"(bound {r['bound_ms']:.3f} ms by {r['bound_by']}"
+            + (f", plain {r['plain_ms']:.3f} ms" if "plain_ms" in r else "")
+            + (f", flex_attention {r['library_ms']:.3f} ms (compiled in "
+               f"{r['library_compile_s']:.1f}s, max abs diff {r['library_err']:.3g})"
+               if "library_call" in r else f", SDPA {r['library_ms']:.3f} ms") + ")")
+    log(f"[phase 4] flash_attention == SDPA in its setting: max abs err "
+        f"{sdpa_err:.3g} (bf16, 2e-2)")
+    return dict(worst=worst["abs"], worst_ratio={k: worst[k] for k in ("f32", "bf16")},
+                sdpa_err=sdpa_err, settings=rec, library=lib)
+
+
+def decode_vs_forward(params, prompt, cfg, tol: float) -> float:
+    """Teacher-force `prompt` [1, n] through decode_step: each step's logits
+    equal forward's (with the final softcap) at that position."""
+    from repro_torch.models import common
+    from repro_torch.models import transformer as T
+    n = prompt.shape[1]
+    h, _ = T.forward(params, prompt, cfg)
+    full = common.softcap((h @ T.unembed_matrix(params, cfg).to(h.dtype)).float(),
+                          cfg.final_softcap)
+    cache = T.init_cache(cfg, 1, n, device=prompt.device)
+    worst = 0.0
+    for i in range(n):
+        step, cache = T.decode_step(params, cache, prompt[:, i:i + 1], i, cfg)
+        torch.testing.assert_close(step, full[:, i], rtol=tol, atol=tol,
+                                   msg=lambda m: f"{cfg.name} {cfg.dtype} decode "
+                                   f"step {i} != forward: {m}")
+        worst = max(worst, float((step - full[:, i]).abs().max()))
+    return worst
+
+
+def card_vs_cpu(sp, cfg, gen, n_layers: int = 2, s: int = 256) -> dict:
+    """The same full-width bf16 weights at `n_layers` layers over `s` tokens
+    on the card and on the CPU: hidden states and lm_serve's last-token
+    logits allclose at BF16_TOL; argmax tokens at every position equal except
+    at near-ties (logit gap within 2 * BF16_TOL), which are logged."""
+    from repro_torch.models import transformer as T
+    cfg2 = dataclasses.replace(cfg, n_layers=n_layers)
+    p2 = dict(sp, layers=T.tree_map(lambda a: a[:n_layers], sp["layers"]))
+    toks = torch.randint(0, cfg.vocab_size, (1, s), generator=gen, device=gen.device)
+    out = {}
+    for dev, p, tk in (("cuda", p2, toks),
+                       ("cpu", T.tree_map(lambda a: a.cpu(), p2), toks.cpu())):
+        t = time.perf_counter()
+        h, _ = T.forward(p, tk, cfg2)
+        # lm_serve's prefill logits (the last token's, in bf16), and every
+        # position's in f32 from the bf16 hidden states
+        last = h[:, -1, :] @ T.unembed_matrix(p, cfg2).to(h.dtype)
+        logits = h[0].float() @ T.unembed_matrix(p, cfg2).float()
+        out[dev] = (h.cpu().float(), last.cpu().float(), logits.cpu())
+        log(f"[phase 4] {n_layers}-layer gemma2-2b over {s} tokens on {dev}: "
+            f"{time.perf_counter() - t:.1f}s")
+    (hg, lg, ag), (hc, lc, ac) = out["cuda"], out["cpu"]
+    for what, g, c in (("hidden states", hg, hc), ("last-token logits", lg, lc)):
+        torch.testing.assert_close(g, c, rtol=BF16_TOL, atol=BF16_TOL,
+                                   msg=lambda m: f"card != CPU, {what}: {m}")
+    top_g, top_c = ag.argmax(-1), ac.argmax(-1)
+    differ = torch.nonzero(top_g != top_c)[:, 0].tolist()
+    ties = []
+    for i in differ:
+        a, b = int(top_g[i]), int(top_c[i])
+        gap = max(abs(float(ag[i, a] - ag[i, b])), abs(float(ac[i, a] - ac[i, b])))
+        check(gap <= 2 * BF16_TOL, f"card and CPU argmax differ at position {i} "
+              f"({a} vs {b}) with logit gap {gap}")
+        ties.append((i, a, b, gap))
+    res = dict(hidden_err=float((hg - hc).abs().max()),
+               logits_err=float((lg - lc).abs().max()), argmax_near_ties=ties)
+    log(f"[phase 4] card == CPU at {n_layers} layers, {s} tokens: hidden max abs "
+        f"err {res['hidden_err']:.3g}, last-token logits {res['logits_err']:.3g} "
+        f"(bf16, {BF16_TOL}); argmax equal at {s - len(ties)} of {s} positions, "
+        f"near-ties {ties}")
+    return res
+
+
+def phase4_model(seed: int, dev) -> dict:
+    """gemma2-2b at full width and depth through lm_serve: decode matches
+    forward (f32 and bf16), card matches CPU at 2 layers, then prefill
+    B=1 x 32768 and decode steps at B=8 against a 32768-position cache."""
+    from repro_torch.configs import registry
+    from repro_torch.configs.gemma2_2b import CONFIG as cfg
+    from repro_torch.kernels import _build
+    from repro_torch.models import transformer as T
+    res: dict = {"reduced": LM_REDUCED}
+    gen = torch.Generator(dev).manual_seed(seed + 2)
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    params = T.init_params(gen, cfg)
+    torch.cuda.synchronize()
+    log(f"[phase 4] gemma2-2b: {cfg.param_count()} parameters made on the card "
+        f"in {time.perf_counter() - t:.1f}s; reduced {json.dumps(LM_REDUCED)}")
+
+    prompt = torch.randint(0, cfg.vocab_size, (1, 64), generator=gen, device=dev)
+    t = time.perf_counter()
+    res["decode_vs_forward_f32"] = decode_vs_forward(
+        params, prompt, dataclasses.replace(cfg, dtype="float32"), 1e-3)
+    sp = T.serving_params(params, cfg)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["decode_vs_forward_bf16"] = decode_vs_forward(sp, prompt, cfg, BF16_TOL)
+    log(f"[phase 4] decode_step == forward over a 64-token prompt at full "
+        f"width and depth: max abs logit err f32 {res['decode_vs_forward_f32']:.3g} "
+        f"(1e-3), bf16 {res['decode_vs_forward_bf16']:.3g} ({BF16_TOL}); "
+        f"{time.perf_counter() - t:.1f}s")
+    res["card_vs_cpu"] = card_vs_cpu(sp, cfg, gen)
+
+    # the main path: prefill, then decode steps, each run's launches counted
+    prefill = registry.lm_serve(cfg, "prefill_32k")
+    toks = torch.randint(0, cfg.vocab_size, (PREFILL_B, PREFILL_S), generator=gen,
+                         device=dev)
+    prefill(sp, {"tokens": toks})                    # warm-up
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t = time.perf_counter()
+    logits = prefill(sp, {"tokens": toks})
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t
+    launches = dict(_build.LAUNCHES)
+    check(launches["flash_attention"] == cfg.n_layers,
+          f"prefill launched flash_attention {launches['flash_attention']} times")
+    check(logits.shape == (PREFILL_B, cfg.vocab_size)
+          and bool(torch.isfinite(logits).all()), "prefill logits not finite")
+    res["prefill"] = dict(s=dt, tokens_per_s=PREFILL_B * PREFILL_S / dt,
+                          launches=launches["flash_attention"])
+    log(f"[phase 4] prefill B={PREFILL_B} S={PREFILL_S}: {dt * 1e3:.1f} ms, "
+        f"{res['prefill']['tokens_per_s']:.1f} tokens/s; launches {launches}")
+    del logits
+    torch.cuda.empty_cache()
+
+    decode = registry.lm_serve(cfg, "decode_32k")
+    t = time.perf_counter()
+    cache = T.init_cache(cfg, DECODE_B, DECODE_S, device=dev)
+    for key in ("k", "v"):
+        for i in range(cfg.n_layers):
+            cache[key][i].normal_(generator=gen)
+    torch.cuda.synchronize()
+    log(f"[phase 4] decode cache {tuple(cache['k'].shape)} x2 "
+        f"({2 * cache['k'].numel() * 2 / 2 ** 30:.1f} GiB) filled in "
+        f"{time.perf_counter() - t:.1f}s")
+    tok = torch.randint(0, cfg.vocab_size, (DECODE_B, 1), generator=gen, device=dev)
+    start = DECODE_S - DECODE_STEPS - 1
+    decode(sp, {"cache": cache, "tokens": tok, "cur_len": start})     # warm-up
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    steps = []
+    for cur in range(start + 1, DECODE_S):
+        t = time.perf_counter()
+        logits, cache = decode(sp, {"cache": cache, "tokens": tok, "cur_len": cur})
+        torch.cuda.synchronize()
+        steps.append((time.perf_counter() - t) * 1e3)
+        check(logits.shape == (DECODE_B, cfg.vocab_size)
+              and bool(torch.isfinite(logits).all()), f"decode logits at {cur} not finite")
+        tok = logits.argmax(-1, keepdim=True)
+    launches = dict(_build.LAUNCHES)
+    check(launches["flash_attention"] == cfg.n_layers * DECODE_STEPS,
+          f"decode launched flash_attention {launches['flash_attention']} times")
+    res["decode"] = dict(ms_per_step=statistics.median(steps), steps_ms=steps,
+                         launches=launches["flash_attention"])
+    res["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"[phase 4] decode B={DECODE_B} against a {DECODE_S}-position cache: "
+        f"{res['decode']['ms_per_step']:.3f} ms per step (median; steps {steps}); "
+        f"launches {launches}; max_memory_allocated {res['peak_gib']:.2f} GiB")
+    res["launches"] = res["prefill"]["launches"] + res["decode"]["launches"]
+    return res
+
+
+def lm_record(kern: dict, model: dict, cfg) -> dict:
+    """The flash_attention entry of the kernels line: prefill at S = 32768
+    on a global layer (softcap 50) is its headline setting; the other three
+    settings and the SDPA yardstick ride along."""
+    head = dict(kern["settings"]["prefill_global"])
+    st = kern["settings"]
+    n_glob = sum(cfg.is_global_layer())
+    n_loc = cfg.n_layers - n_glob
+    attn_prefill = n_glob * st["prefill_global"]["ms"] + n_loc * st["prefill_local"]["ms"]
+    attn_decode = n_glob * st["decode_global"]["ms"] + n_loc * st["decode_local"]["ms"]
+    prefill_ms = model["prefill"]["s"] * 1e3
+    decode_ms = model["decode"]["ms_per_step"]
+    head.update(
+        name="flash_attention", max_abs_err=kern["worst"],
+        err_over_limit=kern["worst_ratio"],
+        settings={k: v for k, v in st.items() if k != "prefill_global"},
+        library_setting=dict(kern["library"], max_abs_err=kern["sdpa_err"]),
+        lm=dict(prefill_tokens_per_s=model["prefill"]["tokens_per_s"],
+                prefill_ms=prefill_ms, decode_ms_per_step=decode_ms,
+                attention_share_prefill=attn_prefill / prefill_ms,
+                attention_share_decode=attn_decode / decode_ms,
+                launches_prefill=model["prefill"]["launches"],
+                launches_decode=model["decode"]["launches"],
+                reduced=model["reduced"]))
+    log(f"[phase 4] attention share: prefill {attn_prefill:.1f} of {prefill_ms:.1f} ms "
+        f"({attn_prefill / prefill_ms:.1%}), decode {attn_decode:.3f} of "
+        f"{decode_ms:.3f} ms ({attn_decode / decode_ms:.1%}) ({n_glob} global and "
+        f"{n_loc} local layers at the timed settings' kernel times)")
+    return head
+
+
 SOURCES = {
     "coverage_gain": ("src/repro_torch/kernels/csrc/coverage_gain.cu",
                       "src/repro/kernels/coverage_gain.py:33"),
@@ -948,7 +1420,11 @@ SOURCES = {
                        "src/repro/kernels/partition_gain.py:57"),
     "sparse_gain": ("src/repro_torch/kernels/csrc/sparse_gain.cu",
                     "src/repro/kernels/sparse_gain.py:41"),
+    "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention.py:93"),
 }
+# the kernels of the tiering paths (phases 1-3); the LM phase checks its own
+TIERING_KERNELS = tuple(k for k in SOURCES if k != "flash_attention")
 
 
 def main() -> int:
@@ -959,10 +1435,15 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this script runs only on the card",
               file=sys.stderr)
         return 1
-    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    root = Path(__file__).resolve().parent
+    sys.path.insert(0, str(root / "src"))
+    # flex_attention's compiled yardstick keeps its caches in the checkout
+    for var, sub in (("TORCHINDUCTOR_CACHE_DIR", "inductor"), ("TRITON_CACHE_DIR", "triton")):
+        os.environ.setdefault(var, str(root / "build" / sub))
     from repro_torch.kernels import _build
     torch.backends.cuda.matmul.allow_tf32 = False   # no TF32 in any matmul
     torch.backends.cudnn.allow_tf32 = False
+    cuda = torch.device("cuda")
     t_all = time.perf_counter()
 
     t = time.perf_counter()
@@ -979,6 +1460,30 @@ def main() -> int:
         log(f"[phase 0]   ptxas {ln}")
     log(f"[phase 0] {time.perf_counter() - t:.1f}s")
 
+    rec = tiering_phases(args.seed)
+    t = time.perf_counter()
+    phase4_kernel_small(cuda)
+    kern = phase4_kernel_model(args.seed, cuda)
+    gc.collect()
+    torch.cuda.empty_cache()
+    model = phase4_model(args.seed, cuda)
+    from repro_torch.configs.gemma2_2b import CONFIG
+    r = lm_record(kern, model, CONFIG)
+    src, tpu = SOURCES[r["name"]]
+    r.update(route="cuda", source=src, replaces=tpu, launches=model["launches"])
+    rec.append(r)
+    log(f"[phase 4] {time.perf_counter() - t:.1f}s")
+    log(f"total {time.perf_counter() - t_all:.1f}s")
+    print(json.dumps({"kernels": rec}))
+    print(card_line())
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def tiering_phases(seed: int) -> list[dict]:
+    """Phases 1-3 and the tiering kernels' records."""
     t = time.perf_counter()
     worst = phase1_small(torch.device("cuda"))
     log(f"[phase 1] ragged shapes: integer kernels equal, bit_matvec max abs "
@@ -992,10 +1497,11 @@ def main() -> int:
 
     t = time.perf_counter()
     counts: dict = {}
-    p3 = phase3(args.seed, counts)
+    p3 = phase3(seed, counts)
     p3["shards"] = phase3_shards(p3, counts)
     p3["sparse"] = phase3_sparse(p3, counts)
-    check(all(v > 0 for v in counts.values()) and len(counts) == len(SOURCES),
+    check(all(counts[k] > 0 for k in TIERING_KERNELS) and len(counts) == len(SOURCES)
+          and counts["flash_attention"] == 0,
           f"a kernel never launched in phase 3: {counts}")
     log(f"[phase 3] launches {dict(counts)}; {time.perf_counter() - t:.1f}s")
 
@@ -1005,12 +1511,15 @@ def main() -> int:
     del p3                       # free the production operands (~50 GiB)
     gc.collect()
     torch.cuda.empty_cache()
-    xl = phase1_xl(args.seed)
+    xl = phase1_xl(seed)
     log(f"[phase 1] at scale sparse_gain {xl['shape']} (solve_sparse_xl, L2 "
         f"route): {xl['ms']:.3f} ms (bound {xl['bound_ms']:.3f} ms by "
         f"{xl['bound_by']}, plain {xl['plain_ms']:.3f} ms), max abs err "
         f"{xl['max_abs_err']}")
     next(r for r in rec if r["name"] == "sparse_gain")["l2_route"] = xl
+    del xl
+    gc.collect()
+    torch.cuda.empty_cache()
     log(f"[phase 3] per-shard per-selection ms (median): "
         f"{json.dumps(shards['per_selection_ms'])}")
     for r in rec:
@@ -1021,14 +1530,8 @@ def main() -> int:
         log(f"[phase 1] at scale {r['name']} {r['shape']}: {r['ms']:.3f} ms "
             f"(bound {r['bound_ms']:.3f} ms by {r['bound_by']}, plain "
             f"{r['plain_ms']:.3f} ms), max abs err {r['max_abs_err']:.3g}")
-    log(f"[phase 1] at scale: {time.perf_counter() - t:.1f}s; "
-        f"total {time.perf_counter() - t_all:.1f}s")
-    print(json.dumps({"kernels": rec}))
-    print(card_line())
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
-    return 0
+    log(f"[phase 1] at scale: {time.perf_counter() - t:.1f}s")
+    return rec
 
 
 if __name__ == "__main__":

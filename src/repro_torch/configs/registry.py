@@ -1,0 +1,105 @@
+"""Architecture registry, the LM serving part of `repro.configs.registry`.
+
+Each registered arch names its config, its cells and its serving
+functions. A cell's dimensions are plain numbers: the port runs on one
+device, so there are no PartitionSpecs. Only the LM family's serving cells
+(`prefill_32k`, `decode_32k`, `long_500k`) are ported; training cells and
+the other families are not yet.
+"""
+from __future__ import annotations
+
+import dataclasses
+import importlib
+from typing import Any, Callable
+
+LM_SHAPES = ("train_4k", "prefill_32k", "decode_32k", "long_500k")
+
+
+@dataclasses.dataclass
+class Cell:
+    kind: str                       # prefill | decode
+    dims: dict[str, Any]            # name -> int or shape tuple
+
+
+@dataclasses.dataclass
+class ArchSpec:
+    name: str
+    family: str                     # lm
+    shapes: tuple[str, ...]
+    skips: dict[str, str]
+    config_for: Callable[[str], Any]
+    cell_for: Callable[[str], Cell]
+    serve_fn: Callable              # (cfg, shape) -> fn(params, batch)
+    smoke_cfg: Any = None
+
+
+ARCHS: dict[str, ArchSpec] = {}
+_ARCH_MODULES = ["gemma2_2b"]
+_LOADED = False
+
+
+def register(spec: ArchSpec) -> ArchSpec:
+    ARCHS[spec.name] = spec
+    return spec
+
+
+def _load_all() -> None:
+    global _LOADED
+    if _LOADED:
+        return
+    for m in _ARCH_MODULES:
+        importlib.import_module(f"repro_torch.configs.{m}")
+    _LOADED = True
+
+
+def get_arch(name: str) -> ArchSpec:
+    _load_all()
+    return ARCHS[name]
+
+
+# =============================================================================
+# LM family glue
+# =============================================================================
+
+def lm_cell(cfg, shape: str) -> Cell:
+    """The registry's batch, length and cache shape of an LM serving cell."""
+    if shape == "prefill_32k":
+        return Cell("prefill", {"batch": 32, "seq_len": 32768})
+    if shape in ("decode_32k", "long_500k"):
+        b, s = (128, 32768) if shape == "decode_32k" else (1, 524288)
+        return Cell("decode", {
+            "batch": b, "seq_len": s,
+            "cache": (cfg.n_layers, b, s, cfg.n_kv_heads, cfg.d_head)})
+    if shape == "train_4k":
+        raise NotImplementedError("training cells are not ported yet")
+    raise KeyError(shape)
+
+
+def lm_serve(cfg, shape: str):
+    """prefill_32k: last-token logits of `forward`, without the final softcap
+    (as the reference's prefill returns them); the decode cells:
+    `decode_step`, which applies it."""
+    from repro_torch.models import transformer as T
+    if shape == "prefill_32k":
+        def prefill(params, batch):
+            h, _ = T.forward(params, batch["tokens"], cfg)
+            return h[:, -1, :] @ T.unembed_matrix(params, cfg).to(h.dtype)
+        return prefill
+
+    def decode(params, batch):
+        return T.decode_step(params, batch["cache"], batch["tokens"],
+                             batch["cur_len"], cfg)
+    return decode
+
+
+def register_lm(name: str, cfg, *, smoke_cfg=None) -> ArchSpec:
+    skips = {}
+    if cfg.pure_full_attention:
+        skips["long_500k"] = ("pure full attention: 500k-token context is "
+                              "quadratic at prefill; spec says skip "
+                              "(DESIGN.md §Arch-applicability)")
+    return register(ArchSpec(
+        name=name, family="lm", shapes=LM_SHAPES, skips=skips,
+        config_for=lambda shape: cfg,
+        cell_for=lambda shape: lm_cell(cfg, shape),
+        serve_fn=lm_serve, smoke_cfg=smoke_cfg))

@@ -56,3 +56,21 @@ def tiering_from_numpy(clauses, clause_vocab_bits: np.ndarray,
         clause_vocab_bits=np.asarray(clause_vocab_bits, np.uint32),
         tier1_docs=np.asarray(tier1_docs, bool),
         vocab_size=int(vocab_size))
+
+
+def transformer_params_from_numpy(tree: dict, cfg, device=None) -> dict:
+    """The port's transformer parameters from the reference's
+    `init_params` tree as numpy arrays (the same nesting and stacked [L]
+    leaves), in `cfg.param_dtype` on `device`. A bfloat16 leaf (numpy's
+    ml_dtypes) is carried through float32, which holds it exactly."""
+    dev = resolve_device(device)
+
+    def leaf(a):
+        a = np.asarray(a)
+        if a.dtype.name == "bfloat16":
+            a = a.astype(np.float32)
+        return torch.tensor(a, device=dev).to(cfg.pdtype)
+
+    def walk(t):
+        return {k: walk(v) for k, v in t.items()} if isinstance(t, dict) else leaf(t)
+    return walk(tree)

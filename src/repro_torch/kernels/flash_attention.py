@@ -1,0 +1,84 @@
+"""flash_attention: GQA attention with a causal mask, a sliding window, a
+logit softcap, a query offset and a valid KV length — CUDA kernel wrapper.
+
+Kernel: `csrc/flash_attention.cu` (replaces the Pallas
+`repro.kernels.flash_attention._flash_attention_impl`). CPU tensors take the
+plain version `ref.flash_attention`; CUDA tensors launch the kernel or
+raise. The kernel reads q, k and v in their [B, S, H, D] layout through
+their strides, so a decode step passes one layer's slice of the KV cache as
+it lies, with `kv_len` = the filled length.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import _build, ref
+
+HEAD_DIMS = (8, 16, 32, 64, 128, 256)   # the kernel's instantiations
+DTYPES = (torch.float32, torch.bfloat16)
+
+
+def rows_per_thread(sq: int, group: int) -> int:
+    """The kernel's row tile: 64 rows (4 per row group) when a KV head has
+    at least 256 (query, head) rows, else 16 (decode)."""
+    return 4 if sq * group >= 256 else 1
+
+
+def _require(t: torch.Tensor, name: str, q: torch.Tensor) -> None:
+    if t.device != q.device:
+        raise ValueError(f"{name} is on {t.device}, q on {q.device}")
+    if t.dtype != q.dtype or t.dtype not in DTYPES:
+        raise ValueError(f"{name} must be float32 or bfloat16 like q, got {t.dtype}")
+    if t.stride(3) != 1 or any(s % 4 for s in t.stride()[:3]):
+        raise ValueError(f"{name} needs a contiguous last dimension and "
+                         f"strides that are multiples of 4, got {t.stride()}")
+    if t.data_ptr() % (4 * t.element_size()):
+        raise ValueError(f"{name} is not aligned to 4 elements")
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int | None = None,
+                    softcap: float | None = None, q_offset: int = 0,
+                    kv_len: int | None = None) -> torch.Tensor:
+    """q [B, Sq, Hq, D], k/v [B, Skv, Hkv, D] -> [B, Sq, Hq, D] in q's dtype.
+
+    `q_offset` is the absolute position of q[:, 0]; keys at or past `kv_len`
+    (default Skv) do not exist. `window` None is global attention."""
+    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
+        raise ValueError(f"expected q [B, Sq, Hq, D] and k, v [B, Skv, Hkv, D], "
+                         f"got {tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    b, sq, hq, d = q.shape
+    _, skv, hkv, _ = k.shape
+    if k.shape[0] != b or k.shape[3] != d or hkv == 0 or hq % hkv:
+        raise ValueError(f"k/v {tuple(k.shape)} do not fit q {tuple(q.shape)}")
+    kv_len = skv if kv_len is None else int(kv_len)
+    if not 0 <= kv_len <= skv:
+        raise ValueError(f"kv_len {kv_len} outside [0, {skv}]")
+    if _build.on_cpu(q, k, v):
+        return ref.flash_attention(q, k, v, causal=causal, window=window,
+                                   softcap=softcap, q_offset=q_offset,
+                                   kv_len=kv_len)
+    if q.device.type != "cuda":
+        raise ValueError(f"q must be a CUDA tensor (or every operand on the "
+                         f"CPU), got device {q.device}")
+    for t, name in ((q, "q"), (k, "k"), (v, "v")):
+        _require(t, name, q)
+    if d not in HEAD_DIMS:
+        raise ValueError(f"head dim {d} not among the kernel's {HEAD_DIMS}")
+    if window is not None and window < 1:
+        raise ValueError(f"window must be >= 1, got {window}")
+    if softcap is not None and softcap <= 0:
+        raise ValueError(f"softcap must be > 0, got {softcap}")
+    out = torch.empty((b, sq, hq, d), dtype=q.dtype, device=q.device)
+    if out.numel() == 0:
+        return out
+    rt = rows_per_thread(sq, hq // hkv)
+    _build.launch("flash_attention", q.device, lambda lib, stream:
+                  lib.flash_attention_launch(
+                      q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                      b, sq, hq, hkv, d, *q.stride()[:3], *k.stride()[:3],
+                      *v.stride()[:3], kv_len, int(q_offset),
+                      -1 if window is None else int(window),
+                      0.0 if softcap is None else float(softcap), int(causal),
+                      int(q.dtype == torch.bfloat16), rt, stream))
+    return out

@@ -11,6 +11,7 @@ import torch
 from repro_torch.kernels.bit_matvec import bit_matvec  # noqa: F401
 from repro_torch.kernels.clause_match import clause_match  # noqa: F401
 from repro_torch.kernels.coverage_gain import coverage_gain  # noqa: F401
+from repro_torch.kernels.flash_attention import flash_attention  # noqa: F401
 from repro_torch.kernels.fused_match import fused_match, tier_match  # noqa: F401
 from repro_torch.kernels.partition_gain import partition_gain  # noqa: F401
 from repro_torch.kernels.sparse_gain import sparse_gain  # noqa: F401

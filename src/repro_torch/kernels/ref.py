@@ -10,6 +10,8 @@ Words are int32 with the uint32 bit pattern (see `core.bitset`).
 """
 from __future__ import annotations
 
+import math
+
 import torch
 
 from repro_torch.core import bitset
@@ -118,4 +120,43 @@ def tier_match(t1: torch.Tensor, t2: torch.Tensor, sel: torch.Tensor | None,
             if sel is not None:
                 got = torch.where(sel[b0:b0 + rows, None], t1[tok], got)
             acc &= torch.where(valid[b0:b0 + rows, j, None], got, -1)
+    return out
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int | None = None,
+                    softcap: float | None = None, q_offset: int = 0,
+                    kv_len: int | None = None) -> torch.Tensor:
+    """GQA attention with an optional sliding window and logit softcap, the
+    reference's `ref.flash_attention`: q [B, Sq, Hq, D], k/v [B, Skv, Hkv,
+    D] -> q's shape and dtype, f32 math. `q_offset` is the absolute
+    position of q[:, 0]; only the first `kv_len` keys exist (the rest of a
+    decode cache). Works through blocks of query positions so that the f32
+    scores stay near `CHUNK_BYTES`."""
+    if kv_len is not None:
+        k, v = k[:, :kv_len], v[:, :kv_len]
+    b, sq, hq, d = q.shape
+    _, skv, hkv, _ = k.shape
+    g = hq // hkv
+    kf, vf = k.float(), v.float()
+    k_pos = torch.arange(skv, device=q.device)
+    out = torch.empty_like(q)
+    rows = max(1, CHUNK_BYTES // max(1, b * hq * skv * 4 * 3))
+    for r0 in range(0, sq, rows):
+        qc = q[:, r0:r0 + rows].float()
+        n = qc.shape[1]
+        logits = torch.einsum("bqhgd,bkhd->bhgqk", qc.reshape(b, n, hkv, g, d),
+                              kf) / math.sqrt(d)
+        if softcap is not None:
+            logits = softcap * torch.tanh(logits / softcap)
+        q_pos = torch.arange(r0, r0 + n, device=q.device) + q_offset
+        mask = torch.ones((n, skv), dtype=torch.bool, device=q.device)
+        if causal:
+            mask &= q_pos[:, None] >= k_pos[None, :]
+        if window is not None:
+            mask &= q_pos[:, None] - k_pos[None, :] < window
+        logits = torch.where(mask, logits, torch.tensor(-1e30, device=q.device))
+        p = torch.softmax(logits, dim=-1)
+        o = torch.einsum("bhgqk,bkhd->bqhgd", p, vf)
+        out[:, r0:r0 + n] = o.reshape(b, n, hq, d).to(q.dtype)
     return out

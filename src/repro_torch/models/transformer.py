@@ -1,0 +1,275 @@
+"""Decoder-only transformer LM, the dense serving path of
+`repro.models.transformer`: prefill (`forward`) and the KV-cache decode step
+(`decode_step`), with GQA, RoPE, local/global attention alternation,
+attention and final logit softcaps and a tied or untied embedding.
+
+Parameters are the reference's tree: a dict whose per-layer leaves are
+stacked on a leading [L] axis. Each layer's attention runs on
+`common.attention` (the hand-written `flash_attention` kernel on the card),
+and the layer loop knows each layer's window statically: a global layer
+passes `window=None`. The cache is updated in place.
+
+The reference's rounding order is kept: the embedding is cast to the
+activation dtype before the sqrt(d) scale, `rms_norm` and `rope` work in f32
+and cast back, and weights are cast to the activation dtype at each matmul
+(`serving_params` makes that cast once, with identical numbers). MoE FFNs
+are not ported and raise. `remat`, `unroll_layers` and `attn_unroll` are
+training and dry-run knobs of the reference that serving ignores.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+
+from repro_torch.device import resolve_device
+from repro_torch.models import common
+
+
+@dataclasses.dataclass(frozen=True)
+class TransformerConfig:
+    name: str
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_head: int
+    d_ff: int
+    vocab_size: int
+    moe: object | None = None
+    rope_theta: float = 10000.0
+    local_window: int | None = None     # sliding window for local layers
+    global_every: int = 0               # 0: all-global; n: every n-th layer global
+    attn_softcap: float | None = None
+    final_softcap: float | None = None
+    qk_norm: bool = False
+    tie_embeddings: bool = True
+    embed_scale: bool = False           # gemma-style sqrt(D) embedding scale
+    dtype: str = "bfloat16"             # activation dtype
+    param_dtype: str = "float32"        # storage dtype (bf16 for 1T configs)
+    remat: bool = True
+    xent_chunk: int = 512
+    attn_chunk: int = 1024
+    pure_full_attention: bool = False   # True => long_500k cell is skipped
+    unroll_layers: bool = False
+    attn_unroll: bool = False
+
+    @property
+    def adtype(self) -> torch.dtype:
+        return getattr(torch, self.dtype)
+
+    @property
+    def pdtype(self) -> torch.dtype:
+        return getattr(torch, self.param_dtype)
+
+    def is_global_layer(self) -> list[bool]:
+        if self.global_every <= 0 or self.local_window is None:
+            return [True] * self.n_layers
+        return [i % self.global_every == self.global_every - 1
+                for i in range(self.n_layers)]
+
+    def param_count(self) -> int:
+        """Exact parameter count (for MODEL_FLOPS = 6·N·D bookkeeping)."""
+        p = self.vocab_size * self.d_model          # embed
+        if not self.tie_embeddings:
+            p += self.d_model * self.vocab_size
+        per_layer = (self.d_model * (self.n_heads + 2 * self.n_kv_heads)
+                     * self.d_head
+                     + self.n_heads * self.d_head * self.d_model
+                     + 2 * self.d_model)
+        if self.qk_norm:
+            per_layer += 2 * self.d_head
+        if self.moe is not None:
+            per_layer += self.d_model * self.moe.n_experts
+            per_layer += self.moe.n_experts * 3 * self.d_model * self.moe.d_expert
+        else:
+            per_layer += 3 * self.d_model * self.d_ff
+        return p + self.n_layers * per_layer + self.d_model
+
+
+def _dense_only(cfg: TransformerConfig) -> None:
+    if cfg.moe is not None:
+        raise NotImplementedError(f"{cfg.name}: MoE layers are not ported yet")
+
+
+# -----------------------------------------------------------------------------
+# params
+# -----------------------------------------------------------------------------
+
+def init_params(gen: torch.Generator, cfg: TransformerConfig) -> dict:
+    """Random parameters on `gen`'s device, with the reference's
+    distributions and scales (not its numbers: the generators differ)."""
+    _dense_only(cfg)
+    d, h, kv, dh, l = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_head,
+                       cfg.n_layers)
+    dev = gen.device
+
+    def zeros(*shape):
+        return torch.zeros(shape, dtype=torch.float32, device=dev)
+
+    params = {
+        "embed": torch.randn((cfg.vocab_size, d), generator=gen, device=dev) * 0.01,
+        "layers": {
+            "attn": {
+                "wq": common.dense_init(gen, (l, d, h * dh)),
+                "wk": common.dense_init(gen, (l, d, kv * dh)),
+                "wv": common.dense_init(gen, (l, d, kv * dh)),
+                "wo": common.dense_init(gen, (l, h * dh, d)) / math.sqrt(2 * l),
+            },
+            "ffn": {
+                "w1": common.dense_init(gen, (l, d, cfg.d_ff)),
+                "w3": common.dense_init(gen, (l, d, cfg.d_ff)),
+                "w2": common.dense_init(gen, (l, cfg.d_ff, d)) / math.sqrt(2 * l),
+            },
+            "ln1": zeros(l, d),
+            "ln2": zeros(l, d),
+        },
+        "final_norm": zeros(d),
+    }
+    if cfg.qk_norm:
+        params["layers"]["qnorm"] = zeros(l, dh)
+        params["layers"]["knorm"] = zeros(l, dh)
+    if not cfg.tie_embeddings:
+        params["unembed"] = common.dense_init(gen, (d, cfg.vocab_size))
+    return tree_map(lambda p: p.to(cfg.pdtype), params)
+
+
+_NORMS = ("ln1", "ln2", "qnorm", "knorm", "final_norm")
+
+
+def serving_params(params: dict, cfg: TransformerConfig) -> dict:
+    """The tree with every matrix (embedding included) cast once to the
+    activation dtype; norm scales keep theirs. The per-matmul casts of the
+    model are then no-ops, and the numbers are the same."""
+    def cast(path, p):
+        return p if path[-1] in _NORMS else p.to(cfg.adtype)
+    return _map_path(cast, params)
+
+
+def tree_map(fn, tree):
+    """`fn` applied to every leaf of a nested dict of tensors."""
+    return _map_path(lambda _, p: fn(p), tree)
+
+
+def _map_path(fn, tree, path=()):
+    if isinstance(tree, dict):
+        return {k: _map_path(fn, v, path + (k,)) for k, v in tree.items()}
+    return fn(path, tree)
+
+
+def layer_params(params: dict, i: int) -> dict:
+    """Layer `i`'s slice of the stacked per-layer tree (views, no copy)."""
+    return tree_map(lambda a: a[i], params["layers"])
+
+
+# -----------------------------------------------------------------------------
+# forward
+# -----------------------------------------------------------------------------
+
+def _attention_block(cfg: TransformerConfig, lp: dict, h: torch.Tensor,
+                     window: int | None, *, positions: torch.Tensor,
+                     pos0: int = 0, kv_len: int | None = None,
+                     cache_kv=None) -> torch.Tensor:
+    """Attention of one layer. cache_kv: (k, v) [B, Smax, kv, dh] of this
+    layer, written in place at `pos0` (= positions[0], known on the host)."""
+    b, s, _ = h.shape
+    nh, nkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    a = common.rms_norm(h, lp["ln1"])
+    q = (a @ lp["attn"]["wq"].to(a.dtype)).reshape(b, s, nh, dh)
+    k = (a @ lp["attn"]["wk"].to(a.dtype)).reshape(b, s, nkv, dh)
+    v = (a @ lp["attn"]["wv"].to(a.dtype)).reshape(b, s, nkv, dh)
+    if cfg.qk_norm:
+        q = common.rms_norm(q, lp["qnorm"])
+        k = common.rms_norm(k, lp["knorm"])
+    q = common.rope(q, positions, cfg.rope_theta)
+    k = common.rope(k, positions, cfg.rope_theta)
+
+    if cache_kv is None:
+        out = common.attention(q, k, v, causal=True, window=window,
+                               cap=cfg.attn_softcap)
+    else:
+        ck, cv = cache_kv
+        ck[:, pos0:pos0 + s] = k.to(ck.dtype)
+        cv[:, pos0:pos0 + s] = v.to(cv.dtype)
+        out = common.attention(q, ck, cv, causal=True, window=window,
+                               cap=cfg.attn_softcap, q_offset=pos0,
+                               kv_len=kv_len)
+    out = out.reshape(b, s, nh * dh)
+    return out @ lp["attn"]["wo"].to(out.dtype)
+
+
+def _ffn_block(cfg: TransformerConfig, lp: dict, h: torch.Tensor) -> torch.Tensor:
+    _dense_only(cfg)
+    m = common.rms_norm(h, lp["ln2"])
+    w = lp["ffn"]
+    g = m @ w["w1"].to(m.dtype)
+    hh = g * torch.sigmoid(g) * (m @ w["w3"].to(m.dtype))     # jax.nn.silu
+    return hh @ w["w2"].to(m.dtype)
+
+
+def _window_of(cfg: TransformerConfig, is_global: bool) -> int | None:
+    """A layer's attention window: None (global) on a global layer."""
+    return None if is_global else cfg.local_window
+
+
+def _embed(params: dict, tokens: torch.Tensor, cfg: TransformerConfig) -> torch.Tensor:
+    h = params["embed"][tokens.long()].to(cfg.adtype)
+    if cfg.embed_scale:
+        # the reference's python-float scale is weakly typed: it is rounded
+        # to the activation dtype first
+        h = h * torch.tensor(math.sqrt(cfg.d_model), dtype=h.dtype, device=h.device)
+    return h
+
+
+def forward(params: dict, tokens: torch.Tensor, cfg: TransformerConfig
+            ) -> tuple[torch.Tensor, torch.Tensor]:
+    """tokens [B, S] -> (hidden [B, S, D], aux_loss)."""
+    _dense_only(cfg)
+    s = tokens.shape[1]
+    h = _embed(params, tokens, cfg)
+    positions = torch.arange(s, device=h.device)
+    for i, flag in enumerate(cfg.is_global_layer()):
+        lp = layer_params(params, i)
+        h = h + _attention_block(cfg, lp, h, _window_of(cfg, flag), positions=positions)
+        h = h + _ffn_block(cfg, lp, h)
+    h = common.rms_norm(h, params["final_norm"])
+    return h, torch.zeros((), dtype=torch.float32, device=h.device)
+
+
+def unembed_matrix(params: dict, cfg: TransformerConfig) -> torch.Tensor:
+    return params["embed"].T if cfg.tie_embeddings else params["unembed"]
+
+
+# -----------------------------------------------------------------------------
+# decode (serve_step)
+# -----------------------------------------------------------------------------
+
+def init_cache(cfg: TransformerConfig, batch: int, max_len: int,
+               device=None) -> dict:
+    """An empty KV cache, on the card unless `device` names another."""
+    dev = resolve_device(device)
+    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.d_head)
+    return {"k": torch.zeros(shape, dtype=cfg.adtype, device=dev),
+            "v": torch.zeros(shape, dtype=cfg.adtype, device=dev)}
+
+
+def decode_step(params: dict, cache: dict, tokens: torch.Tensor,
+                cur_len: int, cfg: TransformerConfig):
+    """One serving step: tokens [B, 1] given a cache filled to cur_len.
+    Returns (next-token logits [B, V] f32, the cache updated in place)."""
+    _dense_only(cfg)
+    cur_len = int(cur_len)
+    h = _embed(params, tokens, cfg)
+    positions = torch.full((1,), cur_len, dtype=torch.int32, device=h.device)
+    for i, flag in enumerate(cfg.is_global_layer()):
+        lp = layer_params(params, i)
+        h = h + _attention_block(cfg, lp, h, _window_of(cfg, flag),
+                                 positions=positions, pos0=cur_len,
+                                 kv_len=cur_len + 1,
+                                 cache_kv=(cache["k"][i], cache["v"][i]))
+        h = h + _ffn_block(cfg, lp, h)
+    h = common.rms_norm(h, params["final_norm"])
+    logits = h[:, 0, :] @ unembed_matrix(params, cfg).to(h.dtype)
+    logits = common.softcap(logits.float(), cfg.final_softcap)
+    return logits, cache
