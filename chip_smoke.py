@@ -5,7 +5,8 @@
 Phases (each prints its seconds; any failure is an uncaught exception and
 a non-zero exit):
   0. environment: card name and power limit, torch/CUDA versions, and the
-     build of the seven CUDA kernels from `src/repro_torch/kernels/csrc`.
+     build of the eight CUDA kernels from `src/repro_torch/kernels/csrc`
+     (ptxas registers and spills of each).
   1. each kernel against its plain PyTorch version on ragged small shapes
      (exact for the integer kernels, allclose for bit_matvec);
      partition_gain also against coverage_gain, sparse_gain on masks on
@@ -34,20 +35,28 @@ a non-zero exit):
      against its plain version at these shapes, with its timing and bound,
      and sparse_gain once more at solve_sparse_xl's own shapes (2^20 lists
      of 4096 ids over 2^28 docs, the L2 route).
-  4. the LM serving path, once the tiering operands are freed:
+  4. the LM serving path, once the tiering operands are freed. Attention
+     has two kernels: the tile kernel (flash_attention) for Sq > 1 and the
+     split-KV kernel (flash_decode) for one query position.
      a. flash_attention against its plain version on ragged shapes (f32
-        and bf16), then at gemma2-2b's shapes: prefill at S = 8192 and
-        32768 (the plain version on 512-query blocks there), decode against
-        a strided slice of a 32768-position cache; timed at the model's
-        four settings beside one compiled flex_attention call (softcap as its
-        score_mod, causal + window as its block mask), and beside one SDPA
-        call in the setting where SDPA computes the same function (no
-        softcap, no window);
+        and bf16); flash_decode on ragged decode shapes (every head dim, G
+        1-16, 0 to 5000 keys, B*Hkv 1-140 so the plan runs from 1 split to
+        its most, 8-byte bf16 rows, no visible key); then both at gemma2-2b's
+        shapes: prefill at S = 8192 and 32768 (the plain version on
+        512-query blocks there), decode against a strided slice of a
+        32768-position cache; timed at the model's four settings beside one
+        compiled flex_attention call (softcap as its score_mod, causal +
+        window as its block mask), and beside one SDPA call in the setting
+        where SDPA computes the same function (no softcap, no window); the
+        decode settings' device time also from a torch.profiler trace;
      b. gemma2-2b at full width and depth (26 layers), parameters made on
         the card from --seed: decode_step == forward over a 64-token prompt
         (f32 and bf16), card == CPU at 2 layers over 256 tokens, then
         prefill B=1 x 32768 and decode steps at B=8 against a 32768-position
-        cache (28 GB), each run's flash_attention launches counted.
+        cache (28 GB), each run's launches counted: prefill on
+        flash_attention alone, decode on flash_decode alone; then one
+        prefill and two decode steps under torch.profiler for the device's
+        busy time.
 The last lines are the kernels' JSON record, the card line, and the
 contract line {"ok": true, "device": {...}}.
 
@@ -452,7 +461,8 @@ def phase2(counts, scale: str = "medium", device=None) -> dict:
     log(f"[phase 2] launches {dict(counts)}; orders, selections, caps, fills, "
         f"match sets and ServeStats equal to the device='cpu' run")
     check(all(counts[k] > 0 for k in TIERING_KERNELS)
-          and counts["flash_attention"] == 0, f"a kernel never launched: {counts}")
+          and all(counts[k] == 0 for k in LM_KERNELS),
+          f"a kernel never launched, or an LM kernel did: {counts}")
     return gpu
 
 
@@ -1015,7 +1025,8 @@ def fa_bound(q, k, causal, window, q_offset, kv_len) -> tuple[float, str]:
 
 def phase4_kernel_small(dev) -> dict:
     """flash_attention against its plain version on ragged shapes, f32
-    (rtol = atol = 2e-4) and bf16 (2e-2, the reference's tolerances)."""
+    (rtol = atol = 2e-4) and bf16 (2e-2, the reference's tolerances). Its
+    Sq = 1 cases run on flash_decode."""
     from repro_torch.kernels import ops, ref
     gen = torch.Generator(dev).manual_seed(13)
     worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
@@ -1039,6 +1050,92 @@ def phase4_kernel_small(dev) -> dict:
         f"max abs err f32 {worst[torch.float32]:.3g} (2e-4), bf16 "
         f"{worst[torch.bfloat16]:.3g} (2e-2)")
     return {"f32": worst[torch.float32], "bf16": worst[torch.bfloat16]}
+
+
+# ragged decode cases for flash_decode: every head dim, G = 1-16, 0 to 5000
+# keys, windows and softcaps, B*Hkv from 1 to 140 (from one split to the
+# plan's most for the length), rows padded to 8-byte alignment in bf16
+# (`pad`), the no-visible-key edge and an empty cache
+DECODE_CASES = [
+    # b, hq, hkv, d, smax, kv_len, q_offset, causal, window, cap, pad
+    (1, 1, 1, 8, 1, 1, 0, True, None, None, 0),
+    (2, 4, 2, 16, 64, 37, 36, True, None, 30.0, 0),
+    (1, 16, 1, 32, 3000, 3000, 2999, True, None, 50.0, 0),
+    (3, 12, 4, 64, 2048, 1500, 1499, True, 512, None, 0),
+    (33, 8, 4, 128, 700, 650, 649, True, None, None, 0),
+    (70, 2, 2, 256, 300, 260, 259, True, 100, 50.0, 0),
+    (1, 8, 1, 256, 4096, 4096, 4095, True, None, 50.0, 0),
+    (2, 5, 1, 128, 2000, 1999, 1998, True, 1000, None, 0),
+    (1, 1, 1, 64, 5000, 5000, 4999, True, None, 50.0, 0),
+    (2, 8, 2, 16, 500, 400, 10, False, None, None, 0),
+    (4, 16, 2, 8, 1024, 1024, 1023, True, 300, 50.0, 0),
+    (2, 6, 2, 64, 256, 200, 199, True, 64, 30.0, 4),
+    (2, 4, 2, 64, 100, 50, 120, True, 16, None, 0),
+    (1, 2, 1, 32, 16, 0, 0, True, None, None, 0),
+]
+
+
+def row_error(got, want, bf16: bool, what: str) -> tuple[float, float]:
+    """(largest |got - want| over its limit, max abs err), want from f32
+    operands: each query position and batch row is held to 2e-4 x the rms
+    of its own output, plus in bf16 the output's rounding, 2^-8 |want|.
+    Raises past the limit."""
+    rms = want.pow(2).mean(dim=(2, 3), keepdim=True).sqrt()
+    lim = 2e-4 * rms + (2.0 ** -8 * want.abs() if bf16 else 0.0)
+    err = (got.float() - want).abs()
+    ratio = float((err / lim.clamp(min=1e-30)).max())
+    check(bool(torch.isfinite(got).all()) and bool((err <= lim).all()),
+          f"{what}: error {ratio:.3g} x its limit (max abs err {float(err.max()):.3g})")
+    return ratio, float(err.max())
+
+
+def phase4_decode_small(dev) -> dict:
+    """flash_decode (ops.flash_attention at Sq = 1) against its plain
+    version on DECODE_CASES, in f32 and bf16: at the reference's tolerances
+    against the plain version on the same operands, and each row within
+    2e-4 x its rms (+ 2^-8 |want| in bf16) of the plain version on f32
+    copies. Every call launches flash_decode once and flash_attention never."""
+    from repro_torch.kernels import _build, ops, ref
+    from repro_torch.kernels.flash_decode import launch_plan
+    gen = torch.Generator(dev).manual_seed(17)
+    worst = {"f32": 0.0, "bf16": 0.0, "abs": 0.0}
+    splits = []
+    before = dict(_build.LAUNCHES)
+    for b, hq, hkv, d, smax, kvl, qo, causal, window, cap, pad in DECODE_CASES:
+        q = torch.randn((b, 1, hq, d + pad), generator=gen, device=dev)[..., :d]
+        k = torch.randn((2, b, smax, hkv, d + pad), generator=gen, device=dev)[1, ..., :d]
+        v = torch.randn((2, b, smax, hkv, d + pad), generator=gen, device=dev)[1, ..., :d]
+        kw = dict(causal=causal, window=window, softcap=cap, q_offset=qo, kv_len=kvl)
+        if dev.type == "cuda":
+            splits.append(launch_plan(q, k, causal=causal, window=window,
+                                      q_offset=qo, kv_len=kvl).n_splits)
+        want32 = ref.flash_attention(q.float(), k.float(), v.float(), **kw)
+        for dt, tol in ((torch.float32, 2e-4), (torch.bfloat16, 2e-2)):
+            qq, kk, vv = q.to(dt), k.to(dt), v.to(dt)
+            what = f"flash_decode {dt} {(b, hq, hkv, d, smax, kvl, qo, causal, window, cap, pad)}"
+            got = ops.flash_attention(qq, kk, vv, **kw)
+            want = ref.flash_attention(qq, kk, vv, **kw)
+            check(got.dtype == dt and got.shape == (b, 1, hq, d), f"{what}: {got.dtype} {got.shape}")
+            torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol,
+                                       msg=lambda m: f"{what}: {m}")
+            want_f = want32 if dt == torch.float32 else \
+                ref.flash_attention(qq.float(), kk.float(), vv.float(), **kw)
+            ratio, _ = row_error(got, want_f, dt == torch.bfloat16, what)
+            name = "bf16" if dt == torch.bfloat16 else "f32"
+            worst[name] = max(worst[name], ratio)
+            worst["abs"] = max(worst["abs"], float((got.float() - want.float()).abs().max()))
+    torch.cuda.synchronize()
+    n = 2 * len(DECODE_CASES)
+    launched = {k: _build.LAUNCHES[k] - before[k] for k in LM_KERNELS}
+    if dev.type == "cuda":
+        check(launched == {"flash_attention": 0, "flash_decode": n},
+              f"ragged decode launched {launched}, expected flash_decode {n}")
+    log(f"[phase 4] flash_decode == plain on {len(DECODE_CASES)} ragged decode "
+        f"cases x 2 dtypes (splits {splits}): worst "
+        f"error / limit f32 {worst['f32']:.3g}, bf16 {worst['bf16']:.3g}; max abs "
+        f"err vs the plain version in the same dtype {worst['abs']:.3g} "
+        f"(2e-4 f32, 2e-2 bf16); launches {launched}")
+    return dict(worst, splits=splits)
 
 
 def sdpa_call(q, k, v, causal: bool):
@@ -1087,7 +1184,10 @@ def fa_record(q, k, v, *, window, cap, q_offset=0, kv_len=None, reps=10,
               plain_reps=2) -> dict:
     """Time one model-shape flash_attention call beside its plain version,
     one flex_attention call (held to the kernel at the reference's bf16
-    tolerance) and its bound."""
+    tolerance) and its bound. `ms` is the median of back-to-back calls by
+    CUDA events, which a short call's host work can set; so at decode
+    (Sq = 1) `device_ms` is also the kernels' own time per call from a
+    profiler trace, for the kernel and for flex_attention alike."""
     from repro_torch.kernels import ops, ref
     kvl = k.shape[1] if kv_len is None else kv_len
     kw = dict(causal=True, window=window, softcap=cap, q_offset=q_offset, kv_len=kv_len)
@@ -1099,7 +1199,13 @@ def fa_record(q, k, v, *, window, cap, q_offset=0, kv_len=None, reps=10,
     torch.testing.assert_close(got.float(), want.float(), rtol=2e-2, atol=2e-2,
                                msg=lambda m: f"flash_attention != flex_attention "
                                f"at {list(q.shape)} window={window} q_offset={q_offset}: {m}")
-    return dict(ms=time_ms(lambda: ops.flash_attention(q, k, v, **kw), reps),
+    rec = {}
+    if q.shape[1] == 1:
+        for key, fn in (("device_ms", lambda i: ops.flash_attention(q, k, v, **kw)),
+                        ("library_device_ms", lambda i: lib())):
+            got_ms = device_ms(fn, 10)
+            rec[key] = None if got_ms is None else got_ms["busy"]
+    return dict(rec, ms=time_ms(lambda: ops.flash_attention(q, k, v, **kw), reps),
                 plain_ms=time_ms(lambda: ref.flash_attention(q, k, v, **kw), plain_reps),
                 library_ms=time_ms(lib, reps), library_call="flex_attention "
                 "(torch.compile; softcap score_mod, causal+window block mask)",
@@ -1112,15 +1218,17 @@ def fa_record(q, k, v, *, window, cap, q_offset=0, kv_len=None, reps=10,
 def phase4_kernel_model(seed: int, dev) -> dict:
     """flash_attention at gemma2-2b's shapes (Hq 8, Hkv 4, D 256) against its
     plain version, in bf16 and on f32 copies of the same operands: prefill
-    at S = 8192 and 32768 (window 4096 or none, softcap 50) and decode
-    (Sq = 1) against a strided slice of a layer-stacked 32768-position
-    cache. Then timed at the model's four settings."""
+    at S = 8192 and 32768 (window 4096 or none, softcap 50) on the tile
+    kernel and decode (Sq = 1, flash_decode) against a strided slice of a
+    layer-stacked 32768-position cache. Then timed at the model's four
+    settings. Errors are kept per kernel."""
     from repro_torch.configs.gemma2_2b import CONFIG as cfg
     from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.flash_decode import launch_plan
     gen = torch.Generator(dev).manual_seed(seed + 3)
     hq, hkv, d, win, cap = cfg.n_heads, cfg.n_kv_heads, cfg.d_head, cfg.local_window, cfg.attn_softcap
     bf = torch.bfloat16
-    worst = {"f32": 0.0, "bf16": 0.0, "abs": 0.0}
+    worst = {kn: {"f32": 0.0, "bf16": 0.0, "abs": 0.0} for kn in LM_KERNELS}
 
     def rnd(*shape):
         return torch.randn(shape, generator=gen, device=dev, dtype=bf)
@@ -1134,22 +1242,18 @@ def phase4_kernel_model(seed: int, dev) -> dict:
         version runs on q[:, r0:r0+n] alone, at q_offset r0."""
         outs = {"f32": ops.flash_attention(q.float(), k.float(), v.float(), **kw),
                 "bf16": ops.flash_attention(q, k, v, **kw)}
+        wk = worst["flash_decode" if q.shape[1] == 1 else "flash_attention"]
         for r0, n in rows or [(0, q.shape[1])]:
             kvl = kw.get("kv_len") or r0 + n
             want = ref.flash_attention(
                 q[:, r0:r0 + n].float(), k[:, :kvl].float(), v[:, :kvl].float(),
                 **dict(kw, q_offset=kw.get("q_offset", 0) + r0))
-            rms = want.pow(2).mean(dim=(2, 3), keepdim=True).sqrt()
             for name, out in outs.items():
-                got = out[:, r0:r0 + n].float()
-                lim = 2e-4 * rms + (2.0 ** -8 * want.abs() if name == "bf16" else 0.0)
-                err = (got - want).abs()
-                ratio = float((err / lim).max())
-                check(bool(torch.isfinite(got).all()) and ratio <= 1.0,
-                      f"flash_attention {name} {what} rows {r0}..{r0 + n - 1}: error "
-                      f"{ratio:.3g} x its limit (max abs err {float(err.max()):.3g})")
-                worst[name] = max(worst[name], ratio)
-                worst["abs"] = max(worst["abs"], float(err.max()))
+                ratio, err = row_error(out[:, r0:r0 + n], want, name == "bf16",
+                                       f"flash_attention {name} {what} rows "
+                                       f"{r0}..{r0 + n - 1}")
+                wk[name] = max(wk[name], ratio)
+                wk["abs"] = max(wk["abs"], err)
 
     s = 8192
     q, k, v = rnd(1, s, hq, d), rnd(1, s, hkv, d), rnd(1, s, hkv, d)
@@ -1172,11 +1276,13 @@ def phase4_kernel_model(seed: int, dev) -> dict:
         agree(q, k, v, f"prefill S={s} window={w}", window=w, softcap=cap,
               rows=[(r, 512) for r in (0, 4096 - 256, s // 2 + 100, s - 512)])
     torch.cuda.synchronize()
-    log(f"[phase 4] flash_attention == plain at gemma2-2b shapes (prefill "
-        f"8192 and {PREFILL_S}, decode at cur_len 0/4095/4096/{DECODE_S - 1}, "
-        f"window {win} and global, softcap {cap}): worst error / limit f32 "
-        f"{worst['f32']:.3g}, bf16 {worst['bf16']:.3g} (limit 2e-4 x row rms, "
-        f"+ 2^-8 |want| in bf16); max abs err {worst['abs']:.3g}")
+    for kn, wk in worst.items():
+        log(f"[phase 4] {kn} == plain at gemma2-2b shapes ("
+            + (f"prefill 8192 and {PREFILL_S}" if kn == "flash_attention" else
+               f"decode at cur_len 0/4095/4096/{DECODE_S - 1}")
+            + f", window {win} and global, softcap {cap}): worst error / limit f32 "
+            f"{wk['f32']:.3g}, bf16 {wk['bf16']:.3g} (limit 2e-4 x row rms, "
+            f"+ 2^-8 |want| in bf16); max abs err {wk['abs']:.3g}")
 
     rec = {"prefill_global": fa_record(q, k, v, window=None, cap=cap, reps=5),
            "prefill_local": fa_record(q, k, v, window=win, cap=cap, reps=10)}
@@ -1184,41 +1290,46 @@ def phase4_kernel_model(seed: int, dev) -> dict:
     for name, w in (("decode_global", None), ("decode_local", win)):
         rec[name] = fa_record(qd, cache_k[1], cache_v[1], window=w, cap=cap,
                               q_offset=cur, kv_len=cur + 1, reps=20)
+        if dev.type == "cuda":
+            rec[name]["n_splits"] = launch_plan(qd, cache_k[1], window=w, q_offset=cur,
+                                                kv_len=cur + 1).n_splits
 
     # SDPA where one call computes the same function (no softcap, no
     # window); the kernel timed in that setting too
     lib = {}
     fn, want = sdpa_call(q, k, v, causal=True)
     got = ops.flash_attention(q, k, v)
-    sdpa_err = float((got.float() - want.float()).abs().max())
+    prefill_err = float((got.float() - want.float()).abs().max())
     torch.testing.assert_close(got.float(), want.float(), rtol=2e-2, atol=2e-2,
                                msg=lambda m: f"flash_attention != SDPA, prefill: {m}")
     b_ms, b_by = fa_bound(q, k, True, None, 0, s)
     lib["prefill"] = dict(ms=time_ms(lambda: ops.flash_attention(q, k, v), 5),
                           library_ms=time_ms(fn, 5), bound_ms=b_ms, bound_by=b_by,
-                          shape=list(q.shape) + [s])
+                          shape=list(q.shape) + [s], max_abs_err=prefill_err)
     kd, vd = cache_k[1][:, :cur + 1], cache_v[1][:, :cur + 1]
     fn, want = sdpa_call(qd, kd, vd, causal=False)   # one query sees every key
     kw = dict(q_offset=cur, kv_len=cur + 1)
     got = ops.flash_attention(qd, cache_k[1], cache_v[1], **kw)
-    sdpa_err = max(sdpa_err, float((got.float() - want.float()).abs().max()))
+    decode_err = float((got.float() - want.float()).abs().max())
     torch.testing.assert_close(got.float(), want.float(), rtol=2e-2, atol=2e-2,
                                msg=lambda m: f"flash_attention != SDPA, decode: {m}")
     b_ms, b_by = fa_bound(qd, cache_k[1], True, None, cur, cur + 1)
     lib["decode"] = dict(ms=time_ms(lambda: ops.flash_attention(qd, cache_k[1], cache_v[1], **kw), 20),
                          library_ms=time_ms(fn, 20), bound_ms=b_ms, bound_by=b_by,
-                         shape=list(qd.shape) + [cur + 1])
+                         shape=list(qd.shape) + [cur + 1], max_abs_err=decode_err)
     for name, r in list(rec.items()) + [(f"sdpa setting {n}", r) for n, r in lib.items()]:
-        log(f"[phase 4] flash_attention {name} {r['shape']}: {r['ms']:.3f} ms "
-            f"(bound {r['bound_ms']:.3f} ms by {r['bound_by']}"
+        kn = "flash_decode" if "decode" in name else "flash_attention"
+        log(f"[phase 4] {kn} {name} {r['shape']}: {r['ms']:.3f} ms "
+            + (f"(device {fmt_ms(r['device_ms'])}, flex_attention device "
+               f"{fmt_ms(r['library_device_ms'])} by the profiler) " if "device_ms" in r else "")
+            + f"(bound {r['bound_ms']:.3f} ms by {r['bound_by']}"
             + (f", plain {r['plain_ms']:.3f} ms" if "plain_ms" in r else "")
             + (f", flex_attention {r['library_ms']:.3f} ms (compiled in "
                f"{r['library_compile_s']:.1f}s, max abs diff {r['library_err']:.3g})"
                if "library_call" in r else f", SDPA {r['library_ms']:.3f} ms") + ")")
-    log(f"[phase 4] flash_attention == SDPA in its setting: max abs err "
-        f"{sdpa_err:.3g} (bf16, 2e-2)")
-    return dict(worst=worst["abs"], worst_ratio={k: worst[k] for k in ("f32", "bf16")},
-                sdpa_err=sdpa_err, settings=rec, library=lib)
+    log(f"[phase 4] flash_attention and flash_decode == SDPA in its setting: "
+        f"max abs err prefill {prefill_err:.3g}, decode {decode_err:.3g} (bf16, 2e-2)")
+    return dict(worst=worst, settings=rec, library=lib)
 
 
 def decode_vs_forward(params, prompt, cfg, tol: float) -> float:
@@ -1284,6 +1395,44 @@ def card_vs_cpu(sp, cfg, gen, n_layers: int = 2, s: int = 256) -> dict:
     return res
 
 
+def device_ms(fn, n: int) -> dict | None:
+    """Per call of fn(i), i < n, from a torch.profiler trace of the n calls:
+    the device time of every kernel (they run one at a time on the one
+    stream, so this is the device's busy time) and of each LM kernel's.
+    None (not measured) when two traces in a row hold no kernel: after many
+    sessions in one process the profiler has returned empty traces."""
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for i in range(n):
+                fn(i)
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and not e.is_user_annotation]
+        busy = sum(e.self_device_time_total for e in kernels) / 1e3 / n
+        if busy > 0:
+            out = {"busy": busy}
+            for k in LM_KERNELS:
+                out[k] = sum(e.self_device_time_total for e in kernels if k in e.key) / 1e3 / n
+            return out
+    log("[phase 4] the profiler saw no device time: not measured")
+    return None
+
+
+def fmt_ms(x: float | None) -> str:
+    return "not measured" if x is None else f"{x:.3f} ms"
+
+
+def busy_share(part: dict | None, kernel: str, wall_ms: float) -> str:
+    """The device's busy time and a kernel's share of it, for a log line."""
+    if part is None:
+        return "device busy time not measured"
+    return (f"device busy {part['busy']:.3f} ms (idle {1 - part['busy'] / wall_ms:.1%} "
+            f"of {wall_ms:.3f} ms); {kernel} {part[kernel]:.3f} ms "
+            f"({part[kernel] / part['busy']:.1%} of busy)")
+
+
 def phase4_model(seed: int, dev) -> dict:
     """gemma2-2b at full width and depth through lm_serve: decode matches
     forward (f32 and bf16), card matches CPU at 2 layers, then prefill
@@ -1328,14 +1477,18 @@ def phase4_model(seed: int, dev) -> dict:
     torch.cuda.synchronize()
     dt = time.perf_counter() - t
     launches = dict(_build.LAUNCHES)
-    check(launches["flash_attention"] == cfg.n_layers,
-          f"prefill launched flash_attention {launches['flash_attention']} times")
+    check(launches["flash_attention"] == cfg.n_layers and launches["flash_decode"] == 0,
+          f"prefill launched flash_attention {launches['flash_attention']} and "
+          f"flash_decode {launches['flash_decode']} times")
     check(logits.shape == (PREFILL_B, cfg.vocab_size)
           and bool(torch.isfinite(logits).all()), "prefill logits not finite")
     res["prefill"] = dict(s=dt, tokens_per_s=PREFILL_B * PREFILL_S / dt,
                           launches=launches["flash_attention"])
     log(f"[phase 4] prefill B={PREFILL_B} S={PREFILL_S}: {dt * 1e3:.1f} ms, "
         f"{res['prefill']['tokens_per_s']:.1f} tokens/s; launches {launches}")
+    res["prefill"]["device_ms"] = device_ms(lambda i: prefill(sp, {"tokens": toks}), 1)
+    log(f"[phase 4] prefill under torch.profiler: "
+        + busy_share(res["prefill"]["device_ms"], "flash_attention", dt * 1e3))
     del logits
     torch.cuda.empty_cache()
 
@@ -1364,23 +1517,31 @@ def phase4_model(seed: int, dev) -> dict:
               and bool(torch.isfinite(logits).all()), f"decode logits at {cur} not finite")
         tok = logits.argmax(-1, keepdim=True)
     launches = dict(_build.LAUNCHES)
-    check(launches["flash_attention"] == cfg.n_layers * DECODE_STEPS,
-          f"decode launched flash_attention {launches['flash_attention']} times")
+    check(launches["flash_decode"] == cfg.n_layers * DECODE_STEPS
+          and launches["flash_attention"] == 0,
+          f"decode launched flash_decode {launches['flash_decode']} and "
+          f"flash_attention {launches['flash_attention']} times")
     res["decode"] = dict(ms_per_step=statistics.median(steps), steps_ms=steps,
-                         launches=launches["flash_attention"])
+                         launches=launches["flash_decode"])
     res["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
     log(f"[phase 4] decode B={DECODE_B} against a {DECODE_S}-position cache: "
         f"{res['decode']['ms_per_step']:.3f} ms per step (median; steps {steps}); "
         f"launches {launches}; max_memory_allocated {res['peak_gib']:.2f} GiB")
-    res["launches"] = res["prefill"]["launches"] + res["decode"]["launches"]
+    # two more steps over the last two positions again, traced
+    prof = device_ms(lambda i: decode(sp, {"cache": cache, "tokens": tok,
+                                           "cur_len": DECODE_S - 2 + i}), 2)
+    res["decode"]["device_ms"] = prof
+    log(f"[phase 4] decode under torch.profiler, per step: "
+        + busy_share(prof, "flash_decode", res["decode"]["ms_per_step"]))
     return res
 
 
-def lm_record(kern: dict, model: dict, cfg) -> dict:
-    """The flash_attention entry of the kernels line: prefill at S = 32768
-    on a global layer (softcap 50) is its headline setting; the other three
-    settings and the SDPA yardstick ride along."""
-    head = dict(kern["settings"]["prefill_global"])
+def lm_record(kern: dict, model: dict, small: dict, cfg) -> list[dict]:
+    """The LM kernels' entries of the kernels line. flash_attention: prefill
+    at S = 32768 on a global layer (softcap 50) is its headline setting,
+    the local layer and the SDPA yardstick ride along. flash_decode: decode
+    at B = 8 against cur_len 32767 on a global layer, with the local layer,
+    SDPA and the plan's splits. `small` holds flash_decode's ragged errors."""
     st = kern["settings"]
     n_glob = sum(cfg.is_global_layer())
     n_loc = cfg.n_layers - n_glob
@@ -1388,23 +1549,35 @@ def lm_record(kern: dict, model: dict, cfg) -> dict:
     attn_decode = n_glob * st["decode_global"]["ms"] + n_loc * st["decode_local"]["ms"]
     prefill_ms = model["prefill"]["s"] * 1e3
     decode_ms = model["decode"]["ms_per_step"]
-    head.update(
-        name="flash_attention", max_abs_err=kern["worst"],
-        err_over_limit=kern["worst_ratio"],
-        settings={k: v for k, v in st.items() if k != "prefill_global"},
-        library_setting=dict(kern["library"], max_abs_err=kern["sdpa_err"]),
-        lm=dict(prefill_tokens_per_s=model["prefill"]["tokens_per_s"],
-                prefill_ms=prefill_ms, decode_ms_per_step=decode_ms,
-                attention_share_prefill=attn_prefill / prefill_ms,
-                attention_share_decode=attn_decode / decode_ms,
-                launches_prefill=model["prefill"]["launches"],
-                launches_decode=model["decode"]["launches"],
-                reduced=model["reduced"]))
+    recs = []
+    for name, head, other, lib, launches, lm in (
+            ("flash_attention", "prefill_global", "prefill_local", "prefill",
+             model["prefill"]["launches"],
+             dict(prefill_tokens_per_s=model["prefill"]["tokens_per_s"],
+                  prefill_ms=prefill_ms,
+                  attention_share_prefill=attn_prefill / prefill_ms,
+                  prefill_device_ms=model["prefill"]["device_ms"])),
+            ("flash_decode", "decode_global", "decode_local", "decode",
+             model["decode"]["launches"],
+             dict(decode_ms_per_step=decode_ms,
+                  attention_share_decode=attn_decode / decode_ms,
+                  decode_device_ms_per_step=model["decode"]["device_ms"]))):
+        wk = kern["worst"][name]
+        r = dict(st[head])
+        r.update(name=name, max_abs_err=wk["abs"], settings={other: st[other]},
+                 err_over_limit={k: wk[k] for k in ("f32", "bf16")},
+                 library_setting=kern["library"][lib], launches=launches,
+                 lm=dict(lm, reduced=model["reduced"]))
+        if name == "flash_decode":
+            r["max_abs_err"] = max(wk["abs"], small["abs"])
+            r["err_over_limit_ragged"] = {k: small[k] for k in ("f32", "bf16")}
+            r["ragged_splits"] = small["splits"]
+        recs.append(r)
     log(f"[phase 4] attention share: prefill {attn_prefill:.1f} of {prefill_ms:.1f} ms "
         f"({attn_prefill / prefill_ms:.1%}), decode {attn_decode:.3f} of "
         f"{decode_ms:.3f} ms ({attn_decode / decode_ms:.1%}) ({n_glob} global and "
         f"{n_loc} local layers at the timed settings' kernel times)")
-    return head
+    return recs
 
 
 SOURCES = {
@@ -1422,9 +1595,26 @@ SOURCES = {
                     "src/repro/kernels/sparse_gain.py:41"),
     "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention.py:93"),
+    "flash_decode": ("src/repro_torch/kernels/csrc/flash_decode.cu",
+                     "src/repro/kernels/flash_attention.py:93"),
 }
 # the kernels of the tiering paths (phases 1-3); the LM phase checks its own
-TIERING_KERNELS = tuple(k for k in SOURCES if k != "flash_attention")
+LM_KERNELS = ("flash_attention", "flash_decode")
+TIERING_KERNELS = tuple(k for k in SOURCES if k not in LM_KERNELS)
+
+
+def ptxas_lines(build_log: str) -> list[str]:
+    """One line per compiled kernel from nvcc's -Xptxas -v output: its
+    (mangled) name, spills and registers."""
+    out, name, spill = [], "?", ""
+    for ln in build_log.splitlines():
+        if "Compiling entry function" in ln:
+            name = ln.split("'")[1] if "'" in ln else ln.strip()
+        elif "spill" in ln:
+            spill = ln.strip()
+        elif "registers" in ln:
+            out.append(f"{name}: {spill}; {ln.split(':', 1)[-1].strip()}")
+    return out
 
 
 def main() -> int:
@@ -1452,8 +1642,7 @@ def main() -> int:
     log(f"[phase 0] torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
     _build.lib()
-    ptxas = [ln.strip() for ln in _build.build_info["log"].splitlines()
-             if "registers" in ln or "spill" in ln]
+    ptxas = ptxas_lines(_build.build_info["log"])
     log(f"[phase 0] kernels built in {_build.build_info['seconds']:.1f}s "
         f"-> {_build.build_info['path']}")
     for ln in ptxas:
@@ -1463,15 +1652,16 @@ def main() -> int:
     rec = tiering_phases(args.seed)
     t = time.perf_counter()
     phase4_kernel_small(cuda)
+    small = phase4_decode_small(cuda)
     kern = phase4_kernel_model(args.seed, cuda)
     gc.collect()
     torch.cuda.empty_cache()
     model = phase4_model(args.seed, cuda)
     from repro_torch.configs.gemma2_2b import CONFIG
-    r = lm_record(kern, model, CONFIG)
-    src, tpu = SOURCES[r["name"]]
-    r.update(route="cuda", source=src, replaces=tpu, launches=model["launches"])
-    rec.append(r)
+    for r in lm_record(kern, model, small, CONFIG):
+        src, tpu = SOURCES[r["name"]]
+        r.update(route="cuda", source=src, replaces=tpu)
+        rec.append(r)
     log(f"[phase 4] {time.perf_counter() - t:.1f}s")
     log(f"total {time.perf_counter() - t_all:.1f}s")
     print(json.dumps({"kernels": rec}))
@@ -1501,8 +1691,8 @@ def tiering_phases(seed: int) -> list[dict]:
     p3["shards"] = phase3_shards(p3, counts)
     p3["sparse"] = phase3_sparse(p3, counts)
     check(all(counts[k] > 0 for k in TIERING_KERNELS) and len(counts) == len(SOURCES)
-          and counts["flash_attention"] == 0,
-          f"a kernel never launched in phase 3: {counts}")
+          and all(counts[k] == 0 for k in LM_KERNELS),
+          f"a kernel never launched in phase 3, or an LM kernel did: {counts}")
     log(f"[phase 3] launches {dict(counts)}; {time.perf_counter() - t:.1f}s")
 
     t = time.perf_counter()

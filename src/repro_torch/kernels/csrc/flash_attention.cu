@@ -5,14 +5,13 @@
 // q's dtype.
 //
 // Replaces the Pallas kernel repro/kernels/flash_attention.py::
-// _flash_attention_impl (body `_kernel`), the attention of every layer of
-// the LM serving path: prefill (Sq = S) and the decode step (Sq = 1 against
-// one layer's slice of the [L, B, Smax, Hkv, D] cache, q_offset = cur_len,
-// kv_len = cur_len + 1).
+// _flash_attention_impl (body `_kernel`) for Sq > 1, the attention of every
+// layer of the LM serving path's prefill (Sq = S). One query position (the
+// decode step) goes to flash_decode.cu.
 //
 // Bound on an H100: at prefill the 4*D FLOPs per unmasked (query, key) pair
-// and query head (against the 989 TFLOP/s bf16 tensor-core peak); at decode
-// the bytes of the live K/V blocks (against 3.35 TB/s). This first version
+// and query head (against the 989 TFLOP/s bf16 tensor-core peak); with few
+// rows the bytes of the live K/V blocks (against 3.35 TB/s). This first version
 // multiplies in f32 on the CUDA cores, as the Pallas kernel and the
 // reference's chunked attention cast to f32; wgmma, TMA and bf16 tensor
 // cores are a later redesign.

@@ -160,3 +160,65 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         o = torch.einsum("bhgqk,bkhd->bqhgd", p, vf)
         out[:, r0:r0 + n] = o.reshape(b, n, hq, d).to(q.dtype)
     return out
+
+
+def decode_keys(kv_len: int, q_offset: int, causal: bool = True,
+                window: int | None = None) -> tuple[int, int]:
+    """The keys [lo, hi) that one query at `q_offset` sees: every key inside
+    is visible, every key outside masked (lo >= hi: none is visible)."""
+    lo = max(0, q_offset - window + 1) if window is not None else 0
+    hi = min(kv_len, q_offset + 1) if causal else kv_len
+    return lo, hi
+
+
+def split_keys(n_keys: int, n_splits: int) -> tuple[int, int]:
+    """Cut `n_keys` keys into at most `n_splits` runs of `per` keys (the last
+    one shorter), none empty -> (n_splits, per). No key: one empty run."""
+    if n_keys <= 0:
+        return 1, 0
+    per = -(-n_keys // max(1, min(n_splits, n_keys)))
+    return -(-n_keys // per), per
+
+
+def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                 causal: bool = True, window: int | None = None,
+                 softcap: float | None = None, q_offset: int = 0,
+                 kv_len: int | None = None, n_splits: int = 1) -> torch.Tensor:
+    """`flash_attention` at Sq = 1, computed as the decode kernel computes
+    it: q scaled by 1/sqrt(D) in f32, the visible keys `decode_keys` cut by
+    `split_keys` into `n_splits` runs, each run's (m, l, acc) in f32, merged
+    with weights exp(m_s - max m) and rounded once. With no visible key the
+    runs cover [0, kv_len) with every score -1e30: the uniform mean of the
+    first kv_len values, as the masked softmax gives."""
+    b, sq, hq, d = q.shape
+    _, skv, hkv, _ = k.shape
+    if sq != 1:
+        raise ValueError(f"flash_decode takes one query position, got Sq = {sq}")
+    g = hq // hkv
+    kv_len = skv if kv_len is None else kv_len
+    lo, hi = decode_keys(kv_len, q_offset, causal, window)
+    no_key = lo >= hi
+    if no_key:
+        lo, hi = 0, kv_len
+    n, per = split_keys(hi - lo, n_splits)
+    if per == 0:
+        return torch.zeros_like(q)
+    qf = q[:, 0].float().reshape(b, hkv, g, d) * (1.0 / math.sqrt(d))
+    ms, ls, accs = [], [], []
+    for s in range(n):
+        a, e = lo + s * per, min(hi, lo + (s + 1) * per)
+        logits = torch.einsum("bhgd,bkhd->bhgk", qf, k[:, a:e].float())
+        if softcap is not None:
+            logits = softcap * torch.tanh(logits / softcap)
+        if no_key:
+            logits = torch.full_like(logits, -1e30)
+        m = logits.max(-1).values
+        p = torch.exp(logits - m[..., None])
+        ms.append(m)
+        ls.append(p.sum(-1))
+        accs.append(torch.einsum("bhgk,bkhd->bhgd", p, v[:, a:e].float()))
+    m_star = torch.stack(ms).max(0).values
+    w = [torch.exp(m - m_star) for m in ms]
+    num = sum(wi[..., None] * acc for wi, acc in zip(w, accs))
+    den = sum(wi * li for wi, li in zip(w, ls)).clamp(min=1e-30)
+    return (num / den[..., None]).reshape(b, 1, hq, d).to(q.dtype)
