@@ -5,7 +5,7 @@
 Phases (each prints its seconds; any failure is an uncaught exception and
 a non-zero exit):
   0. environment: card name and power limit, torch/CUDA versions, and the
-     build of the eight CUDA kernels from `src/repro_torch/kernels/csrc`
+     build of the nine CUDA kernels from `src/repro_torch/kernels/csrc`
      (ptxas registers and spills of each).
   1. each kernel against its plain PyTorch version on ragged small shapes
      (exact for the integer kernels, allclose for bit_matvec);
@@ -36,25 +36,34 @@ a non-zero exit):
      and sparse_gain once more at solve_sparse_xl's own shapes (2^20 lists
      of 4096 ids over 2^28 docs, the L2 route).
   4. the LM serving path, once the tiering operands are freed. Attention
-     has two kernels: the tile kernel (flash_attention) for Sq > 1 and the
-     split-KV kernel (flash_decode) for one query position.
-     a. flash_attention against its plain version on ragged shapes (f32
-        and bf16); flash_decode on ragged decode shapes (every head dim, G
+     has three kernels, routed by the operands: the wgmma kernel
+     (flash_prefill) for Sq > 1 in bf16 with D in (64, 128, 256) and
+     16-byte aligned operands, the tile kernel (flash_attention) for every
+     other Sq > 1 call (f32 among them), the split-KV kernel (flash_decode)
+     for one query position.
+     a. flash_attention against its plain version on ragged shapes (f32 on
+        the tile kernel, bf16 on flash_prefill where it takes the shape,
+        rows that see no key, kv_len 0, keys past kv_len poisoned with NaN);
+        flash_decode on ragged decode shapes (every head dim, G
         1-16, 0 to 5000 keys, B*Hkv 1-140 so the plan runs from 1 split to
         its most, 8-byte bf16 rows, no visible key); then both at gemma2-2b's
         shapes: prefill at S = 8192 and 32768 (the plain version on
         512-query blocks there), decode against a strided slice of a
-        32768-position cache; timed at the model's four settings beside one
+        32768-position cache (bf16 prefill on flash_prefill, its f32 copies
+        on the tile kernel); timed at the model's four settings beside one
         compiled flex_attention call (softcap as its score_mod, causal +
         window as its block mask), and beside one SDPA call in the setting
         where SDPA computes the same function (no softcap, no window); the
-        decode settings' device time also from a torch.profiler trace;
+        tile kernel timed at the prefill settings on the f32 copies, its
+        route; the decode settings' device time also from a torch.profiler
+        trace;
      b. gemma2-2b at full width and depth (26 layers), parameters made on
         the card from --seed: decode_step == forward over a 64-token prompt
         (f32 and bf16), card == CPU at 2 layers over 256 tokens, then
         prefill B=1 x 32768 and decode steps at B=8 against a 32768-position
-        cache (28 GB), each run's launches counted: prefill on
-        flash_attention alone, decode on flash_decode alone; then one
+        cache (28 GB), each run's launches counted: prefill on flash_prefill
+        alone, decode on flash_decode alone, the f32 forward of
+        decode_step == forward on the tile kernel; then one
         prefill and two decode steps under torch.profiler for the device's
         busy time.
 The last lines are the kernels' JSON record, the card line, and the
@@ -965,6 +974,7 @@ def phase1_xl(seed: int, dev=torch.device("cuda")) -> dict:
 # -- phase 4: the LM serving path (gemma2-2b) on flash_attention --------------
 
 BF16_TC_FLOPS = 989e12         # H100 SXM dense bf16 tensor cores (data sheet)
+FP32_FLOPS = 67e12             # H100 SXM float32 outside the tensor cores (data sheet)
 PREFILL_B, PREFILL_S = 1, 32768          # registry prefill_32k: 32 x 32768
 DECODE_B, DECODE_S = 8, 32768            # registry decode_32k: 128 x 32768
 DECODE_STEPS = 4                         # timed steps, after one warm-up step
@@ -978,7 +988,11 @@ LM_REDUCED = {
 }
 BF16_TOL = 5e-2       # bf16 activations: a few 2^-8 ulps of values near 1
 # the reference's flash-attention cases (tests/test_flash_attention.py) and
-# ragged ones: both row tiles, every head dim, kv_len inside the cache
+# ragged ones: both row tiles, every head dim, kv_len inside the cache; then
+# rows that see no key (the window starts past the last valid key), alone,
+# mixed with live rows in one tile, and kv_len 0; bf16 D = 256 row counts
+# that are not a multiple of flash_prefill's 128, with q_offset > 0 and
+# kv_len < Skv
 FA_CASES = [
     # b, sq, skv, hq, hkv, d, causal, window, cap, q_offset, kv_len
     (1, 16, 16, 2, 1, 8, True, None, None, 0, None),
@@ -996,6 +1010,13 @@ FA_CASES = [
     (2, 5, 333, 8, 4, 256, True, 100, 50.0, 320, 325),
     (1, 200, 200, 2, 2, 8, True, 1, None, 0, None),
     (2, 1, 1000, 8, 4, 256, True, None, None, 999, None),
+    (1, 8, 40, 4, 2, 64, True, 16, None, 500, 40),
+    (1, 40, 300, 4, 2, 64, True, 8, None, 250, 260),
+    (1, 64, 600, 8, 4, 256, True, 100, 50.0, 620, 560),
+    (1, 30, 30, 4, 2, 64, True, None, None, 0, 0),
+    (1, 20, 50, 4, 2, 128, True, None, 30.0, 10, 0),
+    (1, 100, 400, 8, 4, 256, True, None, 50.0, 200, 280),
+    (2, 70, 90, 4, 4, 128, False, 30, None, 5, 80),
 ]
 
 
@@ -1010,8 +1031,10 @@ def attention_pairs(sq: int, q_offset: int, kv_len: int, causal: bool = True,
 
 def fa_bound(q, k, causal, window, q_offset, kv_len) -> tuple[float, str]:
     """The least time (ms) of one flash_attention call and what sets it: 4*D
-    FLOPs per unmasked pair and query head over the bf16 tensor-core peak,
-    or the bytes of q, the output and the unmasked K/V rows over HBM."""
+    FLOPs per unmasked pair and query head over the peak for the operands'
+    type (bf16 tensor cores; float32 on the CUDA cores, since TF32 would
+    round the operands), or the bytes of q, the output and the unmasked K/V
+    rows over HBM."""
     b, sq, hq, d = q.shape
     hkv = k.shape[2]
     pairs = attention_pairs(sq, q_offset, kv_len, causal, window)
@@ -1019,37 +1042,62 @@ def fa_bound(q, k, causal, window, q_offset, kv_len) -> tuple[float, str]:
     live_keys = attention_pairs(1, q_offset, kv_len, causal, window) \
         if sq == 1 else kv_len
     nbytes = (2 * q.numel() + 2 * b * live_keys * hkv * d) * q.element_size()
-    t_b, t_f = nbytes / HBM_BYTES_PER_S, flops / BF16_TC_FLOPS
+    peak = BF16_TC_FLOPS if q.dtype == torch.bfloat16 else FP32_FLOPS
+    t_b, t_f = nbytes / HBM_BYTES_PER_S, flops / peak
     return max(t_b, t_f) * 1e3, "bytes" if t_b >= t_f else "operations"
 
 
 def phase4_kernel_small(dev) -> dict:
     """flash_attention against its plain version on ragged shapes, f32
-    (rtol = atol = 2e-4) and bf16 (2e-2, the reference's tolerances). Its
-    Sq = 1 cases run on flash_decode."""
-    from repro_torch.kernels import ops, ref
+    (rtol = atol = 2e-4) and bf16 (2e-2, the reference's tolerances), keys
+    at or past kv_len set to NaN (no kernel may read them). Each call
+    launches the kernel `route` names, once: Sq = 1 flash_decode, bf16 with
+    D in (64, 128, 256) flash_prefill, the rest the tile kernel;
+    flash_prefill's outputs are also held to its own plain version
+    `ref.flash_prefill` at 2e-2. Errors are kept per kernel and dtype, for
+    the dtypes that kernel was given."""
+    from repro_torch.kernels import _build, ops, ref
+    from repro_torch.kernels.flash_attention import route
     gen = torch.Generator(dev).manual_seed(13)
-    worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
-    for b, sq, skv, hq, hkv, d, causal, window, cap, qo, kvl in FA_CASES:
+    worst = {k: {} for k in LM_KERNELS}
+    want_launch = {k: 0 for k in LM_KERNELS}
+    before = dict(_build.LAUNCHES)
+    for case in FA_CASES:
+        b, sq, skv, hq, hkv, d, causal, window, cap, qo, kvl = case
         q = torch.randn((b, sq, hq, d), generator=gen, device=dev)
         k = torch.randn((b, skv, hkv, d), generator=gen, device=dev)
         v = torch.randn((b, skv, hkv, d), generator=gen, device=dev)
+        if kvl is not None:
+            k[:, kvl:] = float("nan")
+            v[:, kvl:] = float("nan")
         kw = dict(causal=causal, window=window, softcap=cap, q_offset=qo, kv_len=kvl)
         for dt, tol in ((torch.float32, 2e-4), (torch.bfloat16, 2e-2)):
             qq, kk, vv = q.to(dt), k.to(dt), v.to(dt)
+            kn = route(qq, kk, vv)
+            want_launch[kn] += 1
             got = ops.flash_attention(qq, kk, vv, **kw)
-            want = ref.flash_attention(qq, kk, vv, **kw)
+            wants = [ref.flash_attention(qq, kk, vv, **kw)]
+            if kn == "flash_prefill":
+                wants.append(ref.flash_prefill(qq, kk, vv, **kw))
             check(got.dtype == dt and bool(torch.isfinite(got).all()),
-                  f"flash_attention {dt} not finite at {(b, sq, skv, hq, hkv, d)}")
-            torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol,
-                                       msg=lambda m: f"flash_attention {dt} "
-                                       f"{(b, sq, skv, hq, hkv, d, causal, window, cap, qo, kvl)}: {m}")
-            worst[dt] = max(worst[dt], float((got.float() - want.float()).abs().max()))
+                  f"flash_attention {dt} not finite at {case}")
+            for want in wants:
+                torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol,
+                                           msg=lambda m: f"{kn} {dt} {case}: {m}")
+                name = "bf16" if dt == torch.bfloat16 else "f32"
+                worst[kn][name] = max(worst[kn].get(name, 0.0),
+                                      float((got.float() - want.float()).abs().max()))
     torch.cuda.synchronize()
-    log(f"[phase 4] flash_attention == plain on {len(FA_CASES)} ragged cases: "
-        f"max abs err f32 {worst[torch.float32]:.3g} (2e-4), bf16 "
-        f"{worst[torch.bfloat16]:.3g} (2e-2)")
-    return {"f32": worst[torch.float32], "bf16": worst[torch.bfloat16]}
+    launched = {k: _build.LAUNCHES[k] - before[k] for k in LM_KERNELS}
+    if dev.type == "cuda":
+        check(launched == want_launch, f"ragged cases launched {launched}, "
+              f"expected {want_launch}")
+    log(f"[phase 4] flash_attention == plain on {len(FA_CASES)} ragged cases x 2 "
+        f"dtypes (rows with no visible key, kv_len 0, NaN past kv_len among them): "
+        + "; ".join(f"{k} max abs err " + ", ".join(f"{n} {e:.3g}" for n, e in w.items())
+                    for k, w in worst.items() if w)
+        + f" (2e-4 f32, 2e-2 bf16); launches {launched}")
+    return worst
 
 
 # ragged decode cases for flash_decode: every head dim, G = 1-16, 0 to 5000
@@ -1128,7 +1176,7 @@ def phase4_decode_small(dev) -> dict:
     n = 2 * len(DECODE_CASES)
     launched = {k: _build.LAUNCHES[k] - before[k] for k in LM_KERNELS}
     if dev.type == "cuda":
-        check(launched == {"flash_attention": 0, "flash_decode": n},
+        check(launched == {"flash_attention": 0, "flash_decode": n, "flash_prefill": 0},
               f"ragged decode launched {launched}, expected flash_decode {n}")
     log(f"[phase 4] flash_decode == plain on {len(DECODE_CASES)} ragged decode "
         f"cases x 2 dtypes (splits {splits}): worst "
@@ -1182,16 +1230,19 @@ def flex_call(q, k, v, *, window, cap, q_offset=0, kv_len=None):
 
 def fa_record(q, k, v, *, window, cap, q_offset=0, kv_len=None, reps=10,
               plain_reps=2) -> dict:
-    """Time one model-shape flash_attention call beside its plain version,
-    one flex_attention call (held to the kernel at the reference's bf16
+    """Time one model-shape flash_attention call beside its plain version
+    (the routed kernel's: `ref.flash_prefill` for flash_prefill), one
+    flex_attention call (held to the kernel at the reference's bf16
     tolerance) and its bound. `ms` is the median of back-to-back calls by
     CUDA events, which a short call's host work can set; so at decode
     (Sq = 1) `device_ms` is also the kernels' own time per call from a
     profiler trace, for the kernel and for flex_attention alike."""
     from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.flash_attention import route
     kvl = k.shape[1] if kv_len is None else kv_len
     kw = dict(causal=True, window=window, softcap=cap, q_offset=q_offset, kv_len=kv_len)
     b_ms, b_by = fa_bound(q, k, True, window, q_offset, kvl)
+    plain = ref.flash_prefill if route(q, k, v) == "flash_prefill" else ref.flash_attention
     got = ops.flash_attention(q, k, v, **kw)
     t = time.perf_counter()
     lib, want = flex_call(q, k, v, window=window, cap=cap, q_offset=q_offset, kv_len=kv_len)
@@ -1206,7 +1257,7 @@ def fa_record(q, k, v, *, window, cap, q_offset=0, kv_len=None, reps=10,
             got_ms = device_ms(fn, 10)
             rec[key] = None if got_ms is None else got_ms["busy"]
     return dict(rec, ms=time_ms(lambda: ops.flash_attention(q, k, v, **kw), reps),
-                plain_ms=time_ms(lambda: ref.flash_attention(q, k, v, **kw), plain_reps),
+                plain_ms=time_ms(lambda: plain(q, k, v, **kw), plain_reps),
                 library_ms=time_ms(lib, reps), library_call="flex_attention "
                 "(torch.compile; softcap score_mod, causal+window block mask)",
                 library_err=float((got.float() - want.float()).abs().max()),
@@ -1218,17 +1269,20 @@ def fa_record(q, k, v, *, window, cap, q_offset=0, kv_len=None, reps=10,
 def phase4_kernel_model(seed: int, dev) -> dict:
     """flash_attention at gemma2-2b's shapes (Hq 8, Hkv 4, D 256) against its
     plain version, in bf16 and on f32 copies of the same operands: prefill
-    at S = 8192 and 32768 (window 4096 or none, softcap 50) on the tile
-    kernel and decode (Sq = 1, flash_decode) against a strided slice of a
-    layer-stacked 32768-position cache. Then timed at the model's four
-    settings. Errors are kept per kernel."""
+    at S = 8192 and 32768 (window 4096 or none, softcap 50), bf16 on
+    flash_prefill and f32 on the tile kernel, and decode (Sq = 1,
+    flash_decode) against a strided slice of a layer-stacked
+    32768-position cache. Then timed at the model's four settings, and the
+    tile kernel at the prefill settings on the f32 copies (its route).
+    Errors are kept per kernel and dtype, for the dtypes routed to it."""
     from repro_torch.configs.gemma2_2b import CONFIG as cfg
     from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.flash_attention import route
     from repro_torch.kernels.flash_decode import launch_plan
     gen = torch.Generator(dev).manual_seed(seed + 3)
     hq, hkv, d, win, cap = cfg.n_heads, cfg.n_kv_heads, cfg.d_head, cfg.local_window, cfg.attn_softcap
     bf = torch.bfloat16
-    worst = {kn: {"f32": 0.0, "bf16": 0.0, "abs": 0.0} for kn in LM_KERNELS}
+    worst = {kn: {} for kn in LM_KERNELS}
 
     def rnd(*shape):
         return torch.randn(shape, generator=gen, device=dev, dtype=bf)
@@ -1240,20 +1294,21 @@ def phase4_kernel_model(seed: int, dev) -> dict:
         |err| <= 2e-4 * rms(row) in f32, and in bf16 that plus the output's
         rounding, 2^-8 * |want|. For each `rows` block (r0, n) the plain
         version runs on q[:, r0:r0+n] alone, at q_offset r0."""
-        outs = {"f32": ops.flash_attention(q.float(), k.float(), v.float(), **kw),
-                "bf16": ops.flash_attention(q, k, v, **kw)}
-        wk = worst["flash_decode" if q.shape[1] == 1 else "flash_attention"]
+        ops_in = {"f32": (q.float(), k.float(), v.float()), "bf16": (q, k, v)}
+        outs = {name: ops.flash_attention(*x, **kw) for name, x in ops_in.items()}
+        kernels = {name: route(*x) for name, x in ops_in.items()}
         for r0, n in rows or [(0, q.shape[1])]:
             kvl = kw.get("kv_len") or r0 + n
             want = ref.flash_attention(
                 q[:, r0:r0 + n].float(), k[:, :kvl].float(), v[:, :kvl].float(),
                 **dict(kw, q_offset=kw.get("q_offset", 0) + r0))
             for name, out in outs.items():
+                wk = worst[kernels[name]]
                 ratio, err = row_error(out[:, r0:r0 + n], want, name == "bf16",
-                                       f"flash_attention {name} {what} rows "
+                                       f"{kernels[name]} {name} {what} rows "
                                        f"{r0}..{r0 + n - 1}")
-                wk[name] = max(wk[name], ratio)
-                wk["abs"] = max(wk["abs"], err)
+                wk[name] = max(wk.get(name, 0.0), ratio)
+                wk["abs"] = max(wk.get("abs", 0.0), err)
 
     s = 8192
     q, k, v = rnd(1, s, hq, d), rnd(1, s, hkv, d), rnd(1, s, hkv, d)
@@ -1276,16 +1331,28 @@ def phase4_kernel_model(seed: int, dev) -> dict:
         agree(q, k, v, f"prefill S={s} window={w}", window=w, softcap=cap,
               rows=[(r, 512) for r in (0, 4096 - 256, s // 2 + 100, s - 512)])
     torch.cuda.synchronize()
+    routed = {kn: sorted(n for n in wk if n != "abs") for kn, wk in worst.items()}
+    check(routed == {"flash_attention": ["f32"], "flash_prefill": ["bf16"],
+                     "flash_decode": ["bf16", "f32"]},
+          f"gemma2-2b shapes took the routes {routed}")
+    where = {"flash_attention": f"prefill 8192 and {PREFILL_S}",
+             "flash_prefill": f"prefill 8192 and {PREFILL_S}",
+             "flash_decode": f"decode at cur_len 0/4095/4096/{DECODE_S - 1}"}
     for kn, wk in worst.items():
-        log(f"[phase 4] {kn} == plain at gemma2-2b shapes ("
-            + (f"prefill 8192 and {PREFILL_S}" if kn == "flash_attention" else
-               f"decode at cur_len 0/4095/4096/{DECODE_S - 1}")
-            + f", window {win} and global, softcap {cap}): worst error / limit f32 "
-            f"{wk['f32']:.3g}, bf16 {wk['bf16']:.3g} (limit 2e-4 x row rms, "
-            f"+ 2^-8 |want| in bf16); max abs err {wk['abs']:.3g}")
+        log(f"[phase 4] {kn} == plain at gemma2-2b shapes ({where[kn]}, window "
+            f"{win} and global, softcap {cap}): worst error / limit "
+            + ", ".join(f"{n} {wk[n]:.3g}" for n in routed[kn])
+            + f" (limit 2e-4 x row rms, + 2^-8 |want| in bf16); max abs err "
+            f"{wk['abs']:.3g}")
 
-    rec = {"prefill_global": fa_record(q, k, v, window=None, cap=cap, reps=5),
-           "prefill_local": fa_record(q, k, v, window=win, cap=cap, reps=10)}
+    rec = {"prefill_global": fa_record(q, k, v, window=None, cap=cap, reps=10,
+                                       plain_reps=1),
+           "prefill_local": fa_record(q, k, v, window=win, cap=cap, reps=20,
+                                      plain_reps=1)}
+    qf, kf, vf = q.float(), k.float(), v.float()
+    tile = {name: fa_record(qf, kf, vf, window=w, cap=cap, reps=3, plain_reps=1)
+            for name, w in (("prefill_global", None), ("prefill_local", win))}
+    del qf, kf, vf
     cur = DECODE_S - 1
     for name, w in (("decode_global", None), ("decode_local", win)):
         rec[name] = fa_record(qd, cache_k[1], cache_v[1], window=w, cap=cap,
@@ -1303,7 +1370,7 @@ def phase4_kernel_model(seed: int, dev) -> dict:
     torch.testing.assert_close(got.float(), want.float(), rtol=2e-2, atol=2e-2,
                                msg=lambda m: f"flash_attention != SDPA, prefill: {m}")
     b_ms, b_by = fa_bound(q, k, True, None, 0, s)
-    lib["prefill"] = dict(ms=time_ms(lambda: ops.flash_attention(q, k, v), 5),
+    lib["prefill"] = dict(ms=time_ms(lambda: ops.flash_attention(q, k, v), 10),
                           library_ms=time_ms(fn, 5), bound_ms=b_ms, bound_by=b_by,
                           shape=list(q.shape) + [s], max_abs_err=prefill_err)
     kd, vd = cache_k[1][:, :cur + 1], cache_v[1][:, :cur + 1]
@@ -1318,7 +1385,7 @@ def phase4_kernel_model(seed: int, dev) -> dict:
                          library_ms=time_ms(fn, 20), bound_ms=b_ms, bound_by=b_by,
                          shape=list(qd.shape) + [cur + 1], max_abs_err=decode_err)
     for name, r in list(rec.items()) + [(f"sdpa setting {n}", r) for n, r in lib.items()]:
-        kn = "flash_decode" if "decode" in name else "flash_attention"
+        kn = "flash_decode" if "decode" in name else "flash_prefill"
         log(f"[phase 4] {kn} {name} {r['shape']}: {r['ms']:.3f} ms "
             + (f"(device {fmt_ms(r['device_ms'])}, flex_attention device "
                f"{fmt_ms(r['library_device_ms'])} by the profiler) " if "device_ms" in r else "")
@@ -1327,9 +1394,15 @@ def phase4_kernel_model(seed: int, dev) -> dict:
             + (f", flex_attention {r['library_ms']:.3f} ms (compiled in "
                f"{r['library_compile_s']:.1f}s, max abs diff {r['library_err']:.3g})"
                if "library_call" in r else f", SDPA {r['library_ms']:.3f} ms") + ")")
-    log(f"[phase 4] flash_attention and flash_decode == SDPA in its setting: "
+    for name, r in tile.items():
+        log(f"[phase 4] flash_attention (tile kernel) {name} f32 {r['shape']}: "
+            f"{r['ms']:.3f} ms (bound {r['bound_ms']:.3f} ms by {r['bound_by']}, plain "
+            f"{r['plain_ms']:.3f} ms, flex_attention {r['library_ms']:.3f} ms "
+            f"(compiled in {r['library_compile_s']:.1f}s, max abs diff "
+            f"{r['library_err']:.3g}))")
+    log(f"[phase 4] flash_prefill and flash_decode == SDPA in its setting: "
         f"max abs err prefill {prefill_err:.3g}, decode {decode_err:.3g} (bf16, 2e-2)")
-    return dict(worst=worst, settings=rec, library=lib)
+    return dict(worst=worst, settings=rec, library=lib, tile=tile)
 
 
 def decode_vs_forward(params, prompt, cfg, tol: float) -> float:
@@ -1452,8 +1525,17 @@ def phase4_model(seed: int, dev) -> dict:
 
     prompt = torch.randint(0, cfg.vocab_size, (1, 64), generator=gen, device=dev)
     t = time.perf_counter()
+    # the f32 path: forward's Sq = 64 attention on the tile kernel, then the
+    # decode steps on flash_decode
+    _build.reset_launches()
     res["decode_vs_forward_f32"] = decode_vs_forward(
         params, prompt, dataclasses.replace(cfg, dtype="float32"), 1e-3)
+    launches = dict(_build.LAUNCHES)
+    n = prompt.shape[1]
+    check(launches["flash_attention"] == cfg.n_layers and launches["flash_prefill"] == 0
+          and launches["flash_decode"] == cfg.n_layers * n,
+          f"the f32 forward and decode launched {launches}")
+    res["f32_path_launches"] = launches["flash_attention"]
     sp = T.serving_params(params, cfg)
     del params
     gc.collect()
@@ -1477,18 +1559,20 @@ def phase4_model(seed: int, dev) -> dict:
     torch.cuda.synchronize()
     dt = time.perf_counter() - t
     launches = dict(_build.LAUNCHES)
-    check(launches["flash_attention"] == cfg.n_layers and launches["flash_decode"] == 0,
-          f"prefill launched flash_attention {launches['flash_attention']} and "
-          f"flash_decode {launches['flash_decode']} times")
+    check(launches["flash_prefill"] == cfg.n_layers and launches["flash_attention"] == 0
+          and launches["flash_decode"] == 0,
+          f"prefill launched flash_prefill {launches['flash_prefill']}, the tile "
+          f"kernel {launches['flash_attention']} and flash_decode "
+          f"{launches['flash_decode']} times")
     check(logits.shape == (PREFILL_B, cfg.vocab_size)
           and bool(torch.isfinite(logits).all()), "prefill logits not finite")
     res["prefill"] = dict(s=dt, tokens_per_s=PREFILL_B * PREFILL_S / dt,
-                          launches=launches["flash_attention"])
+                          launches=launches["flash_prefill"])
     log(f"[phase 4] prefill B={PREFILL_B} S={PREFILL_S}: {dt * 1e3:.1f} ms, "
         f"{res['prefill']['tokens_per_s']:.1f} tokens/s; launches {launches}")
     res["prefill"]["device_ms"] = device_ms(lambda i: prefill(sp, {"tokens": toks}), 1)
     log(f"[phase 4] prefill under torch.profiler: "
-        + busy_share(res["prefill"]["device_ms"], "flash_attention", dt * 1e3))
+        + busy_share(res["prefill"]["device_ms"], "flash_prefill", dt * 1e3))
     del logits
     torch.cuda.empty_cache()
 
@@ -1518,9 +1602,10 @@ def phase4_model(seed: int, dev) -> dict:
         tok = logits.argmax(-1, keepdim=True)
     launches = dict(_build.LAUNCHES)
     check(launches["flash_decode"] == cfg.n_layers * DECODE_STEPS
-          and launches["flash_attention"] == 0,
-          f"decode launched flash_decode {launches['flash_decode']} and "
-          f"flash_attention {launches['flash_attention']} times")
+          and launches["flash_attention"] == 0 and launches["flash_prefill"] == 0,
+          f"decode launched flash_decode {launches['flash_decode']}, the tile "
+          f"kernel {launches['flash_attention']} and flash_prefill "
+          f"{launches['flash_prefill']} times")
     res["decode"] = dict(ms_per_step=statistics.median(steps), steps_ms=steps,
                          launches=launches["flash_decode"])
     res["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
@@ -1536,12 +1621,16 @@ def phase4_model(seed: int, dev) -> dict:
     return res
 
 
-def lm_record(kern: dict, model: dict, small: dict, cfg) -> list[dict]:
-    """The LM kernels' entries of the kernels line. flash_attention: prefill
+def lm_record(kern: dict, model: dict, small: dict, cfg, fa_small: dict) -> list[dict]:
+    """The LM kernels' entries of the kernels line. flash_prefill: prefill
     at S = 32768 on a global layer (softcap 50) is its headline setting,
-    the local layer and the SDPA yardstick ride along. flash_decode: decode
-    at B = 8 against cur_len 32767 on a global layer, with the local layer,
-    SDPA and the plan's splits. `small` holds flash_decode's ragged errors."""
+    the local layer and the SDPA yardstick ride along, with its own work
+    floor (1.5x the bound: P·V twice). flash_attention (the tile kernel):
+    the same two settings on f32 copies of the operands (its route), and
+    its launches on the f32 path. flash_decode: decode at B = 8 against cur_len 32767 on a
+    global layer, with the local layer, SDPA and the plan's splits. `small`
+    holds flash_decode's ragged errors, `fa_small` the ragged errors of the
+    Sq > 1 kernels."""
     st = kern["settings"]
     n_glob = sum(cfg.is_global_layer())
     n_loc = cfg.n_layers - n_glob
@@ -1551,7 +1640,7 @@ def lm_record(kern: dict, model: dict, small: dict, cfg) -> list[dict]:
     decode_ms = model["decode"]["ms_per_step"]
     recs = []
     for name, head, other, lib, launches, lm in (
-            ("flash_attention", "prefill_global", "prefill_local", "prefill",
+            ("flash_prefill", "prefill_global", "prefill_local", "prefill",
              model["prefill"]["launches"],
              dict(prefill_tokens_per_s=model["prefill"]["tokens_per_s"],
                   prefill_ms=prefill_ms,
@@ -1565,14 +1654,29 @@ def lm_record(kern: dict, model: dict, small: dict, cfg) -> list[dict]:
         wk = kern["worst"][name]
         r = dict(st[head])
         r.update(name=name, max_abs_err=wk["abs"], settings={other: st[other]},
-                 err_over_limit={k: wk[k] for k in ("f32", "bf16")},
+                 err_over_limit={k: e for k, e in wk.items() if k != "abs"},
                  library_setting=kern["library"][lib], launches=launches,
                  lm=dict(lm, reduced=model["reduced"]))
         if name == "flash_decode":
             r["max_abs_err"] = max(wk["abs"], small["abs"])
             r["err_over_limit_ragged"] = {k: small[k] for k in ("f32", "bf16")}
             r["ragged_splits"] = small["splits"]
+        else:
+            r["max_abs_err"] = max(wk["abs"], *fa_small[name].values())
+            r["work_floor_ms"] = 1.5 * r["bound_ms"]
+            r["library_sdpa_ms"] = kern["library"][lib]["library_ms"]
         recs.append(r)
+    # the tile kernel: its route is f32 (and what flash_prefill does not take)
+    tile = kern["tile"]
+    wk = kern["worst"]["flash_attention"]
+    r = dict(tile["prefill_global"])
+    r.update(name="flash_attention", settings={"prefill_local": tile["prefill_local"]},
+             max_abs_err=max(wk["abs"], *fa_small["flash_attention"].values()),
+             err_over_limit={k: e for k, e in wk.items() if k != "abs"},
+             launches=model["f32_path_launches"],
+             launches_path="the f32 forward of decode_step == forward (64 tokens, "
+                           "26 layers); 0 in the bf16 prefill")
+    recs.insert(1, r)
     log(f"[phase 4] attention share: prefill {attn_prefill:.1f} of {prefill_ms:.1f} ms "
         f"({attn_prefill / prefill_ms:.1%}), decode {attn_decode:.3f} of "
         f"{decode_ms:.3f} ms ({attn_decode / decode_ms:.1%}) ({n_glob} global and "
@@ -1597,9 +1701,11 @@ SOURCES = {
                         "src/repro/kernels/flash_attention.py:93"),
     "flash_decode": ("src/repro_torch/kernels/csrc/flash_decode.cu",
                      "src/repro/kernels/flash_attention.py:93"),
+    "flash_prefill": ("src/repro_torch/kernels/csrc/flash_prefill.cu",
+                      "src/repro/kernels/flash_attention.py:93"),
 }
 # the kernels of the tiering paths (phases 1-3); the LM phase checks its own
-LM_KERNELS = ("flash_attention", "flash_decode")
+LM_KERNELS = ("flash_attention", "flash_decode", "flash_prefill")
 TIERING_KERNELS = tuple(k for k in SOURCES if k not in LM_KERNELS)
 
 
@@ -1651,14 +1757,14 @@ def main() -> int:
 
     rec = tiering_phases(args.seed)
     t = time.perf_counter()
-    phase4_kernel_small(cuda)
+    fa_small = phase4_kernel_small(cuda)
     small = phase4_decode_small(cuda)
     kern = phase4_kernel_model(args.seed, cuda)
     gc.collect()
     torch.cuda.empty_cache()
     model = phase4_model(args.seed, cuda)
     from repro_torch.configs.gemma2_2b import CONFIG
-    for r in lm_record(kern, model, small, CONFIG):
+    for r in lm_record(kern, model, small, CONFIG, fa_small):
         src, tpu = SOURCES[r["name"]]
         r.update(route="cuda", source=src, replaces=tpu)
         rec.append(r)

@@ -31,7 +31,8 @@ ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 KERNELS = ("coverage_gain", "bit_matvec", "clause_match", "tier_match",
-           "partition_gain", "sparse_gain", "flash_attention", "flash_decode")
+           "partition_gain", "sparse_gain", "flash_attention", "flash_decode",
+           "flash_prefill")
 LAUNCHES: dict[str, int] = {k: 0 for k in KERNELS}
 
 _P, _I64, _INT, _F32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_float
@@ -46,6 +47,7 @@ _SIGNATURES = {
     "flash_attention_launch": [_P] * 4 + [_I64] * 17 + [_F32, _INT, _INT, _INT, _P],
     "flash_decode_launch": [_P] * 5 + [_I64] * 16 + [_INT, _F32, _INT, _INT, _INT, _P],
     "flash_decode_ctas_per_sm": [_I64, _INT, _INT, _PINT],
+    "flash_prefill_launch": [_P] * 4 + [_I64] * 17 + [_F32, _INT, _P],
 }
 
 _lib: ctypes.CDLL | None = None

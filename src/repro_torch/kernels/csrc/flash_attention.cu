@@ -30,7 +30,13 @@
 // NEG = -1e30 and m starts at NEG, as in Pallas: a row that meets a tile in
 // which all of its own keys are masked gets p = 1 there, and the correction
 // exp(NEG - m) = 0 of its first real key wipes it out, where -inf would give
-// NaN. Keys at or past kv_len are staged as zeros. Shared memory at D = 256
+// NaN. Keys at or past kv_len are staged as zeros and score the lower
+// NEG_PAD = -2e30, so they get p = exp(NEG_PAD - NEG) = 0 even in a row that
+// sees no key at all. Such a row (its window starts past the last valid
+// key) must give the masked softmax's answer, the uniform mean of
+// v[:kv_len]; the rows that see no key are the latest ones, so when the
+// tile's last row sees none the tile walks all of [0, kv_len), where that
+// row's NEG scores weigh every valid key alike. Shared memory at D = 256
 // and RT = 4 is 210 KiB, above the 48 KiB default, so the entry sets the
 // opt-in limit for each instantiation.
 #include <cmath>
@@ -43,6 +49,7 @@ namespace repro_torch {
 namespace {
 
 constexpr float kNeg = -1e30f;
+constexpr float kNegPad = -2e30f;           // keys at or past kv_len
 constexpr int kFaThreads = 256;
 constexpr int kTX = 16;                     // lanes of a row group
 constexpr int kTY = kFaThreads / kTX;       // row groups per CTA
@@ -159,6 +166,13 @@ flash_attention_kernel(const FaArgs a) {
   int64_t k_end = a.kv_len;
   if (a.causal) k_end = min64(k_end, q_hi + 1);
   int64_t k_begin = a.window >= 0 ? max64(0, q_lo - a.window + 1) : 0;
+  // the last row sees no key: walk every valid key (see the note above)
+  const int64_t last_lo = a.window >= 0 ? max64(0, q_hi - a.window + 1) : 0;
+  const int64_t last_hi = a.causal ? min64(a.kv_len, q_hi + 1) : a.kv_len;
+  if (last_lo >= last_hi) {
+    k_begin = 0;
+    k_end = a.kv_len;
+  }
   k_begin = k_begin / kBK * kBK;
 
   for (int64_t k0 = k_begin; k0 < k_end; k0 += kBK) {
@@ -213,7 +227,7 @@ flash_attention_kernel(const FaArgs a) {
         if (a.window >= 0) ok = ok && qpos[i] - kp < a.window;
         float x = s[i][j];
         if (a.cap > 0.f) x = a.cap * tanhf(x / a.cap);
-        s[i][j] = ok ? x : kNeg;
+        s[i][j] = ok ? x : kp < a.kv_len ? kNeg : kNegPad;
         mx = fmaxf(mx, s[i][j]);
       }
 #pragma unroll

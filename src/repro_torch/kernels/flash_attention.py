@@ -3,10 +3,13 @@ logit softcap, a query offset and a valid KV length — CUDA kernel wrapper.
 
 Kernel: `csrc/flash_attention.cu` (replaces the Pallas
 `repro.kernels.flash_attention._flash_attention_impl`). CPU tensors take the
-plain version `ref.flash_attention`; CUDA tensors launch a kernel or raise:
-one query position (Sq = 1, the decode step) goes to the split-KV kernel of
-`flash_decode`, every other shape to the tile kernel. Both read q, k and v
-in their [B, S, H, D] layout through their strides, so a decode step passes
+plain version `ref.flash_attention`; CUDA tensors launch a kernel or raise.
+Three routes, by `route`, from the operands before any launch: one query
+position (Sq = 1, the decode step) goes to the split-KV kernel of
+`flash_decode`; Sq > 1 in bf16 with D in (64, 128, 256) and 16-byte aligned
+operands to the wgmma kernel of `flash_prefill`; everything else (f32, the
+other head dims, unaligned views) to the tile kernel. All read q, k and v in
+their [B, S, H, D] layout through their strides, so a decode step passes
 one layer's slice of the KV cache as it lies, with `kv_len` = the filled
 length.
 """
@@ -14,7 +17,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import _build, flash_decode, ref
+from repro_torch.kernels import _build, flash_decode, flash_prefill, ref
 
 HEAD_DIMS = (8, 16, 32, 64, 128, 256)   # the kernel's instantiations
 DTYPES = (torch.float32, torch.bfloat16)
@@ -24,6 +27,13 @@ def rows_per_thread(sq: int, group: int) -> int:
     """The tile kernel's row tile: 64 rows (4 per row group) when a KV head
     has at least 256 (query, head) rows, else 16."""
     return 4 if sq * group >= 256 else 1
+
+
+def route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
+    """The kernel a CUDA call with these operands launches."""
+    if q.shape[1] == 1:
+        return "flash_decode"
+    return "flash_prefill" if flash_prefill.takes(q, k, v) else "flash_attention"
 
 
 def _require(t: torch.Tensor, name: str, q: torch.Tensor) -> None:
@@ -71,10 +81,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"window must be >= 1, got {window}")
     if softcap is not None and softcap <= 0:
         raise ValueError(f"softcap must be > 0, got {softcap}")
-    if sq == 1:
-        return flash_decode.flash_decode(q, k, v, causal=causal, window=window,
-                                         softcap=softcap, q_offset=q_offset,
-                                         kv_len=kv_len)
+    kw = dict(causal=causal, window=window, softcap=softcap, q_offset=q_offset,
+              kv_len=kv_len)
+    kernel = route(q, k, v)
+    if kernel == "flash_decode":
+        return flash_decode.flash_decode(q, k, v, **kw)
+    if kernel == "flash_prefill":
+        return flash_prefill.flash_prefill(q, k, v, **kw)
     out = torch.empty((b, sq, hq, d), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out

@@ -222,3 +222,97 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     num = sum(wi[..., None] * acc for wi, acc in zip(w, accs))
     den = sum(wi * li for wi, li in zip(w, ls)).clamp(min=1e-30)
     return (num / den[..., None]).reshape(b, 1, hq, d).to(q.dtype)
+
+
+LOG2E = 1.4426950408889634
+NEG = -1e30
+PREFILL_KEYS = 64      # keys per KV tile of the prefill kernel
+
+
+def tanh_accurate(y: torch.Tensor) -> torch.Tensor:
+    """tanh as the prefill kernel computes it: 1 - 2 / (1 + 2^(2|y| log2 e))
+    with the sign of y, within ~1e-7 of tanh (tanh.approx's 2^-11 relative
+    error, through a softcap of 50, is too coarse for the attention's
+    limit)."""
+    e = torch.exp2(y.abs() * (2.0 * LOG2E))
+    return torch.copysign(1.0 - 2.0 / (1.0 + e), y)
+
+
+def split_bf16(p: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """p = hi + lo to about 2^-16 relative, both bf16: hi = bf16(p),
+    lo = bf16(p - hi). P·V as hi·V + lo·V keeps p's f32 accuracy on bf16
+    tensor cores, where one bf16 P misses the attention's limit."""
+    hi = p.to(torch.bfloat16)
+    return hi, (p - hi.float()).to(torch.bfloat16)
+
+
+def prefill_keys(p_lo: int, p_hi: int, kv_len: int, causal: bool,
+                 window: int | None) -> tuple[int, int]:
+    """The keys [begin, end) that a block of query positions p_lo..p_hi
+    walks (the block skip), begin cut down to a tile edge: the union of its
+    rows' visible keys, or all of [0, kv_len) when its last row sees none
+    (the rows that see no key are the latest ones)."""
+    begin = max(0, p_lo - window + 1) if window is not None else 0
+    end = min(kv_len, p_hi + 1) if causal else kv_len
+    lo, hi = decode_keys(kv_len, p_hi, causal, window)
+    if lo >= hi:
+        begin, end = 0, kv_len
+    return begin // PREFILL_KEYS * PREFILL_KEYS, end
+
+
+def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                  causal: bool = True, window: int | None = None,
+                  softcap: float | None = None, q_offset: int = 0,
+                  kv_len: int | None = None) -> torch.Tensor:
+    """`flash_attention` computed as the bf16 prefill kernel computes it:
+    per block of query positions, the keys `prefill_keys` gives in tiles of
+    PREFILL_KEYS by online softmax; scores q·k in f32, times 1/sqrt(D) after
+    the product, `tanh_accurate` softcap, masked to NEG = -1e30, in base 2
+    (log2 e folded in); P·V as hi·V + lo·V (`split_bf16`); one division by
+    max(l, 1e-30) and one rounding to q's dtype. A row that sees no key
+    scores NEG on every valid key: the uniform mean of v[:kv_len]. Keys at
+    or past kv_len, which the kernel reads as zeros with p = 0, are left out."""
+    b, sq, hq, d = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    kv_len = skv if kv_len is None else int(kv_len)
+    g = hq // hkv
+    scale = torch.tensor(1.0 / math.sqrt(d), dtype=torch.float32)
+    inv_cap = None if softcap is None else torch.tensor(1.0 / softcap,
+                                                        dtype=torch.float32)
+    out = torch.empty_like(q)
+    n = max(1, CHUNK_BYTES // max(1, b * hq * (d + 3 * PREFILL_KEYS) * 4 * 4))
+    for p0 in range(0, sq, n):
+        qc = q[:, p0:p0 + n].float().reshape(b, -1, hkv, g, d)
+        nn = qc.shape[1]
+        pos = torch.arange(p0, p0 + nn, device=q.device) + q_offset
+        begin, end = prefill_keys(p0 + q_offset, p0 + nn - 1 + q_offset,
+                                  kv_len, causal, window)
+        m = torch.full((b, hkv, g, nn), NEG, device=q.device)
+        l = torch.zeros_like(m)
+        acc = torch.zeros((b, hkv, g, nn, d), device=q.device)
+        for k0 in range(begin, end, PREFILL_KEYS):
+            k1 = min(k0 + PREFILL_KEYS, kv_len)
+            vt = v[:, k0:k1].float()
+            s = torch.einsum("bnhgd,bthd->bhgnt", qc, k[:, k0:k1].float()) * scale
+            if softcap is not None:
+                s = softcap * tanh_accurate(s * inv_cap)
+            s = s * LOG2E
+            kp = torch.arange(k0, k1, device=q.device)
+            mask = torch.ones((nn, k1 - k0), dtype=torch.bool, device=q.device)
+            if causal:
+                mask &= pos[:, None] >= kp[None, :]
+            if window is not None:
+                mask &= pos[:, None] - kp[None, :] < window
+            s = torch.where(mask, s, torch.tensor(NEG, device=q.device))
+            m_new = torch.maximum(m, s.amax(-1))
+            corr = torch.exp2(m - m_new)
+            p = torch.exp2(s - m_new[..., None])
+            l = l * corr + p.sum(-1)
+            hi, lo = split_bf16(p)
+            acc = acc * corr[..., None] \
+                + torch.einsum("bhgnt,bthd->bhgnd", hi.float(), vt) \
+                + torch.einsum("bhgnt,bthd->bhgnd", lo.float(), vt)
+            m = m_new
+        o = acc / l.clamp(min=1e-30)[..., None]
+        out[:, p0:p0 + nn] = o.permute(0, 3, 1, 2, 4).reshape(b, nn, hq, d).to(q.dtype)
+    return out
