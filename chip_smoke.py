@@ -10,7 +10,11 @@ a non-zero exit):
   1. each kernel against its plain PyTorch version on ragged small shapes
      (exact for the integer kernels, allclose for bit_matvec);
      partition_gain also against coverage_gain, sparse_gain on masks on
-     both sides of its shared-memory limit.
+     both sides of its shared-memory limit; clause_match on empty
+     clauses, clauses of 4 and of 5+ tokens (its compact table's
+     overflow), bit 31 of the last word, K 1, K 5000, ragged B, Wv 20000
+     and the vocab-word limit, B up to 9000 (1 to 32 queries a block),
+     aligned and not, its compact table also against `ref.clause_tokens`.
   2. at the `medium` preset, on the card and then on the CPU (plain
      versions), through the normal entry points:
      a. the main path: mine -> greedy/optpes -> verify/coverage -> deploy +
@@ -32,9 +36,13 @@ a non-zero exit):
      c. the sparse round over the clauses with |m(c)| <= 4096 against dense
         greedy over the same rows: equal orders and covered docs.
      Launch counts are read from each path's own run. Then each kernel
-     against its plain version at these shapes, with its timing and bound,
-     and sparse_gain once more at solve_sparse_xl's own shapes (2^20 lists
-     of 4096 ids over 2^28 docs, the L2 route).
+     against its plain version at these shapes, with its timing and bound;
+     clause_match also at serve_route's K: the serve batch against the
+     deployment's 2^16 candidate clauses, in the vocabulary's order and
+     permuted (identical answers), with ops.fused_match's time there; and
+     sparse_gain once more at solve_sparse_xl's own shapes (2^20 lists of
+     4096 ids over 2^28 docs, the L2 route), then with the ids folded into
+     2^24 docs.
   4. the LM serving path, once the tiering operands are freed. Attention
      has three kernels, routed by the operands: the wgmma kernel
      (flash_prefill) for Sq > 1 in bf16 with D in (64, 128, 256) and
@@ -102,6 +110,7 @@ REFRESH_K = 4096               # tiering_scsk refresh_k
 N_PARTS = 8                    # per-shard caps at the production shapes
 SPARSE_M = 4096                # solve_sparse_xl's padded list length
 XL_CLAUSES, XL_DOCS = 2 ** 20, 2 ** 28   # solve_sparse_xl, uncut
+XL_FOLD_DOCS = 2 ** 24         # the folded run's reach: a 2 MiB slice of the mask
 MAIN_KERNELS = ("coverage_gain", "bit_matvec", "clause_match", "tier_match")
 REDUCED = {
     "clauses": "2^16 token singletons and pairs (solve_dense_m has 2^17)",
@@ -143,6 +152,29 @@ def time_ms(fn, reps: int, warmup: int = 1) -> float:
     return statistics.median(s.elapsed_time(e) for s, e in zip(starts, ends))
 
 
+def graph_ms(fn, reps: int = 20) -> float:
+    """Device time of `fn()` per call: `reps` calls captured in one CUDA
+    graph, replayed once between two CUDA events. The wrappers' host work
+    drops out; it sets the event time of a call shorter than it."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g, capture_error_mode="relaxed"):
+        for _ in range(reps):
+            fn()
+    g.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    g.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
 # -- phase 1: kernels against their plain versions on ragged small shapes ------
 
 def rand_words(gen, shape, device) -> torch.Tensor:
@@ -157,8 +189,77 @@ def sparse_words(gen, shape, p, device) -> torch.Tensor:
     return bitset.pack(bits)
 
 
+def pick_bits(gen, pool: torch.Tensor, n: int, nbits: int) -> torch.Tensor:
+    """A bool row of `nbits` with `n` random positions of `pool` set."""
+    row = torch.zeros(nbits, dtype=torch.bool, device=pool.device)
+    row[pool[torch.randperm(len(pool), generator=gen, device=pool.device)[:n]]] = True
+    return row
+
+
+def edge_clauses(gen, q: torch.Tensor, empty: bool = False) -> torch.Tensor:
+    """Clause rows over q's words: 1-3, exactly 4, 5 and 9 set bits (the
+    last two overflow the compact table), every other one drawn from a
+    random query's bits (so it matches); bit 31 of the last word alone; a
+    dense row; and with `empty` an empty row (which matches every query)."""
+    from repro_torch.core import bitset
+    (b, wv), dev = q.shape, q.device
+    nbits = wv * 32
+    qb = bitset.unpack(q)
+    rows = []
+    for i, n in enumerate((1, 1, 2, 3, 4, 4, 5, 5, 9, 9)):
+        pick = int(torch.randint(b, (1,), generator=gen, device=dev))
+        pool = (torch.nonzero(qb[pick])[:, 0] if i % 2
+                else torch.arange(nbits, device=dev))
+        rows.append(pick_bits(gen, pool, n, nbits))
+    top = torch.zeros(nbits, dtype=torch.bool, device=dev)
+    top[-1] = True
+    rows += [top, torch.rand(nbits, generator=gen, device=dev) < 0.5]
+    if empty:
+        rows.append(torch.zeros(nbits, dtype=torch.bool, device=dev))
+    return bitset.pack(torch.stack(rows))
+
+
+def clause_cases(gen, device):
+    """(name, queries, clauses) for clause_match's ragged checks."""
+    from repro_torch.core import bitset
+    from repro_torch.kernels.clause_match import MAX_VOCAB_WORDS
+    for b, k, wv in [(1, 1, 1), (7, 3, 2), (65, 17, 3), (130, 70, 5),
+                     (16, 1, 9), (33, 5, 4096), (9, 4, 20000),
+                     (300, 64, MAX_VOCAB_WORDS)]:
+        q = rand_words(gen, (b, wv), device)
+        cl = sparse_words(gen, (k, wv), 2.0 / (wv * 32), device)
+        cl[: k // 2] &= q[: k // 2]                  # some clauses match
+        yield "sparse", q, cl
+    for name, b, wv in [("edges", 37, 3), ("ragged B", 133, 5),
+                        ("edges, Wv 20000", 67, 20000),
+                        ("edges at the vocab-word limit", 3, MAX_VOCAB_WORDS),
+                        ("edges, B 9000", 9000, 3)]:
+        q = sparse_words(gen, (b, wv), 0.35, device)
+        yield name, q, edge_clauses(gen, q)
+    q = sparse_words(gen, (21, 3), 0.35, device)
+    yield "empty clause", q, edge_clauses(gen, q, empty=True)
+    q = sparse_words(gen, (33, 2), 0.35, device)
+    on = torch.nonzero(bitset.unpack(q[5]))[:, 0]
+    yield "K 1", q, bitset.pack(pick_bits(gen, on, 3, 64)[None])
+    # K 5000 at Wv 2: every clause but the last 40 holds token 63, which no
+    # query holds; the last 40 are 2..9 tokens of queries 0..39. At B 1000
+    # pass B takes 3 queries a block, at B 9000 (edges above) its most, 32;
+    # both end on a part-filled block.
+    for b in (70, 1000):
+        q = sparse_words(gen, (b, 2), 0.3, device)
+        q[:, 1] &= 0x7FFFFFFF
+        cl = sparse_words(gen, (5000, 2), 0.05, device)
+        cl[:, 1] |= -2 ** 31
+        qb = bitset.unpack(q[:40])
+        cl[-40:] = bitset.pack(torch.stack([
+            pick_bits(gen, torch.nonzero(qb[i])[:, 0], 2 + i % 8, 64)
+            for i in range(40)]))
+        yield f"K 5000, B {b}", q, cl
+
+
 def phase1_small(device) -> float:
     from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.clause_match import clause_tokens
     gen = torch.Generator(device).manual_seed(11)
     worst = 0.0                                  # bit_matvec max abs error
 
@@ -185,14 +286,15 @@ def phase1_small(device) -> float:
                 torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
                 worst = max(worst, float((got - want).abs().max()))
 
-    for b, k, wv in [(1, 1, 1), (7, 3, 2), (65, 17, 3), (130, 70, 5),
-                     (16, 1, 9), (33, 5, 4096), (9, 4, 20000)]:
-        q = rand_words(gen, (b, wv), device)
-        cl = sparse_words(gen, (k, wv), 2.0 / (wv * 32), device)
-        cl[: k // 2] &= q[: k // 2]                  # some clauses match
-        got = ops.clause_match(q, cl)
-        check(torch.equal(got, ref.clause_match(q, cl)),
-              f"clause_match {b}x{k}x{wv}")
+    for name, q, cl in clause_cases(gen, device):
+        for qq, cc in ((q, cl), (misaligned(q), misaligned(cl))):
+            got = ops.clause_match(qq, cc)
+            check(torch.equal(got, ref.clause_match(qq, cc)),
+                  f"clause_match {name} {tuple(q.shape)} x {cl.shape[0]}")
+            tokens, count = clause_tokens(cc)
+            want_t, want_c = ref.clause_tokens(cc)
+            check(torch.equal(tokens, want_t) and torch.equal(count, want_c),
+                  f"clause_match's compact table {name} {tuple(cl.shape)}")
     q = rand_words(gen, (5, 2), device)
     empty = torch.zeros((0, 2), dtype=torch.int32, device=device)
     check(not ops.clause_match(q, empty).any(), "clause_match K=0")
@@ -607,7 +709,7 @@ def make_deployment(seed: int, device, *, v=VOCAB, n_docs=N_DOCS,
     clauses = [tuple(t for t in row if t >= 0) for row in ctoks.tolist()]
     return types.SimpleNamespace(
         postings=postings, clause_doc_bits=cdb, clause_query_bits=cqb,
-        clauses=clauses, query_tokens=qt32, train_weights=wtr,
+        clauses=clauses, clause_tokens=ctoks, query_tokens=qt32, train_weights=wtr,
         test_weights=wte, vocab_size=v, n_docs=n_docs, n_queries=n_queries,
         with_clause=with_clause, doc_len=float(dlen.float().mean()), gen=gen)
 
@@ -717,7 +819,8 @@ def phase3(seed: int, counts: dict, dev=torch.device("cuda"),
         f"{ms_match:.2f}, doc ids {ms_ids:.2f}")
     state = problem.state_for(results["greedy"].order)
     return dict(problem=problem, state=state, engine=engine, tokens=toks,
-                qbits=qbits, peak=peak, gen=d.gen,
+                qbits=qbits, peak=peak, gen=d.gen, vocab=d.vocab_size,
+                clause_tokens=d.clause_tokens,
                 greedy_order=results["greedy"].order)
 
 
@@ -889,8 +992,10 @@ def phase1_scale(p3: dict) -> list[dict]:
     b_ms, b_by = bound(4 * (bq + k) * wv + bq)
     rec.append(dict(name="clause_match", max_abs_err=err,
                     ms=time_ms(lambda: ops.clause_match(q, cl), 20),
+                    device_ms=graph_ms(lambda: ops.clause_match(q, cl)),
                     plain_ms=time_ms(lambda: ref.clause_match(q, cl), 2),
-                    bound_ms=b_ms, bound_by=b_by, shape=[bq, k, wv]))
+                    bound_ms=b_ms, bound_by=b_by, shape=[bq, k, wv],
+                    serve_route_k=clause_match_xl(p3)))
 
     # tier_match: the tier-selected AND-match of that batch
     toks, t1, t2 = p3["tokens"], engine.postings_t1, engine.postings_t2
@@ -931,6 +1036,56 @@ def phase1_scale(p3: dict) -> list[dict]:
     return rec
 
 
+def serve_route_inputs(p3: dict) -> dict:
+    """The phase-3 serve batch against the deployment's 2^16 candidate
+    singletons and pairs (serve_route's K), packed into vocab words, in the
+    deployment's vocabulary order and under a random permutation of the
+    token ids applied to queries and clauses both; and 256 sampled
+    queries."""
+    from repro_torch.core import bitset
+    gen, v = p3["gen"], p3["vocab"]
+    toks, ctoks = p3["tokens"], p3["clause_tokens"]
+    perm = torch.randperm(v, generator=gen, device=gen.device).to(torch.int32)
+
+    def permuted(t):
+        return torch.where(t >= 0, perm[t.clamp(min=0).long()], -1)
+
+    return dict(q=p3["qbits"], cl=bitset.pack_tokens(ctoks, v),
+                q_perm=bitset.pack_tokens(permuted(toks), v),
+                cl_perm=bitset.pack_tokens(permuted(ctoks), v),
+                idx=torch.randperm(toks.shape[0], generator=gen,
+                                   device=gen.device)[:256])
+
+
+def clause_match_xl(p3: dict) -> dict:
+    """clause_match at serve_route's K = 2^16 (`serve_route_inputs`): equal
+    to the plain version on the sampled queries in both vocabulary orders,
+    identical answers in the two orders; median times in both orders, the
+    device time per call (`graph_ms`), the plain version's time on the
+    sampled queries, ops.fused_match's at that K, and the bound."""
+    from repro_torch.kernels import ops, ref
+    x = serve_route_inputs(p3)
+    q, cl, qp, clp, idx = x["q"], x["cl"], x["q_perm"], x["cl_perm"], x["idx"]
+    out, out_p = ops.clause_match(q, cl), ops.clause_match(qp, clp)
+    check(torch.equal(out, out_p),
+          "clause_match at K = 2^16 changes under a vocabulary permutation")
+    err = int((out[idx] != ref.clause_match(q[idx], cl)).sum()) \
+        + int((out_p[idx] != ref.clause_match(qp[idx], clp)).sum())
+    check(err == 0, "clause_match disagrees at K = 2^16")
+    (bq, wv), k = q.shape, cl.shape[0]
+    b_ms, b_by = bound(4 * (bq + k) * wv + bq)
+    toks, t1, t2 = p3["tokens"], p3["engine"].postings_t1, p3["engine"].postings_t2
+    return dict(shape=[bq, k, wv], max_abs_err=err,
+                ms=time_ms(lambda: ops.clause_match(q, cl), 20),
+                ms_permuted=time_ms(lambda: ops.clause_match(qp, clp), 20),
+                device_ms=graph_ms(lambda: ops.clause_match(q, cl)),
+                plain_ms=time_ms(lambda: ref.clause_match(q[idx], cl), 1),
+                plain_queries=len(idx), bound_ms=b_ms, bound_by=b_by,
+                fused_match_ms=time_ms(
+                    lambda: ops.fused_match(q, cl, toks, t1, t2), 20),
+                eligible=float(out.float().mean()))
+
+
 def sparse_record(ids: torch.Tensor, mask: torch.Tensor, idx: torch.Tensor,
                   route: str) -> dict:
     """sparse_gain on `ids` against `mask`: agreement with the plain version
@@ -951,10 +1106,10 @@ def sparse_record(ids: torch.Tensor, mask: torch.Tensor, idx: torch.Tensor,
                 valid_ids=int((ids >= 0).sum()))
 
 
-def phase1_xl(seed: int, dev=torch.device("cuda")) -> dict:
-    """sparse_gain at solve_sparse_xl's own shapes, uncut: 2^20 sorted lists
-    of up to 4096 doc ids over 2^28 docs (16 GiB of ids, a 32 MiB covered
-    bitset: the L2 route), made on the card from `seed`."""
+def xl_inputs(seed: int, dev=torch.device("cuda")):
+    """solve_sparse_xl's own shapes, uncut: 2^20 sorted lists of up to 4096
+    doc ids over 2^28 docs (16 GiB of ids, a 32 MiB covered bitset: the L2
+    route), made on the card from `seed`; and 512 sampled rows."""
     gen = torch.Generator(dev).manual_seed(seed + 1)
     ids = torch.empty((XL_CLAUSES, SPARSE_M), dtype=torch.int32, device=dev)
     slot = torch.arange(SPARSE_M, device=dev)
@@ -968,7 +1123,29 @@ def phase1_xl(seed: int, dev=torch.device("cuda")) -> dict:
     mask = rand_words(gen, (XL_DOCS // 32,), dev)
     idx = torch.randperm(XL_CLAUSES, generator=gen, device=dev)[:512]
     torch.cuda.synchronize()
-    return sparse_record(ids, mask, idx, "l2")
+    return ids, mask, idx
+
+
+def fold_ids(ids: torch.Tensor, docs: int, rows: int = 2 ** 16) -> None:
+    """Fold every valid id into the first `docs` docs (a power of two), in
+    place: the streamed bytes and the valid count stay, the mask words the
+    ids reach shrink to docs / 32."""
+    for r0 in range(0, ids.shape[0], rows):
+        blk = ids[r0:r0 + rows]
+        blk.copy_(torch.where(blk >= 0, blk & (docs - 1), blk))
+
+
+def phase1_xl(seed: int, dev=torch.device("cuda")) -> dict:
+    """sparse_gain at solve_sparse_xl's shapes (`xl_inputs`), then again
+    with every valid id folded into 2^24 docs (a 2 MiB reach of the mask,
+    resident in L2): the gap between the two is the cost of mask misses."""
+    ids, mask, idx = xl_inputs(seed, dev)
+    rec = sparse_record(ids, mask, idx, "l2")
+    fold_ids(ids, XL_FOLD_DOCS)
+    folded = sparse_record(ids, mask, idx, "l2")
+    rec.update(folded_docs=XL_FOLD_DOCS, folded_ms=folded["ms"],
+               folded_max_abs_err=folded["max_abs_err"])
+    return rec
 
 
 # -- phase 4: the LM serving path (gemma2-2b) on flash_attention --------------
@@ -1811,7 +1988,8 @@ def tiering_phases(seed: int) -> list[dict]:
     log(f"[phase 1] at scale sparse_gain {xl['shape']} (solve_sparse_xl, L2 "
         f"route): {xl['ms']:.3f} ms (bound {xl['bound_ms']:.3f} ms by "
         f"{xl['bound_by']}, plain {xl['plain_ms']:.3f} ms), max abs err "
-        f"{xl['max_abs_err']}")
+        f"{xl['max_abs_err']}; ids folded into {xl['folded_docs']} docs "
+        f"{xl['folded_ms']:.3f} ms, max abs err {xl['folded_max_abs_err']}")
     next(r for r in rec if r["name"] == "sparse_gain")["l2_route"] = xl
     del xl
     gc.collect()
@@ -1823,9 +2001,17 @@ def tiering_phases(seed: int) -> list[dict]:
         r.update(route="cuda", source=src, replaces=tpu,
                  launches=counts[r["name"]],
                  launches_medium=medium_counts[r["name"]], library_ms=None)
-        log(f"[phase 1] at scale {r['name']} {r['shape']}: {r['ms']:.3f} ms "
+        dev = f", device {r['device_ms']:.4f} ms" if "device_ms" in r else ""
+        log(f"[phase 1] at scale {r['name']} {r['shape']}: {r['ms']:.3f} ms{dev} "
             f"(bound {r['bound_ms']:.3f} ms by {r['bound_by']}, plain "
             f"{r['plain_ms']:.3f} ms), max abs err {r['max_abs_err']:.3g}")
+    cx = next(r for r in rec if r["name"] == "clause_match")["serve_route_k"]
+    log(f"[phase 1] at scale clause_match {cx['shape']} (serve_route's K): "
+        f"{cx['ms']:.3f} ms (device {cx['device_ms']:.4f} ms), "
+        f"{cx['ms_permuted']:.3f} ms under a vocabulary permutation (bound "
+        f"{cx['bound_ms']:.3f} ms by {cx['bound_by']}, plain {cx['plain_ms']:.3f} ms on {cx['plain_queries']} queries); "
+        f"fused_match {cx['fused_match_ms']:.3f} ms; {cx['eligible']:.4f} "
+        f"eligible; max abs err {cx['max_abs_err']}")
     log(f"[phase 1] at scale: {time.perf_counter() - t:.1f}s")
     return rec
 

@@ -40,7 +40,8 @@ _PINT = ctypes.POINTER(ctypes.c_int)
 _SIGNATURES = {
     "coverage_gain_launch": [_P, _P, _P, _I64, _I64, _INT, _P],
     "bit_matvec_launch": [_P, _P, _P, _I64, _I64, _I64, _INT, _P],
-    "clause_match_launch": [_P, _P, _P, _I64, _I64, _I64, _P],
+    "clause_match_launch": [_P] * 5 + [_I64] * 3 + [_INT, _INT, _P],
+    "clause_tokens_launch": [_P] * 3 + [_I64] * 2 + [_INT, _P],
     "tier_match_launch": [_P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _INT, _P],
     "partition_gain_launch": [_P, _P, _P, _P, _I64, _I64, _I64, _INT, _P],
     "sparse_gain_launch": [_P, _P, _P, _I64, _I64, _I64, _INT, _INT, _P],

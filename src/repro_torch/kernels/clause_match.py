@@ -1,18 +1,80 @@
 """clause_match: eligible[b] = ∃k . clause_k ⊆ query_b — CUDA kernel wrapper.
 
 Kernel: `csrc/clause_match.cu` (replaces the Pallas
-`repro.kernels.clause_match.clause_match`). With no query or no clause the
-answer is all-False and nothing is launched. CPU tensors take the plain
-version; CUDA tensors launch the kernel or raise.
+`repro.kernels.clause_match.clause_match`), two launches on the current
+stream: pass A compacts each clause row into its first `SLOTS` set-bit
+positions and its count (`ref.clause_tokens`), pass B tests every query
+against that table (`ref.token_match`), `plan`'s number of queries to a
+block; the wrapper allocates the table.
+With no query or no clause the answer is all-False and nothing is
+launched. CPU tensors take the plain version; CUDA tensors launch the
+kernel or raise.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 
 from repro_torch.kernels import _build, ref
 
-# the kernel stages at least one query's words in shared memory (227 KiB)
-MAX_VOCAB_WORDS = 232448 // 4
+SLOTS = 4               # tokens kept per clause; more marks it overflow
+TABLE_BYTES = 4 * SLOTS + 4   # a clause's tokens and count
+SMEM_BYTES = 232448     # H100 per-block shared memory opt-in (227 KB)
+FLAG_BYTES = 16         # pass B's static shared memory, rounded up
+MAX_Q = 32              # queries per block of pass B (one bit each)
+# pass B stages at least one query's words in shared memory
+MAX_VOCAB_WORDS = (SMEM_BYTES - FLAG_BYTES) // 4
+
+
+def smem_rows(qpb: int) -> int:
+    """Vocab-word rows pass B stages: its queries, and their union when it
+    has more than one."""
+    return qpb + (qpb > 1)
+
+
+def plan(b: int, k: int, wv: int, sms: int) -> int:
+    """Queries per block of pass B. Each block reads the whole table (20
+    bytes a clause) and stages its queries' words. Where the table is no
+    larger than one query's words, one query a block (and no union);
+    else as many as shared memory holds, leaving at least two blocks per SM
+    in the grid; at most MAX_Q."""
+    if wv > MAX_VOCAB_WORDS:
+        raise ValueError(f"{wv} vocab words exceed the kernel's shared-memory "
+                         f"limit of {MAX_VOCAB_WORDS}")
+    if k * TABLE_BYTES <= wv * 4:
+        return 1
+    rows = (SMEM_BYTES - FLAG_BYTES) // (4 * max(1, wv))
+    return max(1, min(MAX_Q, rows - 1, b // (2 * sms)))
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _operands(clause_bits: torch.Tensor, *others: torch.Tensor):
+    k, wv = clause_bits.shape
+    tokens = torch.empty((k, SLOTS), dtype=torch.int32, device=clause_bits.device)
+    count = torch.empty(k, dtype=torch.int32, device=clause_bits.device)
+    vec = int(wv % 4 == 0 and _build.aligned16(clause_bits, *others))
+    return tokens, count, vec
+
+
+def clause_tokens(clause_bits: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Pass A alone: int32 clause_bits [K, Wv] -> (tokens [K, SLOTS], count
+    [K]), as `ref.clause_tokens` defines them."""
+    if _build.on_cpu(clause_bits):
+        return ref.clause_tokens(clause_bits, SLOTS)
+    _build.require(clause_bits, "clause_bits", torch.int32, 2)
+    k, wv = clause_bits.shape
+    tokens, count, vec = _operands(clause_bits)
+    if k:
+        _build.launch("clause_match", clause_bits.device, lambda lib, stream:
+                      lib.clause_tokens_launch(clause_bits.data_ptr(),
+                                               tokens.data_ptr(), count.data_ptr(),
+                                               k, wv, vec, stream))
+    return tokens, count
 
 
 def clause_match(query_bits: torch.Tensor,
@@ -29,12 +91,15 @@ def clause_match(query_bits: torch.Tensor,
     if clause_bits.shape[1] != wv:
         raise ValueError(f"clause_bits has {clause_bits.shape[1]} words, "
                          f"query_bits has {wv}")
-    if wv > MAX_VOCAB_WORDS:
-        raise ValueError(f"{wv} vocab words exceed the kernel's shared-memory "
-                         f"limit of {MAX_VOCAB_WORDS}")
-    out = torch.empty(b, dtype=torch.bool, device=query_bits.device)
-    _build.launch("clause_match", query_bits.device, lambda lib, stream:
+    dev = query_bits.device
+    qpb = plan(b, k, wv, _sms(dev.index if dev.index is not None
+                              else torch.cuda.current_device()))
+    tokens, count, vec = _operands(clause_bits, query_bits)
+    out = torch.empty(b, dtype=torch.bool, device=dev)
+    _build.launch("clause_match", dev, lambda lib, stream:
                   lib.clause_match_launch(query_bits.data_ptr(),
                                           clause_bits.data_ptr(),
-                                          out.data_ptr(), b, k, wv, stream))
+                                          tokens.data_ptr(), count.data_ptr(),
+                                          out.data_ptr(), b, k, wv, qpb, vec,
+                                          stream))
     return out

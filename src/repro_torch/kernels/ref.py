@@ -101,6 +101,57 @@ def clause_match(query_bits: torch.Tensor,
     return out
 
 
+def clause_tokens(clause_bits: torch.Tensor,
+                  slots: int = 4) -> tuple[torch.Tensor, torch.Tensor]:
+    """The compact clause table of `clause_match`'s first pass: each row's
+    first `slots` set-bit positions, ascending, -1 past its count -> int32
+    tokens [K, slots]; and its number of set bits, or slots + 1 for a row
+    with more than `slots` (overflow) -> int32 count [K]."""
+    k, wv = clause_bits.shape
+    dev = clause_bits.device
+    tokens = torch.full((k, slots), -1, dtype=torch.int32, device=dev)
+    count = torch.empty(k, dtype=torch.int32, device=dev)
+    shifts = torch.arange(WORD, dtype=torch.int32, device=dev)
+    rows = max(1, CHUNK_BYTES // max(1, wv * WORD * 24))
+    for r0 in range(0, k, rows):
+        blk = clause_bits[r0:r0 + rows]
+        r, w = torch.nonzero(blk, as_tuple=True)             # row-major
+        bits = ((blk[r, w][:, None] >> shifts) & 1).bool()
+        i, b = torch.nonzero(bits, as_tuple=True)            # bit-ascending
+        row, pos = r[i], w[i] * WORD + b
+        n = torch.bincount(row, minlength=blk.shape[0])
+        rank = torch.arange(len(row), device=dev) - (torch.cumsum(n, 0) - n)[row]
+        keep = rank < slots
+        tokens[r0 + row[keep], rank[keep]] = pos[keep].to(torch.int32)
+        count[r0:r0 + rows] = n.clamp(max=slots + 1).to(torch.int32)
+    return tokens, count
+
+
+def token_match(query_bits: torch.Tensor, clause_bits: torch.Tensor,
+                tokens: torch.Tensor, count: torch.Tensor) -> torch.Tensor:
+    """eligible [B] bool from the compact table (`clause_tokens`), the
+    arithmetic of `clause_match`'s second pass: a clause lies in a query iff
+    each of its tokens is set there; an overflow clause (count > slots) is
+    tested on its full row of `clause_bits`."""
+    b = query_bits.shape[0]
+    slots = tokens.shape[1]
+    out = torch.zeros(b, dtype=torch.bool, device=query_bits.device)
+    if b == 0 or tokens.shape[0] == 0:
+        return out
+    small = count <= slots
+    tk = tokens[small]
+    valid = tk >= 0
+    safe = tk.clamp(min=0).long()
+    word, shift = safe >> 5, (safe & 31).to(torch.int32)
+    rows = max(1, CHUNK_BYTES // max(1, tk.numel() * 16))
+    for b0 in range(0, b, rows):
+        bit = (query_bits[b0:b0 + rows][:, word] >> shift) & 1     # [rows, k, slots]
+        out[b0:b0 + rows] = ((bit == 1) | ~valid).all(-1).any(-1)
+    if not bool(small.all()):
+        out |= clause_match(query_bits, clause_bits[~small])
+    return out
+
+
 def tier_match(t1: torch.Tensor, t2: torch.Tensor, sel: torch.Tensor | None,
                tokens: torch.Tensor) -> torch.Tensor:
     """Per query, the AND of its tokens' postings rows, taken from `t1`

@@ -1,5 +1,5 @@
 """The port stands alone: it imports neither JAX nor the reference package,
-its chip smoke script neither, and its entry points never fall back to the
+its chip smoke script and its card tools neither, and its entry points never fall back to the
 CPU on their own."""
 import ast
 import os
@@ -52,6 +52,7 @@ def _imports(path: Path) -> set[str]:
 
 
 @pytest.mark.parametrize("path", [ROOT / "chip_smoke.py"]
+                         + sorted((ROOT / "tools").glob("*.py"))
                          + sorted((SRC / "repro_torch").rglob("*.py")),
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_source_names_jax_or_reference(path):
