@@ -1151,7 +1151,9 @@ def phase1_xl(seed: int, dev=torch.device("cuda")) -> dict:
 # -- phase 4: the LM serving path (gemma2-2b) on flash_attention --------------
 
 BF16_TC_FLOPS = 989e12         # H100 SXM dense bf16 tensor cores (data sheet)
+TF32_TC_FLOPS = 494.7e12       # H100 SXM dense TF32 tensor cores (data sheet)
 FP32_FLOPS = 67e12             # H100 SXM float32 outside the tensor cores (data sheet)
+TF32_PER_F32 = 3               # TF32 products per f32-accurate product (split TF32)
 PREFILL_B, PREFILL_S = 1, 32768          # registry prefill_32k: 32 x 32768
 DECODE_B, DECODE_S = 8, 32768            # registry decode_32k: 128 x 32768
 DECODE_STEPS = 4                         # timed steps, after one warm-up step
@@ -1206,21 +1208,27 @@ def attention_pairs(sq: int, q_offset: int, kv_len: int, causal: bool = True,
     return int((hi - lo + 1).clamp(min=0).sum())
 
 
+def fa_flops(q, causal, window, q_offset, kv_len) -> float:
+    """4*D FLOPs per unmasked (query, key) pair and query head."""
+    b, sq, hq, d = q.shape
+    return 4.0 * d * attention_pairs(sq, q_offset, kv_len, causal, window) * b * hq
+
+
 def fa_bound(q, k, causal, window, q_offset, kv_len) -> tuple[float, str]:
-    """The least time (ms) of one flash_attention call and what sets it: 4*D
-    FLOPs per unmasked pair and query head over the peak for the operands'
-    type (bf16 tensor cores; float32 on the CUDA cores, since TF32 would
-    round the operands), or the bytes of q, the output and the unmasked K/V
-    rows over HBM."""
+    """The least time (ms) of one flash_attention call and what sets it: the
+    FLOPs (`fa_flops`) over the tensor-core peak for the operands' type
+    (bf16: 989 TFLOP/s; f32: three TF32 products per f32-accurate product,
+    as split TF32 computes it, over 494.7 TFLOP/s), or the bytes of q, the
+    output and the unmasked K/V rows over HBM."""
     b, sq, hq, d = q.shape
     hkv = k.shape[2]
-    pairs = attention_pairs(sq, q_offset, kv_len, causal, window)
-    flops = 4.0 * d * pairs * b * hq
+    flops = fa_flops(q, causal, window, q_offset, kv_len)
     live_keys = attention_pairs(1, q_offset, kv_len, causal, window) \
         if sq == 1 else kv_len
     nbytes = (2 * q.numel() + 2 * b * live_keys * hkv * d) * q.element_size()
-    peak = BF16_TC_FLOPS if q.dtype == torch.bfloat16 else FP32_FLOPS
-    t_b, t_f = nbytes / HBM_BYTES_PER_S, flops / peak
+    t_f = flops / BF16_TC_FLOPS if q.dtype == torch.bfloat16 \
+        else TF32_PER_F32 * flops / TF32_TC_FLOPS
+    t_b = nbytes / HBM_BYTES_PER_S
     return max(t_b, t_f) * 1e3, "bytes" if t_b >= t_f else "operations"
 
 
@@ -1229,10 +1237,11 @@ def phase4_kernel_small(dev) -> dict:
     (rtol = atol = 2e-4) and bf16 (2e-2, the reference's tolerances), keys
     at or past kv_len set to NaN (no kernel may read them). Each call
     launches the kernel `route` names, once: Sq = 1 flash_decode, bf16 with
-    D in (64, 128, 256) flash_prefill, the rest the tile kernel;
-    flash_prefill's outputs are also held to its own plain version
-    `ref.flash_prefill` at 2e-2. Errors are kept per kernel and dtype, for
-    the dtypes that kernel was given."""
+    D in (64, 128, 256) flash_prefill, the rest the tile kernel; the
+    outputs of flash_prefill and of the tile kernel are also held to their
+    own plain versions `ref.flash_prefill` and `ref.flash_tile` at the same
+    tolerances. Errors are kept per kernel and dtype, for the dtypes that
+    kernel was given."""
     from repro_torch.kernels import _build, ops, ref
     from repro_torch.kernels.flash_attention import route
     gen = torch.Generator(dev).manual_seed(13)
@@ -1256,6 +1265,8 @@ def phase4_kernel_small(dev) -> dict:
             wants = [ref.flash_attention(qq, kk, vv, **kw)]
             if kn == "flash_prefill":
                 wants.append(ref.flash_prefill(qq, kk, vv, **kw))
+            if kn == "flash_attention":
+                wants.append(ref.flash_tile(qq, kk, vv, **kw))
             check(got.dtype == dt and bool(torch.isfinite(got).all()),
                   f"flash_attention {dt} not finite at {case}")
             for want in wants:
@@ -1270,7 +1281,9 @@ def phase4_kernel_small(dev) -> dict:
         check(launched == want_launch, f"ragged cases launched {launched}, "
               f"expected {want_launch}")
     log(f"[phase 4] flash_attention == plain on {len(FA_CASES)} ragged cases x 2 "
-        f"dtypes (rows with no visible key, kv_len 0, NaN past kv_len among them): "
+        f"dtypes (rows with no visible key, kv_len 0, NaN past kv_len among them; "
+        f"flash_prefill also against ref.flash_prefill, the tile kernel against "
+        f"ref.flash_tile): "
         + "; ".join(f"{k} max abs err " + ", ".join(f"{n} {e:.3g}" for n, e in w.items())
                     for k, w in worst.items() if w)
         + f" (2e-4 f32, 2e-2 bf16); launches {launched}")
@@ -1378,6 +1391,42 @@ def sdpa_call(q, k, v, causal: bool):
 _FLEX = {}
 
 
+def sdpa_f32_record(q, k, v) -> dict:
+    """The tile kernel and one scaled_dot_product_attention call in the
+    setting SDPA computes (causal, no window, no softcap) on f32 operands:
+    the memory-efficient backend forced, on [B, H, S, D] copies with K and
+    V repeated to Hq (made here, not timed), since enable_gqa may send f32
+    to the math backend (34 GB of scores at S = 32768). The yardstick, never
+    on the port's path; held to the kernel at 2e-2 as flex_attention is.
+    library_ms is None, and the refusal logged, if the backend does not
+    take the shape."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    from repro_torch.kernels import ops
+    s, g = q.shape[1], q.shape[2] // k.shape[2]
+    b_ms, b_by = fa_bound(q, k, True, None, 0, s)
+    got = ops.flash_attention(q, k, v)
+    rec = dict(ms=time_ms(lambda: ops.flash_attention(q, k, v), 3), bound_ms=b_ms,
+               bound_by=b_by, shape=list(q.shape) + [s], library_ms=None,
+               library_call="scaled_dot_product_attention, EFFICIENT_ATTENTION, "
+                            "K/V repeated to Hq")
+    qt = q.transpose(1, 2).contiguous()
+    kt, vt = (x.repeat_interleave(g, dim=2).transpose(1, 2).contiguous() for x in (k, v))
+
+    def fn():
+        with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+            return torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+    try:
+        want = fn().transpose(1, 2)
+    except RuntimeError as e:
+        log(f"[phase 4] SDPA (memory-efficient backend) refused f32 {rec['shape']}: "
+            f"{str(e).splitlines()[0]}; library time none")
+        return rec
+    torch.testing.assert_close(got, want, rtol=2e-2, atol=2e-2,
+                               msg=lambda m: f"flash_attention != SDPA, f32 prefill: {m}")
+    rec.update(library_ms=time_ms(fn, 3), library_err=float((got - want).abs().max()))
+    return rec
+
+
 def flex_call(q, k, v, *, window, cap, q_offset=0, kv_len=None):
     """One compiled torch.nn.attention.flex_attention call that computes the
     kernel's function: the softcap as its score_mod, causal + window at
@@ -1450,7 +1499,9 @@ def phase4_kernel_model(seed: int, dev) -> dict:
     flash_prefill and f32 on the tile kernel, and decode (Sq = 1,
     flash_decode) against a strided slice of a layer-stacked
     32768-position cache. Then timed at the model's four settings, and the
-    tile kernel at the prefill settings on the f32 copies (its route).
+    tile kernel at the prefill settings on the f32 copies (its route), with
+    its bound in split TF32 and on the CUDA cores, and beside one f32 SDPA
+    call in the setting SDPA computes.
     Errors are kept per kernel and dtype, for the dtypes routed to it."""
     from repro_torch.configs.gemma2_2b import CONFIG as cfg
     from repro_torch.kernels import ops, ref
@@ -1529,6 +1580,9 @@ def phase4_kernel_model(seed: int, dev) -> dict:
     qf, kf, vf = q.float(), k.float(), v.float()
     tile = {name: fa_record(qf, kf, vf, window=w, cap=cap, reps=3, plain_reps=1)
             for name, w in (("prefill_global", None), ("prefill_local", win))}
+    for name, w in (("prefill_global", None), ("prefill_local", win)):
+        tile[name]["bound_cuda_core_ms"] = fa_flops(qf, True, w, 0, s) / FP32_FLOPS * 1e3
+    tile["sdpa"] = sdpa_f32_record(qf, kf, vf)
     del qf, kf, vf
     cur = DECODE_S - 1
     for name, w in (("decode_global", None), ("decode_local", win)):
@@ -1571,12 +1625,19 @@ def phase4_kernel_model(seed: int, dev) -> dict:
             + (f", flex_attention {r['library_ms']:.3f} ms (compiled in "
                f"{r['library_compile_s']:.1f}s, max abs diff {r['library_err']:.3g})"
                if "library_call" in r else f", SDPA {r['library_ms']:.3f} ms") + ")")
-    for name, r in tile.items():
+    for name in ("prefill_global", "prefill_local"):
+        r = tile[name]
         log(f"[phase 4] flash_attention (tile kernel) {name} f32 {r['shape']}: "
-            f"{r['ms']:.3f} ms (bound {r['bound_ms']:.3f} ms by {r['bound_by']}, plain "
+            f"{r['ms']:.3f} ms (bound {r['bound_ms']:.3f} ms by {r['bound_by']} in split "
+            f"TF32, {r['bound_cuda_core_ms']:.3f} ms on the CUDA cores; plain "
             f"{r['plain_ms']:.3f} ms, flex_attention {r['library_ms']:.3f} ms "
             f"(compiled in {r['library_compile_s']:.1f}s, max abs diff "
             f"{r['library_err']:.3g}))")
+    r = tile["sdpa"]
+    log(f"[phase 4] flash_attention (tile kernel) sdpa setting f32 {r['shape']} "
+        f"(causal, no window, no softcap): {r['ms']:.3f} ms (bound {r['bound_ms']:.3f} "
+        f"ms by {r['bound_by']}), SDPA memory-efficient {fmt_ms(r['library_ms'])}"
+        + (f" (max abs diff {r['library_err']:.3g})" if r["library_ms"] is not None else ""))
     log(f"[phase 4] flash_prefill and flash_decode == SDPA in its setting: "
         f"max abs err prefill {prefill_err:.3g}, decode {decode_err:.3g} (bf16, 2e-2)")
     return dict(worst=worst, settings=rec, library=lib, tile=tile)
@@ -1803,8 +1864,8 @@ def lm_record(kern: dict, model: dict, small: dict, cfg, fa_small: dict) -> list
     at S = 32768 on a global layer (softcap 50) is its headline setting,
     the local layer and the SDPA yardstick ride along, with its own work
     floor (1.5x the bound: P·V twice). flash_attention (the tile kernel):
-    the same two settings on f32 copies of the operands (its route), and
-    its launches on the f32 path. flash_decode: decode at B = 8 against cur_len 32767 on a
+    the same two settings on f32 copies of the operands (its route), the
+    f32 SDPA yardstick, and its launches on the f32 path. flash_decode: decode at B = 8 against cur_len 32767 on a
     global layer, with the local layer, SDPA and the plan's splits. `small`
     holds flash_decode's ragged errors, `fa_small` the ragged errors of the
     Sq > 1 kernels."""
@@ -1848,6 +1909,7 @@ def lm_record(kern: dict, model: dict, small: dict, cfg, fa_small: dict) -> list
     wk = kern["worst"]["flash_attention"]
     r = dict(tile["prefill_global"])
     r.update(name="flash_attention", settings={"prefill_local": tile["prefill_local"]},
+             library_setting=tile["sdpa"], library_sdpa_ms=tile["sdpa"]["library_ms"],
              max_abs_err=max(wk["abs"], *fa_small["flash_attention"].values()),
              err_over_limit={k: e for k, e in wk.items() if k != "abs"},
              launches=model["f32_path_launches"],

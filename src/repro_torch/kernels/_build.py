@@ -45,7 +45,7 @@ _SIGNATURES = {
     "tier_match_launch": [_P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _INT, _P],
     "partition_gain_launch": [_P, _P, _P, _P, _I64, _I64, _I64, _INT, _P],
     "sparse_gain_launch": [_P, _P, _P, _I64, _I64, _I64, _INT, _INT, _P],
-    "flash_attention_launch": [_P] * 4 + [_I64] * 17 + [_F32, _INT, _INT, _INT, _P],
+    "flash_attention_launch": [_P] * 4 + [_I64] * 17 + [_F32, _INT, _INT, _I64, _P],
     "flash_decode_launch": [_P] * 5 + [_I64] * 16 + [_INT, _F32, _INT, _INT, _INT, _P],
     "flash_decode_ctas_per_sm": [_I64, _INT, _INT, _PINT],
     "flash_prefill_launch": [_P] * 4 + [_I64] * 17 + [_F32, _INT, _P],

@@ -8,12 +8,16 @@ Three routes, by `route`, from the operands before any launch: one query
 position (Sq = 1, the decode step) goes to the split-KV kernel of
 `flash_decode`; Sq > 1 in bf16 with D in (64, 128, 256) and 16-byte aligned
 operands to the wgmma kernel of `flash_prefill`; everything else (f32, the
-other head dims, unaligned views) to the tile kernel. All read q, k and v in
-their [B, S, H, D] layout through their strides, so a decode step passes
-one layer's slice of the KV cache as it lies, with `kv_len` = the filled
+other head dims, unaligned views) to the tile kernel, which multiplies on
+the TF32 tensor cores with split operands (`ref.flash_tile` is its
+arithmetic) in the tiles `tile_plan` gives. All read q, k and v in their
+[B, S, H, D] layout through their strides, so a decode step passes one
+layer's slice of the KV cache as it lies, with `kv_len` = the filled
 length.
 """
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -21,12 +25,50 @@ from repro_torch.kernels import _build, flash_decode, flash_prefill, ref
 
 HEAD_DIMS = (8, 16, 32, 64, 128, 256)   # the kernel's instantiations
 DTYPES = (torch.float32, torch.bfloat16)
+STAGES = 2                              # K/V tiles in the tile kernel's ring
+SMEM_PER_BLOCK = 232448                 # the opt-in shared memory of a block
 
 
-def rows_per_thread(sq: int, group: int) -> int:
-    """The tile kernel's row tile: 64 rows (4 per row group) when a KV head
-    has at least 256 (query, head) rows, else 16."""
-    return 4 if sq * group >= 256 else 1
+class TilePlan(NamedTuple):
+    """The tile kernel's tiling for one head dim and dtype: `rows` (position,
+    group head) rows per CTA in groups of 16, each group taken by one warp
+    or, at D = 256, by two warps that split D (`warps` a CTA); K/V tiles
+    of `keys` keys in a ring of `stages`; row strides in 4-byte words of Q
+    (f32) and of K and V (in their dtype), padded so that the fragment loads
+    are free of bank conflicts; `smem` bytes of shared memory a CTA, the
+    paired warps' score exchange included."""
+    rows: int
+    warps: int
+    keys: int
+    stages: int
+    q_words: int
+    k_words: int
+    v_words: int
+    smem: int
+
+
+def _padded(words: int, modulus: int, rest: int) -> int:
+    """The least stride >= words that is `rest` mod `modulus`."""
+    return words + (rest - words) % modulus
+
+
+def tile_plan(d: int, dtype: torch.dtype) -> TilePlan:
+    """The plan that `csrc/flash_attention.cu` is built with (its `Layout`),
+    which the launch checks: a lane loads 4 consecutive Q or K elements (2
+    at D = 8), L words, and a stride of 4L mod 8L words puts the lanes of a
+    load phase on distinct banks; V loads take a stride of 4 mod 8 words."""
+    size = torch.empty((), dtype=dtype).element_size()
+    kc = 4 if d >= 16 else 2
+    lk = max(1, kc * size // 4)
+    k_words = _padded(d * size // 4, 8 * lk, 4 * lk)
+    q_words = _padded(d, 8 * kc, 4 * kc)
+    v_words = _padded(d * size // 4, 8, 4)
+    rows, keys = ref.TILE_ROWS, ref.TILE_KEYS
+    halves = 2 if d == 256 else 1
+    warps = rows // 16 * halves
+    exchange = warps * 16 * keys if halves == 2 else 0   # 16 x keys scores a warp
+    smem = 4 * (rows * q_words + STAGES * keys * (k_words + v_words) + exchange)
+    return TilePlan(rows, warps, keys, STAGES, q_words, k_words, v_words, smem)
 
 
 def route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
@@ -91,7 +133,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     out = torch.empty((b, sq, hq, d), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out
-    rt = rows_per_thread(sq, hq // hkv)
+    smem = tile_plan(d, q.dtype).smem
     _build.launch("flash_attention", q.device, lambda lib, stream:
                   lib.flash_attention_launch(
                       q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
@@ -99,5 +141,5 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                       *v.stride()[:3], kv_len, int(q_offset),
                       -1 if window is None else int(window),
                       0.0 if softcap is None else float(softcap), int(causal),
-                      int(q.dtype == torch.bfloat16), rt, stream))
+                      int(q.dtype == torch.bfloat16), smem, stream))
     return out

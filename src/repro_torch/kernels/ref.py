@@ -298,9 +298,9 @@ def split_bf16(p: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 
 
 def prefill_keys(p_lo: int, p_hi: int, kv_len: int, causal: bool,
-                 window: int | None) -> tuple[int, int]:
+                 window: int | None, tile: int = PREFILL_KEYS) -> tuple[int, int]:
     """The keys [begin, end) that a block of query positions p_lo..p_hi
-    walks (the block skip), begin cut down to a tile edge: the union of its
+    walks (the block skip), begin cut down to a `tile` edge: the union of its
     rows' visible keys, or all of [0, kv_len) when its last row sees none
     (the rows that see no key are the latest ones)."""
     begin = max(0, p_lo - window + 1) if window is not None else 0
@@ -308,7 +308,7 @@ def prefill_keys(p_lo: int, p_hi: int, kv_len: int, causal: bool,
     lo, hi = decode_keys(kv_len, p_hi, causal, window)
     if lo >= hi:
         begin, end = 0, kv_len
-    return begin // PREFILL_KEYS * PREFILL_KEYS, end
+    return begin // tile * tile, end
 
 
 def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -367,3 +367,95 @@ def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         o = acc / l.clamp(min=1e-30)[..., None]
         out[:, p0:p0 + nn] = o.permute(0, 3, 1, 2, 4).reshape(b, nn, hq, d).to(q.dtype)
     return out
+
+
+TILE_ROWS = 64         # (position, group head) rows per CTA of the tile kernel
+TILE_KEYS = 32         # keys per K/V tile of the tile kernel
+
+
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """f32 x rounded to TF32 as cvt.rna.tf32.f32 does: to nearest, ties away
+    from zero, 10 explicit mantissa bits (the low 13 bits zeroed), on the
+    int32 view; subnormals round in place, a value past the largest TF32
+    becomes Inf, Inf and NaN pass through."""
+    i = x.contiguous().view(torch.int32)
+    r = ((i + 0x1000) & ~0x1FFF).view(torch.float32)
+    return torch.where(torch.isfinite(x), r, x)
+
+
+def split_tf32(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """x = hi + lo to about 2^-22 relative, both TF32 values held in f32:
+    hi = tf32(x), lo = tf32(x - hi). A product as hi·hi + hi·lo + lo·hi on
+    TF32 tensor cores keeps f32's accuracy (one TF32 pass rounds each
+    operand to 2^-11); a bf16 value is exact in TF32, so its lo is 0."""
+    x = x.float()
+    hi = _tf32(x)
+    return hi, _tf32(x - hi)
+
+
+def _split_product(eq: str, a: tuple[torch.Tensor, torch.Tensor],
+                   b: tuple[torch.Tensor, torch.Tensor]) -> torch.Tensor:
+    """a·b as the tile kernel's three TF32 products, summed in f32."""
+    return (torch.einsum(eq, a[0], b[0]) + torch.einsum(eq, a[0], b[1])
+            + torch.einsum(eq, a[1], b[0]))
+
+
+def flash_tile(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+               causal: bool = True, window: int | None = None,
+               softcap: float | None = None, q_offset: int = 0,
+               kv_len: int | None = None) -> torch.Tensor:
+    """`flash_attention` computed as the tile kernel computes it: the rows of
+    a KV head are its flattened (query position, group head) pairs, r =
+    position * G + head, in blocks of TILE_ROWS; each block walks the keys
+    `prefill_keys` gives its first and last positions, in tiles of
+    TILE_KEYS, by online softmax in base 2. Q·K^T and P·V are each three
+    TF32 products of split operands (`split_tf32`: hi·hi + hi·lo + lo·hi,
+    summed in f32); the scores are times 1/sqrt(D) after the product, take
+    the `tanh_accurate` softcap and the mask NEG = -1e30; one division by
+    max(l, 1e-30) and one rounding to q's dtype. Keys at or past kv_len,
+    which the kernel reads as zeros with p = 0, are left out; a row that
+    sees no key gives the uniform mean of v[:kv_len]."""
+    b, sq, hq, d = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    kv_len = skv if kv_len is None else int(kv_len)
+    g = hq // hkv
+    n_rows = sq * g
+    scale = torch.tensor(1.0 / math.sqrt(d), dtype=torch.float32)
+    inv_cap = None if softcap is None else torch.tensor(1.0 / softcap,
+                                                        dtype=torch.float32)
+    rows = q.float().reshape(b, sq, hkv, g, d).permute(0, 2, 1, 3, 4) \
+        .reshape(b, hkv, n_rows, d)
+    qs = split_tf32(rows)
+    out = torch.empty_like(rows)
+    for r0 in range(0, n_rows, TILE_ROWS):
+        r1 = min(r0 + TILE_ROWS, n_rows)
+        pos = torch.arange(r0, r1, device=q.device) // g + q_offset
+        begin, end = prefill_keys(r0 // g + q_offset, (r1 - 1) // g + q_offset,
+                                  kv_len, causal, window, TILE_KEYS)
+        qb = tuple(x[:, :, r0:r1] for x in qs)
+        m = torch.full((b, hkv, r1 - r0), NEG, device=q.device)
+        l = torch.zeros_like(m)
+        acc = torch.zeros((b, hkv, r1 - r0, d), device=q.device)
+        for k0 in range(begin, end, TILE_KEYS):
+            k1 = min(k0 + TILE_KEYS, kv_len)
+            s = _split_product("bhnd,bthd->bhnt", qb, split_tf32(k[:, k0:k1])) * scale
+            if softcap is not None:
+                s = softcap * tanh_accurate(s * inv_cap)
+            s = s * LOG2E
+            kp = torch.arange(k0, k1, device=q.device)
+            mask = torch.ones((r1 - r0, k1 - k0), dtype=torch.bool, device=q.device)
+            if causal:
+                mask &= pos[:, None] >= kp[None, :]
+            if window is not None:
+                mask &= pos[:, None] - kp[None, :] < window
+            s = torch.where(mask, s, torch.tensor(NEG, device=q.device))
+            m_new = torch.maximum(m, s.amax(-1))
+            corr = torch.exp2(m - m_new)
+            p = torch.exp2(s - m_new[..., None])
+            l = l * corr + p.sum(-1)
+            acc = acc * corr[..., None] + _split_product(
+                "bhnt,bthd->bhnd", split_tf32(p), split_tf32(v[:, k0:k1]))
+            m = m_new
+        out[:, :, r0:r1] = acc / l.clamp(min=1e-30)[..., None]
+    return out.reshape(b, hkv, sq, g, d).permute(0, 2, 1, 3, 4) \
+        .reshape(b, sq, hq, d).to(q.dtype)

@@ -12,7 +12,7 @@ from repro.kernels import ref as jref
 from repro.kernels.flash_attention import flash_attention as pallas_flash
 from repro.models import common as jcommon
 from repro_torch.kernels import ops
-from repro_torch.kernels.flash_attention import rows_per_thread
+from repro_torch.kernels.flash_attention import SMEM_PER_BLOCK, tile_plan
 
 # the reference's own cases (tests/test_flash_attention.py)
 CASES = [
@@ -96,7 +96,16 @@ def test_wrapper_refuses_operands_that_do_not_fit():
 
 
 def test_row_tile_choice():
-    """Prefill-sized row sets take the 64-row tile, a decode step the 16-row
-    one (chip_smoke.py drives both on the card)."""
-    assert rows_per_thread(8192, 2) == 4 and rows_per_thread(128, 2) == 4
-    assert rows_per_thread(1, 2) == 1 and rows_per_thread(20, 2) == 1
+    """The tile kernel takes 64 (position, group head) rows per CTA and
+    32-key tiles at every head dim and dtype, within a block's shared
+    memory: one warp per 16 rows, two (one per half of D) at D = 256, where
+    Q and two K/V stages in f32 take 201 KiB (chip_smoke.py drives it on
+    the card)."""
+    for dtype in (torch.float32, torch.bfloat16):
+        for d in (8, 16, 32, 64, 128, 256):
+            plan = tile_plan(d, dtype)
+            assert (plan.rows, plan.keys, plan.stages) == (64, 32, 2)
+            assert plan.warps == (8 if d == 256 else 4)
+            assert plan.smem <= SMEM_PER_BLOCK
+    assert tile_plan(256, torch.float32).smem == 4 * (64 * 272 + 2 * 32 * (272 + 260)) + 16384
+    assert tile_plan(128, torch.float32).smem * 2 <= 228 * 1024   # two CTAs an SM
