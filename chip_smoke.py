@@ -24,8 +24,18 @@ a non-zero exit):
         shards, a partitioned sweep, a warm refit onto the test weights;
         then the sparse greedy round over padded doc-id lists against the
         dense greedy step on the same problem.
+     c. the paper's other solvers through `pipe.solve`: lazy (Alg. 1),
+        agnostic (§5.1), isk1/isk2 (Alg. 3; 3 outer iterations of at most
+        64), stochastic (§3.2, m = 2048), flow-popularity, flow-max and
+        flow-sgd (§2.3), lazy under the 4-shard traffic caps, and
+        `build_multitier` at 3 budgets (§6), each cut to 128 selections,
+        each path's launches counted from 0; lazy == greedy's prefix up to
+        an f32 tie (globally and under the caps) with fewer exact
+        evaluations, greedy >= agnostic, ISK within B, the multi-tier
+        system nested and exact (`verify_multitier`).
      Orders, selections, caps, fills, match sets and ServeStats must agree
-     between the two devices.
+     between the two devices; flow-sgd's logits within 1e-3 (rtol) and
+     1e-4 (atol), its Tier-1 docs equal but at the budget's boundary.
   3. the production shapes (configs/tiering_scsk.py: 2^17 vocabulary, 2^20
      queries, 4096-query serve batches), cut to 2^16 clauses and 2^20 docs
      so that every operand is resident on one 80 GB card:
@@ -34,8 +44,19 @@ a non-zero exit):
      b. greedy and optpes under 8 per-shard caps set to half of the global
         greedy's fills (the caps bind): equal orders, every fill <= cap;
      c. the sparse round over the clauses with |m(c)| <= 4096 against dense
-        greedy over the same rows: equal orders and covered docs.
-     Launch counts are read from each path's own run. Then each kernel
+        greedy over the same rows: equal orders and covered docs;
+     d. lazy (stopped at 30 s), agnostic, stochastic (m = 2048), isk1 and
+        isk2 (3 x at most 128), 128 selections each: time per selection
+        (ISK: per outer iteration), exact evaluations and launches beside
+        greedy's; one exact evaluation timed alone; lazy == greedy's prefix
+        up to f32 ties;
+     e. the telemetry plane: the kernel profiler's measured rows for one
+        greedy step and one serve batch (each at most 1.05 of the H100's
+        3.35 TB/s), `kernel_words_scanned_total` equal to the ops' word
+        models, a greedy solve and a serve batch bit-identical with the
+        plane off.
+     Launch counts are read from each path's own run. The kernel timings
+     below run with the telemetry plane off, as they did before it existed. Then each kernel
      against its plain version at these shapes, with its timing and bound;
      clause_match also at serve_route's K: the serve batch against the
      deployment's 2^16 candidate clauses, in the vocabulary's order and
@@ -119,6 +140,9 @@ REDUCED = {
     "solve_steps": "max_steps=128 per solver and per sparse round",
     "sparse_round": "the phase-3 clauses with |m(c)| <= 4096 (the rest get "
                     "an all -1 list and start selected)",
+    "isk": "3 outer iterations of at most 128 inner selections (medium: "
+           "at most 64, every other medium solver its first 128 selections)",
+    "lazy": "stops at 30 s of wall clock (max_steps=128)",
 }
 
 
@@ -527,6 +551,139 @@ def compare_partitioned(gpu: dict, cpu: dict) -> None:
         f"(dense {cs['dense_s']:.2f}s)")
 
 
+# the paper's other solvers and options at `medium`, cut to the first 128
+# selections (ISK: 3 outer iterations of at most 64); both devices run the
+# same cuts, which keep the CPU half of phase 2c near two minutes
+MEDIUM_STEPS = 128
+MEDIUM_SOLVERS = (("lazy", {}), ("agnostic", {}),
+                  ("isk1", {"max_outer": 3, "max_inner": 64}),
+                  ("isk2", {"max_outer": 3, "max_inner": 64}),
+                  ("stochastic", {"batch_queries": 2048}),
+                  ("flow-popularity", {}), ("flow-max", {}), ("flow-sgd", {}))
+SGD_RTOL, SGD_ATOL = 1e-3, 1e-4   # flow-sgd logits after 300 float32 steps
+
+
+def run_solvers(pipe, n_shards: int = 4) -> dict:
+    """Every other registered solver through the pipeline, then lazy under
+    the traffic-split per-shard caps, then a 3-budget multi-tier system.
+    Each path's kernel launches are counted from 0 over its own run."""
+    from repro_torch.core import multitier
+    from repro_torch.kernels import _build
+    out: dict = {"launches": {}, "seconds": {}}
+
+    def run(key, fn):
+        _build.reset_launches()
+        t = time.perf_counter()
+        out[key] = fn()
+        out["seconds"][key] = time.perf_counter() - t
+        out["launches"][key] = {k: v for k, v in _build.LAUNCHES.items() if v}
+
+    for name, opts in MEDIUM_SOLVERS:
+        run(name, lambda: pipe.solve(name, budget_frac=0.5,
+                                     max_steps=MEDIUM_STEPS, **opts).result)
+    run("lazy-caps", lambda: pipe.solve(
+        "lazy", budget_frac=0.5, budget_split="traffic", n_shards=n_shards,
+        max_steps=MEDIUM_STEPS).result)
+    n = pipe.corpus.n_docs
+    run("multitier", lambda: multitier.build_multitier(
+        pipe.data, [n // 32, n // 16, n // 8], solver="greedy",
+        device=pipe.device, max_steps=MEDIUM_STEPS))
+    mt = out["multitier"]
+    out["multitier_ok"] = multitier.verify_multitier(mt, pipe.data)
+    out["routes"] = mt.route(pipe.data.log.query_bits)
+    return out
+
+
+def compare_solvers(gpu: dict, cpu: dict, main: dict, part: dict,
+                    problem, budget: float) -> None:
+    """The card's runs of the other solvers against the CPU's, and against
+    the paper's claims: lazy == greedy up to an f32 tie (globally and under
+    the caps) with fewer exact evaluations, greedy >= agnostic, ISK within
+    its budget, the multi-tier system nested and exact."""
+    scsk = [n for n, _ in MEDIUM_SOLVERS if not n.startswith("flow")]
+    for key in scsk + ["lazy-caps"]:
+        g, c = gpu[key], cpu[key]
+        check(g.order == c.order, f"{key} order differs from the CPU run")
+        check(np.array_equal(g.selected, c.selected), f"{key} selection differs")
+        check(g.g_final == c.g_final and g.n_exact_evals == c.n_exact_evals,
+              f"{key} g_final / n_exact_evals differ from the CPU run")
+        check(math.isclose(g.f_final, c.f_final, rel_tol=1e-5),
+              f"{key} f_final {g.f_final} vs {c.f_final}")
+    np.testing.assert_array_equal(gpu["lazy-caps"].extra["g_part"],
+                                  cpu["lazy-caps"].extra["g_part"])
+    check(np.all(gpu["lazy-caps"].extra["g_part"]
+                 <= gpu["lazy-caps"].extra["caps"]), "lazy overfills a shard")
+    lazy, lazy_caps = gpu["lazy"].order, gpu["lazy-caps"].order
+    ordered_or_tied(problem, lazy, main["greedy"].order[:len(lazy)],
+                    "lazy vs greedy (medium)")
+    check(np.array_equal(gpu["lazy-caps"].extra["caps"],
+                         part["greedy"].extra["caps"]), "caps differ")
+    ordered_or_tied(problem, lazy_caps, part["greedy"].order[:len(lazy_caps)],
+                    "lazy vs greedy under the caps (medium)")
+    # greedy evaluates every clause twice per selection
+    greedy_evals = 2 * problem.n_clauses * len(lazy)
+    check(gpu["lazy"].n_exact_evals < greedy_evals,
+          "lazy made no fewer exact evaluations than greedy")
+    check(main["greedy"].f_final >= gpu["agnostic"].f_final,
+          "agnostic beat greedy")
+    for key in ("isk1", "isk2"):
+        check(np.all(gpu[key].g_history <= budget),
+              f"{key} history exceeds the budget")
+    check(gpu["multitier_ok"] and cpu["multitier_ok"],
+          "verify_multitier failed")
+    check(np.array_equal(gpu["routes"], cpu["routes"]) and all(
+        np.array_equal(a, b) for a, b in zip(gpu["multitier"].tier_docs,
+                                             cpu["multitier"].tier_docs)),
+        "multi-tier routes or tiers differ from the CPU run")
+    for key in ("flow-popularity", "flow-max"):
+        g, c = gpu[key].extra, cpu[key].extra
+        check(all(np.array_equal(g[k], c[k])
+                  for k in ("tier1_docs", "eligible_queries")),
+              f"{key} differs from the CPU run")
+    g, c = gpu["flow-sgd"].extra, cpu["flow-sgd"].extra
+    theta, want = g["flow"].doc_scores, c["flow"].doc_scores
+    check(np.allclose(theta, want, rtol=SGD_RTOL, atol=SGD_ATOL),
+          f"flow-sgd logits differ: max abs {np.abs(theta - want).max()}")
+    b = int(g["tier1_docs"].sum())
+    cut = np.sort(theta)[::-1][b - 1]
+    differ = np.nonzero(g["tier1_docs"] != c["tier1_docs"])[0]
+    check(np.all(np.abs(theta[differ] - cut) <= SGD_ATOL + SGD_RTOL * abs(cut)),
+          f"flow-sgd Tier-1 differs away from the boundary: {differ[:8]}")
+    for key, want_k in (("lazy", ("bit_matvec", "coverage_gain")),
+                        ("agnostic", ("bit_matvec", "coverage_gain")),
+                        ("isk1", ("bit_matvec", "coverage_gain")),
+                        ("isk2", ("bit_matvec", "coverage_gain")),
+                        ("stochastic", ("bit_matvec", "coverage_gain")),
+                        ("lazy-caps", ("bit_matvec", "partition_gain")),
+                        ("multitier", ("bit_matvec", "coverage_gain"))):
+        check(all(gpu["launches"][key].get(k, 0) > 0 for k in want_k),
+              f"{key} launched none of {want_k}: {gpu['launches'][key]}")
+    mg = main["greedy"]
+    log(f"[phase 2] other solvers (cuda s / cpu s, selections, evals): "
+        + "; ".join(f"{k} {gpu['seconds'][k]:.2f}/{cpu['seconds'][k]:.2f} "
+                    f"{len(gpu[k].order)} {gpu[k].n_exact_evals}"
+                    for k in scsk + ["lazy-caps"])
+        + f"; greedy {len(mg.order)} selections, {mg.n_exact_evals} evals "
+          f"({greedy_evals} in its first {len(lazy)}); multi-tier "
+          f"{gpu['seconds']['multitier']:.2f}/{cpu['seconds']['multitier']:.2f}"
+          f", flow " + ", ".join(
+              f"{k} {gpu['seconds'][k]:.2f}/{cpu['seconds'][k]:.2f}"
+              for k in ("flow-popularity", "flow-max", "flow-sgd")))
+    log(f"[phase 2] f_final: greedy {mg.f_final:.6f} lazy "
+        f"{gpu['lazy'].f_final:.6f} agnostic {gpu['agnostic'].f_final:.6f} "
+        f"isk1 {gpu['isk1'].f_final:.6f} isk2 {gpu['isk2'].f_final:.6f} "
+        f"stochastic-m2048 {gpu['stochastic'].f_final:.6f}; flow train "
+        f"coverage popularity {gpu['flow-popularity'].f_final:.6f} flow-max "
+        f"{gpu['flow-max'].f_final:.6f} flow-sgd {gpu['flow-sgd'].f_final:.6f} "
+        f"(logits max abs diff card-CPU {np.abs(theta - want).max():.3g}, "
+        f"{len(differ)} boundary docs differ)")
+    mt = gpu["multitier"]
+    log(f"[phase 2] multi-tier {[int(d.sum()) for d in mt.tier_docs]} docs: "
+        f"route shares {np.bincount(gpu['routes'], minlength=4).tolist()}, "
+        f"verify_multitier true on both devices, routes equal")
+    log(f"[phase 2] launches by path: {json.dumps(gpu['launches'])}")
+
+
 def phase2(counts, scale: str = "medium", device=None) -> dict:
     from repro_torch import api
     from repro_torch.kernels import _build
@@ -543,9 +700,14 @@ def phase2(counts, scale: str = "medium", device=None) -> dict:
     _build.reset_launches()
     gpu_part = run_partitioned(pipe)
     add_counts(counts, _build.LAUNCHES)
+    # a fresh pipeline: run_partitioned's refit left the test weights in pipe
+    fresh = api.TieringPipeline.from_data(pipe.data, device=pipe.device)
+    gpu_solvers = run_solvers(fresh)
     cpu_pipe = api.TieringPipeline.from_data(pipe.data, device="cpu")
     cpu = run_pipeline(cpu_pipe)
     cpu_part = run_partitioned(cpu_pipe)
+    cpu_solvers = run_solvers(api.TieringPipeline.from_data(pipe.data,
+                                                            device="cpu"))
     for solver in ("greedy", "optpes"):
         g, c = gpu[solver], cpu[solver]
         check(g.order == c.order, f"{solver} order differs from the CPU run")
@@ -569,6 +731,8 @@ def phase2(counts, scale: str = "medium", device=None) -> dict:
         f"f={gpu['greedy'].f_final:.6f} g={gpu['greedy'].g_final:.0f}; "
         f"coverage {gpu['coverage']}; stats {gpu['stats']}")
     compare_partitioned(gpu_part, cpu_part)
+    compare_solvers(gpu_solvers, cpu_solvers, gpu, gpu_part, fresh.problem,
+                    float(int(pipe.corpus.n_docs * 0.5)))
     log(f"[phase 2] launches {dict(counts)}; orders, selections, caps, fills, "
         f"match sets and ServeStats equal to the device='cpu' run")
     check(all(counts[k] > 0 for k in TIERING_KERNELS)
@@ -820,8 +984,8 @@ def phase3(seed: int, counts: dict, dev=torch.device("cuda"),
     state = problem.state_for(results["greedy"].order)
     return dict(problem=problem, state=state, engine=engine, tokens=toks,
                 qbits=qbits, peak=peak, gen=d.gen, vocab=d.vocab_size,
-                clause_tokens=d.clause_tokens,
-                greedy_order=results["greedy"].order)
+                clause_tokens=d.clause_tokens, queries=qs,
+                greedy=results["greedy"], greedy_order=results["greedy"].order)
 
 
 def phase3_shards(p3: dict, counts: dict) -> dict:
@@ -931,6 +1095,153 @@ def phase3_sparse(p3: dict, counts: dict) -> dict:
     return dict(ids=ids, covered_d=res["covered_d"], selections=len(res["order"]),
                 sparse_ms=res["sparse_s"] / n * 1e3,
                 dense_ms=res["dense_s"] / n * 1e3)
+
+
+PROD_SOLVERS = (("lazy", {}), ("agnostic", {}),
+                ("stochastic", {"batch_queries": 2048}),
+                ("isk1", {"max_outer": 3, "max_inner": 128}),
+                ("isk2", {"max_outer": 3, "max_inner": 128}))
+# lazy's eq.-14 lower bounds fall to 0 within a few selections when each
+# selection adds ~1 doc, and every clause with g̲ = 0 is then re-evaluated
+# one row at a time; its run stops at this wall-clock limit
+LAZY_LIMIT_S = 30.0
+
+
+def per_step_ms(res) -> tuple[float, float]:
+    """Median and maximum ms between a solve's recorded points (a selection,
+    or one ISK outer iteration)."""
+    steps = np.diff(res.time_history) * 1e3
+    return float(np.median(steps)), float(steps.max())
+
+
+def phase3_solvers(p3: dict) -> dict:
+    """lazy, agnostic, stochastic and ISK at the production shapes, 128
+    selections each (ISK: 3 outer iterations of at most 128), each run's
+    launches counted from 0; then one exact evaluation (lazy's and
+    agnostic's unit of work) timed alone on 64 clauses at lazy's final
+    state. lazy == greedy up to an f32 tie."""
+    from repro_torch.core import registry
+    from repro_torch.core.config import SolveConfig
+    from repro_torch.core.constraint import GlobalBudget
+    from repro_torch.core.lazy_greedy import _exact_gains_one
+    from repro_torch.kernels import _build
+    problem = p3["problem"]
+    budget = float(int(problem.n_docs * 0.5))
+    out: dict = {}
+    for name, opts in PROD_SOLVERS:
+        _build.reset_launches()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        res = registry.solve(problem, SolveConfig(
+            budget=budget, solver=name, max_steps=128, options=opts,
+            time_limit=LAZY_LIMIT_S if name == "lazy" else None))
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t
+        launches = {k: v for k, v in _build.LAUNCHES.items() if v}
+        check(launches.get("bit_matvec", 0) > 0
+              and launches.get("coverage_gain", 0) > 0,
+              f"{name} at production shapes launched {launches}")
+        med, mx = per_step_ms(res)
+        out[name] = dict(result=res, s=dt, median_ms=med, max_ms=mx,
+                         evals=res.n_exact_evals, launches=launches)
+        if name.startswith("isk"):
+            check(np.all(res.g_history <= budget), f"{name} exceeds B")
+    greedy = p3["greedy"]
+    lazy_order = out["lazy"]["result"].order
+    ordered_or_tied(problem, lazy_order, greedy.order[:len(lazy_order)],
+                    "lazy vs greedy (production shapes)")
+    # one exact evaluation: a one-row bit_matvec and a one-row coverage_gain
+    # launch, read to the host in one transfer
+    st = out["lazy"]["result"].state
+    x = problem.uncovered_weights(st.covered_q)
+    cons = GlobalBudget(budget)
+    js = torch.randperm(problem.n_clauses, generator=p3["gen"],
+                        device=p3["gen"].device)[:64].tolist()
+    _exact_gains_one(problem, cons, x, st.covered_d, js[0])        # warm-up
+    one = []
+    for j in js:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        _exact_gains_one(problem, cons, x, st.covered_d, j)
+        one.append((time.perf_counter() - t) * 1e3)
+    out["exact_eval_ms"] = float(np.median(one))
+    out["exact_eval_max_ms"] = float(np.max(one))
+    g_med, g_max = per_step_ms(greedy)
+    out["greedy"] = dict(median_ms=g_med, max_ms=g_max,
+                         evals=greedy.n_exact_evals)
+    log(f"[phase 3] greedy (same run): {g_med:.3f} ms per selection median, "
+        f"{g_max:.3f} max, {greedy.n_exact_evals} evals")
+    for name, _ in PROD_SOLVERS:
+        r = out[name]
+        unit = "outer iteration" if name.startswith("isk") else "selection"
+        log(f"[phase 3] {r['result'].summary()} in {r['s']:.2f}s; per {unit} "
+            f"ms: median {r['median_ms']:.3f} max {r['max_ms']:.3f}; launches "
+            f"{r['launches']}")
+    lz = out["lazy"]
+    n_sel = len(lz["result"].order)
+    out["lazy_exact_evals"] = (lz["evals"] - 2 * problem.n_clauses) // 2
+    log(f"[phase 3] one exact evaluation (one-row bit_matvec + coverage_gain "
+        f"+ one host read): median {out['exact_eval_ms']:.4f} ms, max "
+        f"{out['exact_eval_max_ms']:.4f} ms over 64 clauses; lazy made "
+        f"{out['lazy_exact_evals']} exact evaluations in {n_sel} selections "
+        f"({'its ' + str(LAZY_LIMIT_S) + ' s limit' if n_sel < 128 else 'all 128'}"
+        f"), == greedy's first {n_sel} up to f32 ties")
+    return out
+
+
+def phase3_telemetry(p3: dict) -> dict:
+    """The telemetry plane at the production shapes: the kernel profiler's
+    measured rows for one greedy step and one serve batch (each row at most
+    1.05 of the H100's HBM roofline), the word counters equal to the ops'
+    word models over the calls made, and a greedy solve and a serve batch
+    bit-identical with the plane off."""
+    from repro_torch import obs
+    from repro_torch.core import registry
+    from repro_torch.core.config import SolveConfig
+    from repro_torch.core.greedy import greedy_step
+    from repro_torch.kernels import ops
+    problem, engine, qs = p3["problem"], p3["engine"], p3["queries"]
+    budget = float(int(problem.n_docs * 0.5))
+    prev = obs.set_enabled(True)
+    obs.reset()
+    with obs.PROFILER.scoped():
+        with obs.PROFILER.measuring():
+            greedy_step(problem, p3["state"], budget)
+            engine.serve(qs)
+        rows = obs.PROFILER.summary()
+    path = ops.path_of(problem.clause_query_bits)
+    check(path == "cuda", f"the telemetry check's launches ran on {path}")
+    words = {s["labels"]["op"]: s["value"] for s in obs.REGISTRY.get(
+        "kernel_words_scanned_total").to_dict()["series"]
+        if s["labels"]["path"] == path}
+    c, k = problem.n_clauses, engine._live.clause_bits.shape[0]
+    want = {"bit_matvec": c * problem.wq, "coverage_gain": c * problem.wd,
+            "clause_match": (len(qs) + k) * engine._live.clause_bits.shape[1]}
+    check(words == want, f"kernel words {words} != the word models {want}")
+    for r in rows:
+        log(f"[phase 3] profiler {r['op']} ({r['path']}): {r['calls']} call, "
+            f"{r['us_per_call']:.1f} us, {r['achieved_gbps']:.1f} GB/s, "
+            f"roofline_frac {r['roofline_frac']:.4f} of {obs.HBM_BW / 1e12} TB/s")
+        check(r["roofline_frac"] <= 1.05, f"roofline_frac above 1.05: {r}")
+    check({r["op"] for r in rows} == set(want), f"profiler rows {rows}")
+    # the plane off: the same solve and serve, bit for bit
+    runs = []
+    for on in (True, False):
+        obs.set_enabled(on)
+        res = registry.solve(problem, SolveConfig(budget=budget,
+                                                  solver="greedy",
+                                                  max_steps=32))
+        runs.append((res, engine.serve(qs)))
+    obs.set_enabled(prev)
+    (a, sa), (b, sb) = runs
+    check(a.order == b.order and a.f_final == b.f_final
+          and np.array_equal(a.selected, b.selected)
+          and all(np.array_equal(x, y) for x, y in zip(sa, sb)),
+          "results differ with the telemetry plane off")
+    log(f"[phase 3] telemetry: words {words} == the ops' word models; greedy "
+        f"(32 selections) and a serve batch bit-identical with the plane off; "
+        f"{obs.dashboard()}")
+    return dict(rows=rows, words=words)
 
 
 def bound(nbytes, flops=0.0) -> tuple[float, str]:
@@ -2039,8 +2350,14 @@ def tiering_phases(seed: int) -> list[dict]:
           and all(counts[k] == 0 for k in LM_KERNELS),
           f"a kernel never launched in phase 3, or an LM kernel did: {counts}")
     log(f"[phase 3] launches {dict(counts)}; {time.perf_counter() - t:.1f}s")
+    t = time.perf_counter()
+    solvers = phase3_solvers(p3)
+    telemetry = phase3_telemetry(p3)
+    log(f"[phase 3] other solvers and telemetry: {time.perf_counter() - t:.1f}s")
 
     t = time.perf_counter()
+    from repro_torch import obs
+    plane = obs.set_enabled(False)     # kernel timings as before the plane
     rec = phase1_scale(p3)
     shards = p3["shards"]
     del p3                       # free the production operands (~50 GiB)
@@ -2053,6 +2370,7 @@ def tiering_phases(seed: int) -> list[dict]:
         f"{xl['max_abs_err']}; ids folded into {xl['folded_docs']} docs "
         f"{xl['folded_ms']:.3f} ms, max abs err {xl['folded_max_abs_err']}")
     next(r for r in rec if r["name"] == "sparse_gain")["l2_route"] = xl
+    obs.set_enabled(plane)
     del xl
     gc.collect()
     torch.cuda.empty_cache()
@@ -2062,7 +2380,13 @@ def tiering_phases(seed: int) -> list[dict]:
         src, tpu = SOURCES[r["name"]]
         r.update(route="cuda", source=src, replaces=tpu,
                  launches=counts[r["name"]],
-                 launches_medium=medium_counts[r["name"]], library_ms=None)
+                 launches_medium=medium_counts[r["name"]], library_ms=None,
+                 launches_solvers={n: v["launches"].get(r["name"], 0)
+                                   for n, v in solvers.items()
+                                   if isinstance(v, dict) and "launches" in v})
+        prof = [x for x in telemetry["rows"] if x["op"] == r["name"]]
+        if prof:
+            r["profiler"] = prof[0]
         dev = f", device {r['device_ms']:.4f} ms" if "device_ms" in r else ""
         log(f"[phase 1] at scale {r['name']} {r['shape']}: {r['ms']:.3f} ms{dev} "
             f"(bound {r['bound_ms']:.3f} ms by {r['bound_by']}, plain "

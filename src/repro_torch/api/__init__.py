@@ -1,7 +1,9 @@
 """repro_torch.api — the solver surface of the port.
 
   * `SolverState`, `SolveConfig`, `solve`, `solve_sweep`, `register_solver`,
-    `Trace` — as in `repro.api`, for the ported solvers (greedy, optpes).
+    `Trace` — as in `repro.api`, for every solver of the reference: greedy,
+    lazy, optpes, isk1, isk2, agnostic, stochastic, and the flow baselines
+    (flow-popularity, flow-max, flow-sgd; `needs_data=True`).
   * `GlobalBudget`, `KnapsackConstraint`, `PartitionedBudget`,
     `partition_bounds`, `partition_capacities`, `trim_state`,
     `partition_budgets`, `shard_traffic_shares` — per-shard budgets.
@@ -29,8 +31,9 @@ from repro_torch.core.registry import (                              # noqa: F40
 from repro_torch.core.state import SolverState                       # noqa: F401
 from repro_torch.core.trace import Trace                             # noqa: F401
 
-# importing the core package registers the solvers
-import repro_torch.core  # noqa: F401,E402
+# importing these populates the registry
+import repro_torch.core  # noqa: F401,E402  (SCSK solvers self-register)
+from repro_torch.api import flow_adapter  # noqa: F401,E402  (flow baselines)
 from repro_torch.api.partition import (  # noqa: F401,E402
     partition_budgets, shard_traffic_shares)
 from repro_torch.api.pipeline import TieringPipeline  # noqa: F401,E402

@@ -14,7 +14,8 @@ Each stage materializes the artifact the next one consumes:
     from_*      -> corpus + query log (host)
     mine        -> TieringData (FPGrowth clauses + packed incidence, host)
                    and the device-resident SCSKProblem
-    solve       -> SolverResult via the solver registry
+    solve       -> SolverResult via the solver registry (any registered
+                   name, the flow baselines among them)
     tiering     -> ClauseTiering (ψ/φ classifiers of §3.1)
     deploy      -> serve.TieredEngine ready for traffic
 
@@ -184,8 +185,14 @@ class TieringPipeline:
             else:
                 cfg_kw["budget"] = budget
             config = SolveConfig(solver=solver, options=options, **cfg_kw)
+        spec = registry.get_solver(config.solver)
+        if spec.needs_data and "device" not in config.options:
+            # flow-sgd runs where the pipeline runs
+            config = config.replace(
+                options={**config.options, "device": self.device})
+        target = self.data if spec.needs_data else self.problem
         self.config = config
-        self.result = registry.solve(self.problem, config, state=state)
+        self.result = registry.solve(target, config, state=state)
         self._tiering = None
         return self
 
@@ -270,6 +277,11 @@ class TieringPipeline:
                 kw["constraint"] = base.constraint.scaled(kw["budget"])
         config = base.replace(**kw, **cfg_kw)
         spec = registry.get_solver(config.solver)
+        if spec.needs_data:
+            raise ValueError(
+                f"refit() requires an SCSK solver (got {config.solver!r}): "
+                "flow baselines consume the full TieringData whose weights "
+                "are frozen at mine() time")
         if state is not None and not spec.supports_state:
             raise ValueError(
                 f"solver {config.solver!r} does not support warm starts; "
@@ -314,6 +326,13 @@ class TieringPipeline:
         """The deployable ψ/φ artifact for the current solve."""
         if self.result is None:
             raise RuntimeError("call solve() before tiering()")
+        if self.config is not None and \
+                registry.get_solver(self.config.solver).needs_data:
+            raise RuntimeError(
+                f"solver {self.config.solver!r} is a flow baseline: it "
+                "selects a document set, not clauses, so there is no clause "
+                "tiering to deploy (ψ^flow cannot serve novel queries, paper "
+                "§2.3). Its artifacts are in result.extra['flow'].")
         if self._tiering is None:
             self._tiering = ClauseTiering.from_selection(
                 self.data, self.result.selected)

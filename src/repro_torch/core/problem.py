@@ -145,10 +145,20 @@ class SCSKProblem:
         )
 
     # -- oracles --------------------------------------------------------------
+    def uncovered_weights(self, covered_q: torch.Tensor, *,
+                          weights: torch.Tensor | None = None) -> torch.Tensor:
+        """x = w ⊙ (1 − unpack(covered_q)), the f-gains' right-hand side.
+
+        Its length is that of `covered_q`'s bits, so `weights` may weigh
+        any bit space of that width (ISK weighs the doc space)."""
+        w = self.query_weights if weights is None else weights
+        return w * (1.0 - bitset.unpack(covered_q).to(torch.float32))
+
     def f_gains(self, covered_q: torch.Tensor, *,
-                rows: torch.Tensor | None = None) -> torch.Tensor:
+                rows: torch.Tensor | None = None,
+                weights: torch.Tensor | None = None) -> torch.Tensor:
         """Weighted f(j|X) for all clauses (or a gathered row subset)."""
-        x = self.query_weights * (1.0 - bitset.unpack(covered_q).to(torch.float32))
+        x = self.uncovered_weights(covered_q, weights=weights)
         a = self.clause_query_bits if rows is None else rows
         return ops.bit_matvec(a, x[:, None])[:, 0]
 
@@ -165,9 +175,10 @@ class SCSKProblem:
             return ops.coverage_gain(a, covered_d).to(torch.float32)
         return ops.partition_gain(a, covered_d, bounds).to(torch.float32)
 
-    def f_value(self, covered_q: torch.Tensor) -> torch.Tensor:
-        return torch.sum(self.query_weights
-                         * bitset.unpack(covered_q).to(torch.float32))
+    def f_value(self, covered_q: torch.Tensor, *,
+                weights: torch.Tensor | None = None) -> torch.Tensor:
+        w = self.query_weights if weights is None else weights
+        return torch.sum(w * bitset.unpack(covered_q).to(torch.float32))
 
     def g_value(self, covered_d: torch.Tensor,
                 bounds: tuple[int, ...] | None = None) -> torch.Tensor:

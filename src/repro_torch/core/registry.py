@@ -10,6 +10,10 @@ and every consumer goes through the uniform entry points:
 
     solve(problem, config, state=None)        single solve / warm start
     solve_sweep(problem, budgets, config)     warm-started budget sweep
+
+`needs_data=True` marks adapters (the flow baselines) that consume the full
+`TieringData` instead of an `SCSKProblem`; `supports_state=True` marks
+solvers that accept a `SolverState` to resume from.
 """
 from __future__ import annotations
 
@@ -34,12 +38,18 @@ class SolverSpec:
     supports_state: bool = False     # accepts state= for warm starts
     supports_truncate: bool = False  # implements stop_policy="truncate"
     supports_partition: bool = False  # masks per-partition knapsack caps
+    needs_data: bool = False         # consumes TieringData, not SCSKProblem
     description: str = ""
+
+    def __call__(self, problem, config: SolveConfig,
+                 state: SolverState | None = None) -> SolverResult:
+        return self.fn(problem, config, state)
 
 
 def register_solver(name: str, *, supports_state: bool = False,
                     supports_truncate: bool = False,
-                    supports_partition: bool = False, description: str = ""):
+                    supports_partition: bool = False,
+                    needs_data: bool = False, description: str = ""):
     """Decorator: register `fn(problem, config, state=None) -> SolverResult`."""
     def deco(fn):
         if name in _REGISTRY and _REGISTRY[name].fn is not fn:
@@ -47,7 +57,7 @@ def register_solver(name: str, *, supports_state: bool = False,
         _REGISTRY[name] = SolverSpec(
             name=name, fn=fn, supports_state=supports_state,
             supports_truncate=supports_truncate,
-            supports_partition=supports_partition,
+            supports_partition=supports_partition, needs_data=needs_data,
             description=description or (fn.__doc__ or "").strip().split("\n")[0])
         return fn
     return deco
@@ -61,8 +71,9 @@ def get_solver(name: str) -> SolverSpec:
             f"unknown solver {name!r}; registered: {list_solvers()}") from None
 
 
-def list_solvers() -> list[str]:
-    return sorted(_REGISTRY)
+def list_solvers(*, needs_data: bool | None = None) -> list[str]:
+    return sorted(n for n, s in _REGISTRY.items()
+                  if needs_data is None or s.needs_data == needs_data)
 
 
 def solve(problem, config: SolveConfig,

@@ -1,7 +1,8 @@
 """Trace: shared per-solve bookkeeping (history, timing, stop conditions).
 
-The port's counterpart of `repro.core.trace`, without the telemetry
-counters and events (the `obs` slice is not ported yet):
+The port's counterpart of `repro.core.trace`, with the same telemetry:
+`solver_selections_total{solver}`, `solver_evals_total{solver}`,
+`solver_last_f{solver}` and a `solve_done` event per solve (`repro_torch.obs`).
 
   * `on_select(f, g)` after each selection — records a history point every
     `record_every` selections and fires the config's `on_step`/`on_record`
@@ -15,9 +16,19 @@ import time
 
 import numpy as np
 
+from repro_torch import obs
 from repro_torch.core.config import SolveConfig
 from repro_torch.core.problem import SolverResult
 from repro_torch.core.state import SolverState
+
+_SELECTIONS = obs.counter("solver_selections_total",
+                          "clauses selected across solves",
+                          labels=("solver",))
+_EVALS = obs.counter("solver_evals_total",
+                     "exact (f, g) evaluations across solves",
+                     labels=("solver",))
+_SOLVE_F = obs.gauge("solver_last_f", "last solve's final objective",
+                     labels=("solver",))
 
 
 class Trace:
@@ -32,6 +43,9 @@ class Trace:
         self.last_f = f0
         self.last_g = g0
         self._t0 = time.perf_counter()
+        # label value cached once: the solver name is fixed per Trace and
+        # the counters fire on the per-selection hot path
+        self._solver = str(config.solver)
 
     # -- clock ---------------------------------------------------------------
     def elapsed(self) -> float:
@@ -45,6 +59,7 @@ class Trace:
     # -- recording -----------------------------------------------------------
     def add_evals(self, n: int) -> None:
         self.n_exact_evals += n
+        _EVALS.inc(n, solver=self._solver)
 
     def on_select(self, f_val: float, g_val: float) -> None:
         """Call once per selection with the exact post-selection f/g."""
@@ -52,6 +67,7 @@ class Trace:
         if (self.n_selections % self.config.record_every) == 0:
             self.record()
         self.n_selections += 1
+        _SELECTIONS.inc(solver=self._solver)
         if self.config.on_step is not None:
             self.config.on_step(self)
 
@@ -71,12 +87,18 @@ class Trace:
         if self.n_selections and \
                 (self.n_selections - 1) % self.config.record_every != 0:
             self.record()
+        f_final = float(problem.f_value(state.covered_q))
+        g_final = float(state.g_used)
+        _SOLVE_F.set(f_final, solver=self._solver)
+        obs.event("solve_done", solver=name, n_selections=self.n_selections,
+                  n_exact_evals=self.n_exact_evals, f_final=f_final,
+                  g_final=g_final, seconds=round(self.elapsed(), 4))
         return SolverResult(
             name=name,
             selected=state.selected.cpu().numpy(),
             order=order,
-            f_final=float(problem.f_value(state.covered_q)),
-            g_final=float(state.g_used),
+            f_final=f_final,
+            g_final=g_final,
             f_history=np.asarray(self.f_history),
             g_history=np.asarray(self.g_history),
             time_history=np.asarray(self.time_history),

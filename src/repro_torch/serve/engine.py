@@ -3,10 +3,10 @@
 The port's counterpart of `repro.serve.engine`. Request path per batch, on
 the engine's device:
   1. pack the batch's token ids into vocab bitsets;
-  2. `ops.fused_match`: ψ^clause (`clause_match` kernel) then the
-     tier-selected AND-match (`tier_match` kernel) — eligible queries match
-     against Tier-1 postings, the rest against Tier-2 — two launches on one
-     stream with no host sync between them;
+  2. ψ^clause (`ops.clause_match`) then the tier-selected AND-match
+     (`ops.tier_match`) — eligible queries match against Tier-1 postings,
+     the rest against Tier-2 — two launches on one stream with no host sync
+     between them (`ops.fused_match`'s two steps);
   3. match words -> sorted doc ids, extracted on the device.
 Theorem 3.1 guarantees step 2 returns the COMPLETE match set for eligible
 queries; `serve_reference` is the single-tier oracle the tests compare to.
@@ -14,6 +14,16 @@ queries; `serve_reference` is the single-tier oracle the tests compare to.
 `ServeStats` counts word traffic exactly as the reference does: a Tier-1
 match costs ceil(|D1|/32) words (a production Tier-1 re-indexes a compacted
 doc space), a Tier-2 match the full postings width.
+
+Telemetry (`repro_torch.obs`), as the reference's: the counters
+`serve_queries_total`, `serve_tier1_hits_total`, `serve_words_total{tier}`,
+the `tiering_swap` event, and per batch a `serve` span holding `classify`,
+`t1_match` / `t2_match` (each with its tier's query count, for the tiers
+that have queries) and `merge`. Both tiers are matched by one launch, made
+right after `classify`'s; the tier spans follow the one host read of the
+eligibility and carry each tier's word accounting. The counters are a view,
+never an input: results and `ServeStats` are bit-identical with the plane
+off.
 """
 from __future__ import annotations
 
@@ -22,11 +32,19 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core import bitset
 from repro_torch.core.tiering import ClauseTiering
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
 from repro_torch.serve import matching
+
+# registry instruments the engine publishes into (no-ops with the plane off)
+_QUERIES = obs.counter("serve_queries_total", "queries served")
+_T1_HITS = obs.counter("serve_tier1_hits_total",
+                       "queries answered entirely from Tier 1")
+_WORDS = obs.counter("serve_words_total",
+                     "postings words scanned", labels=("tier",))
 
 
 @dataclasses.dataclass
@@ -87,6 +105,7 @@ class TieredEngine:
             self.device = resolve_device(device)
             self.postings_t2 = bitset.to_tensor(postings, self.device)
         self.n_docs = n_docs
+        self.corpus_version = 0          # corpus swaps are not ported yet
         self._live = self.prepare_tiering(tiering)   # generation 0
         self.stats = ServeStats(full_words_per_query=self.postings_t2.shape[1])
 
@@ -135,6 +154,8 @@ class TieredEngine:
             else self.prepare_tiering(tiering)
         self._live = dataclasses.replace(
             buf, generation=self._live.generation + 1)
+        obs.event("tiering_swap", generation=self._live.generation,
+                  corpus_version=self.corpus_version)
         return self._live.generation
 
     def _tokens(self, queries: list[tuple[int, ...]]) -> torch.Tensor:
@@ -149,16 +170,34 @@ class TieredEngine:
     def serve(self, queries: list[tuple[int, ...]]) -> list[np.ndarray]:
         """Returns the match set (sorted int64 doc ids) per query."""
         live = self._live                    # one read: a consistent generation
-        toks = self._tokens(queries)
-        qbits = bitset.pack_tokens(toks, live.tiering.vocab_size)
-        match, elig = ops.fused_match(qbits, live.clause_bits, toks,
-                                      live.postings_t1, self.postings_t2)
-        n1 = int(elig.sum())
-        self.stats.n_tier1 += n1
-        self.stats.tier1_words += n1 * live.tier1_words_per_query
-        self.stats.tier2_words += (len(queries) - n1) * self.postings_t2.shape[1]
-        self.stats.n_queries += len(queries)
-        return bitset.rows_to_indices(match, self.n_docs)
+        b = len(queries)
+        with obs.span("serve", n=b, generation=live.generation):
+            toks = self._tokens(queries)
+            qbits = bitset.pack_tokens(toks, live.tiering.vocab_size)
+            with obs.span("classify"):
+                elig = ops.clause_match(qbits, live.clause_bits)
+            match = ops.tier_match(live.postings_t1, self.postings_t2, elig,
+                                   toks)
+            n1 = int(elig.sum())             # waits for both launches
+            w = self.postings_t2.shape[1]
+            for tier, n in ((1, n1), (2, b - n1)):
+                if n == 0:
+                    continue
+                with obs.span("t1_match" if tier == 1 else "t2_match", n=n):
+                    if tier == 1:
+                        self.stats.n_tier1 += n
+                        self.stats.tier1_words += \
+                            n * live.tier1_words_per_query
+                        _WORDS.inc(n * live.tier1_words_per_query, tier="t1")
+                    else:
+                        self.stats.tier2_words += n * w
+                        _WORDS.inc(n * w, tier="t2")
+            with obs.span("merge"):
+                out = bitset.rows_to_indices(match, self.n_docs)
+            self.stats.n_queries += b
+            _QUERIES.inc(b)
+            _T1_HITS.inc(n1)
+        return out
 
     def serve_reference(self, queries: list[tuple[int, ...]]) -> list[np.ndarray]:
         """Single-tier oracle for correctness tests."""

@@ -95,3 +95,13 @@ def test_entry_points_without_device_raise_when_there_is_no_card(monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         TieredEngine(pipe.data.postings, tiering, pipe.data.n_docs)
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_kernel_build_module_imports_first():
+    """`chip_smoke.py` imports `repro_torch.kernels._build` before anything
+    else of the package; that order must not meet an import cycle."""
+    code = ("import repro_torch.kernels._build, repro_torch.api, "
+            "repro_torch.core.isk; print('ok')")
+    out = subprocess.run([sys.executable, "-c", code], env=_env(),
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr

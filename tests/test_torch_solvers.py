@@ -148,4 +148,4 @@ def test_partitioned_budgets_are_refused(pipes):
     finally:
         del registry._REGISTRY["no-partition"]
     with pytest.raises(KeyError):
-        registry.get_solver("lazy")
+        registry.get_solver("no-such-solver")
