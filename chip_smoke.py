@@ -95,6 +95,32 @@ a non-zero exit):
         decode_step == forward on the tile kernel; then one
         prefill and two decode steps under torch.profiler for the device's
         busy time.
+  5. streaming re-tiering and the sharded fleet (host path), after the
+     production kernel timings of phase 1 and before phase 4, each path's
+     launches counted from 0:
+     a. `medium`, on the card and then on the CPU: greedy (64 selections)
+        under the re-tiering loop (`RetieringController`, rotate, 8 windows
+        of 512 queries, a Theorem 3.1 check after every swap), then a
+        traffic-split greedy on a 4-shard fleet (2 Tier-1 replicas, the
+        result cache) under the same loop. Every WindowReport field but
+        refit_seconds, the cumulative stats, each refit's order, the fleet's
+        stats, BatchTraces and cache must be equal on both devices; the
+        retiered engine must beat a static run on the same windows;
+     b. the production shapes: the loop over phase 3's problem, engine and
+        greedy state (rotate, 6 windows of 4096 queries; each refit a
+        prune_state, a warm greedy of at most 128 selections and a swap,
+        timed by part); after each swap the whole window == serve_reference;
+        the controller's eligibility over the 2^20 queries (clause_match)
+        == classify_queries on a 4096-query sample;
+     c. phase 3's clause bitsets and Tier-1 copy freed, an 8-shard fleet (1
+        replica per tier) over phase 3's postings: a batch at the greedy
+        tiering, a rolling swap to 5b's last tiering with a batch per phase,
+        a batch at the new generation, each == the single-tier oracle, every
+        BatchTrace consistent;
+     d. `python -m repro_torch.launch.stream --scale small --windows 12
+        --verify` and `python -m repro_torch.launch.cluster --scale small
+        --shards 4 --replicas 2 --budget-split traffic --cache --verify` as
+        subprocesses on the card, started with 5a; each must exit 0.
 The last lines are the kernels' JSON record, the card line, and the
 contract line {"ok": true, "device": {...}}.
 
@@ -143,6 +169,10 @@ REDUCED = {
     "isk": "3 outer iterations of at most 128 inner selections (medium: "
            "at most 64, every other medium solver its first 128 selections)",
     "lazy": "stops at 30 s of wall clock (max_steps=128)",
+    "stream": "phase 5b: 6 rotate windows of 4096 queries, refits of at most "
+              "128 selections, 3 windows apart; 5a (medium): 8 windows of "
+              "512, solves and refits of at most 64 selections, 2 windows "
+              "apart (128 every window took 105 s on 8 CPU cores)",
 }
 
 
@@ -738,6 +768,7 @@ def phase2(counts, scale: str = "medium", device=None) -> dict:
     check(all(counts[k] > 0 for k in TIERING_KERNELS)
           and all(counts[k] == 0 for k in LM_KERNELS),
           f"a kernel never launched, or an LM kernel did: {counts}")
+    gpu["data"] = pipe.data
     return gpu
 
 
@@ -985,7 +1016,9 @@ def phase3(seed: int, counts: dict, dev=torch.device("cuda"),
     return dict(problem=problem, state=state, engine=engine, tokens=toks,
                 qbits=qbits, peak=peak, gen=d.gen, vocab=d.vocab_size,
                 clause_tokens=d.clause_tokens, queries=qs,
-                greedy=results["greedy"], greedy_order=results["greedy"].order)
+                greedy=results["greedy"], greedy_order=results["greedy"].order,
+                clauses=d.clauses, query_tokens=d.query_tokens,
+                train_weights=d.train_weights, test_weights=d.test_weights)
 
 
 def phase3_shards(p3: dict, counts: dict) -> dict:
@@ -1242,6 +1275,369 @@ def phase3_telemetry(p3: dict) -> dict:
         f"(32 selections) and a serve batch bit-identical with the plane off; "
         f"{obs.dashboard()}")
     return dict(rows=rows, words=words)
+
+
+# -- phase 5: streaming re-tiering and the sharded fleet ----------------------
+
+STREAM_WINDOWS, STREAM_QPW = 8, 512     # 5a: `medium`, card == CPU
+STREAM_STEPS, STREAM_HOLD = 64, 2       # 5a: selections per solve, refit spacing
+PROD_WINDOWS = 6                        # 5b: rotate windows of SERVE_B queries
+FLEET_SHARDS = 8                        # 5c: 1 replica per tier
+LAUNCHERS = (
+    ("stream", ["--scale", "small", "--windows", "12", "--verify"]),
+    ("cluster", ["--scale", "small", "--shards", "4", "--replicas", "2",
+                 "--budget-split", "traffic", "--cache", "--verify"]),
+)
+
+
+def recording_controller():
+    """The port's RetieringController, keeping each refit's selection order."""
+    from repro_torch.stream import RetieringController
+
+    class Recording(RetieringController):
+        def __init__(self, *args, **kw):
+            self.orders: list[list[int]] = []
+            super().__init__(*args, **kw)
+
+        def _refit(self, solve_w, raw_w, report):
+            super()._refit(solve_w, raw_w, report)
+            self.orders.append(list(self.pipe.result.order))
+    return Recording
+
+
+def stream_run(pipe, *, windows: int, qpw: int, seed: int = 0, **ctrl_kw):
+    """A rotate replay through a recording controller, as `run_stream` runs
+    it; returns (StreamReport, controller)."""
+    from repro_torch import stream
+    sim = stream.TrafficSimulator(pipe.log, "rotate", seed=seed,
+                                  n_windows=windows, queries_per_window=qpw)
+    ctrl = recording_controller()(pipe, **ctrl_kw)
+    return ctrl.run(sim), ctrl
+
+
+def quick_detector(hold: int = 1):
+    """The drift detector without its sampling-noise floor, refits at least
+    `hold` windows apart. The floor, 0.5 sqrt(2/(pi n)) sum_q sqrt(p_q) for
+    n decayed samples, is 1.4-2.0 at `medium` with 512-query windows and
+    larger over phase 3's 2^20 queries (5b logs it), and a TV never
+    exceeds 1, so with it no refit would trigger."""
+    from repro_torch import stream
+    return stream.DriftDetector(noise_scale=0.0, min_windows_between=hold)
+
+
+def window_fields(report) -> list[dict]:
+    """Every WindowReport field but the wall-clock refit_seconds."""
+    return [{k: v for k, v in w.to_dict().items() if k != "refit_seconds"}
+            for w in report.windows]
+
+
+def medium_stream(data, device, static: bool) -> dict:
+    """5a on one device: greedy (64 selections) served by the engine under
+    the re-tiering loop, then a traffic-split greedy served by a 4-shard
+    fleet (2 Tier-1 replicas, the result cache) under the same loop; each
+    path's launches counted from 0."""
+    from repro_torch import api, stream
+    from repro_torch.kernels import _build
+    kw = dict(windows=STREAM_WINDOWS, qpw=STREAM_QPW, verify_swaps=True)
+    run_kw = dict(scenario="rotate", n_windows=STREAM_WINDOWS,
+                  queries_per_window=STREAM_QPW, seed=0)
+    out: dict = {"launches": {}, "seconds": {}}
+    solve = dict(budget_frac=0.5, max_steps=STREAM_STEPS)
+    for arm, split in (("engine", {}),
+                       ("fleet", dict(budget_split="traffic", n_shards=4))):
+        pipe = api.TieringPipeline.from_data(data, device=device).solve(
+            "greedy", **solve, **split)
+        if static:
+            out[f"{arm}_static"] = stream.run_stream(
+                pipe, enable_refit=False, **run_kw)
+        fleet = pipe.deploy_cluster(n_shards=4, t1_replicas=2, cache=True) \
+            if arm == "fleet" else None
+        _build.reset_launches()
+        t = time.perf_counter()
+        rep, ctrl = stream_run(pipe, engine=fleet,
+                               detector=quick_detector(STREAM_HOLD), **kw)
+        out["seconds"][arm] = time.perf_counter() - t
+        out["launches"][arm] = {k: v for k, v in _build.LAUNCHES.items() if v}
+        out[arm] = dict(report=rep, orders=ctrl.orders,
+                        windows=window_fields(rep),
+                        cumulative=rep.cumulative.to_dict())
+        if fleet is not None:
+            out[arm].update(consistent=fleet.consistency_ok(),
+                            fleet_stats=fleet.stats.to_dict(),
+                            cache=fleet.cache.snapshot(),
+                            traces=[dataclasses.astuple(x) for x in fleet.trace],
+                            shards=[(s.n_words, s.word_lo) for s in fleet.shards])
+    return out
+
+
+def phase5_medium(data, card=torch.device("cuda")) -> dict:
+    gpu = medium_stream(data, card, static=True)
+    host = medium_stream(data, torch.device("cpu"), static=False)
+    for arm in ("engine", "fleet"):
+        g, c = gpu[arm], host[arm]
+        check(g["windows"] == c["windows"],
+              f"5a {arm}: window reports differ from the CPU run")
+        check(g["cumulative"] == c["cumulative"],
+              f"5a {arm}: cumulative ServeStats differ from the CPU run")
+        check(g["orders"] == c["orders"],
+              f"5a {arm}: refit orders differ from the CPU run")
+        rep, static = g["report"], gpu[f"{arm}_static"]
+        check(rep.n_refits > 0 and rep.n_parity_checks > 0
+              and rep.parity_all_ok(),
+              f"5a {arm}: no refit, or a swap broke Theorem 3.1")
+        check(rep.cumulative.n_queries == static.cumulative.n_queries,
+              f"5a {arm}: windows dropped")
+        log(f"[phase 5] medium {arm}: retiered {rep.summary()} | static "
+            f"{static.summary()} ({rep.mean_coverage - static.mean_coverage:+.4f})"
+            f"; cuda {gpu['seconds'][arm]:.2f}s cpu {host['seconds'][arm]:.2f}s; "
+            f"launches {json.dumps(gpu['launches'][arm])}")
+        for w in rep.windows:
+            log(f"[phase 5]   {w.line()}")
+    check(gpu["engine"]["report"].mean_coverage
+          > gpu["engine_static"].mean_coverage,
+          "5a: the retiered engine's mean coverage does not beat static")
+    g, c = gpu["fleet"], host["fleet"]
+    check(g["consistent"] and c["consistent"], "5a: a fleet batch saw a "
+          "mixed (ψ, Tier-1, Tier-2) triple")
+    for key in ("fleet_stats", "cache", "traces"):
+        check(g[key] == c[key], f"5a fleet: {key} differ from the CPU run")
+    for arm, want in (("engine", MAIN_KERNELS),
+                      ("fleet", ("bit_matvec", "partition_gain",
+                                 "clause_match", "tier_match"))):
+        got = gpu["launches"][arm]
+        check(all(got.get(k, 0) > 0 for k in want),
+              f"5a {arm}: a kernel of the path never launched: {got}")
+    log(f"[phase 5] medium: windows, refit orders, cumulative and fleet stats, "
+        f"BatchTraces and the result cache equal to the device='cpu' run; "
+        f"fleet shards (words, first word) {g['shards']}, cache {g['cache']}")
+    return gpu
+
+
+def clocked(fn, sink: list, key: str):
+    """`fn` with its wall time (a CUDA sync on both sides) appended to
+    `sink` as (key, seconds)."""
+    def run(*args, **kw):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn(*args, **kw)
+        torch.cuda.synchronize()
+        sink.append((key, time.perf_counter() - t))
+        return out
+    return run
+
+
+def phase5_production(p3: dict) -> dict:
+    """5b: the re-tiering loop over phase 3's problem, engine and greedy
+    state. The pipeline is phase 3's problem behind a `TieringPipeline`
+    whose log holds the 2^20 queries and phase 3's weights."""
+    import repro_torch.stream.controller as controller_mod
+    from repro_torch import api, stream
+    from repro_torch.core import bitset
+    from repro_torch.core.config import SolveConfig
+    from repro_torch.core.tiering import ClauseTiering
+    from repro_torch.kernels import _build
+    problem, engine = p3["problem"], p3["engine"]
+    t = time.perf_counter()
+    qt = p3["query_tokens"]
+    queries = [tuple(x for x in row if x >= 0) for row in qt.tolist()]
+    log_ = types.SimpleNamespace(
+        queries=queries, n_queries=len(queries),
+        train_weights=p3["train_weights"].double().cpu().numpy(),
+        test_weights=p3["test_weights"].double().cpu().numpy())
+    n_docs = problem.n_docs
+    corpus = types.SimpleNamespace(n_docs=n_docs)
+    pipe = api.TieringPipeline(corpus, log_, device=problem.device)
+    pipe.data = types.SimpleNamespace(
+        clauses=p3["clauses"], vocab_size=p3["vocab"], n_docs=n_docs,
+        clause_doc_bits=problem.clause_doc_bits, log=log_, corpus=corpus)
+    pipe.problem = problem
+    pipe.config = SolveConfig(budget=float(int(n_docs * 0.5)),
+                              solver="greedy", max_steps=128)
+    pipe.result = p3["greedy"]
+    t0 = engine.tiering
+    adapter_s = time.perf_counter() - t
+    # refits 3 windows apart (windows 2 and 5)
+    detector = quick_detector(hold=3)
+    prior = log_.train_weights / log_.train_weights.sum()
+    floor = 0.5 * math.sqrt(2 / (math.pi * (32 + SERVE_B))) * \
+        float(np.sqrt(prior).sum())
+    parts: list = []
+    sim = stream.TrafficSimulator(log_, "rotate", seed=0,
+                                  n_windows=PROD_WINDOWS,
+                                  queries_per_window=SERVE_B)
+    ctrl = recording_controller()(pipe, engine=engine, detector=detector,
+                                  verify_swaps=True)
+    elig0 = ctrl._eligible(t0)           # computed (and cached) by __init__
+    pipe.refit = clocked(pipe.refit, parts, "solve")
+    engine.prepare_tiering = clocked(engine.prepare_tiering, parts, "prepare")
+    engine.swap_tiering = clocked(engine.swap_tiering, parts, "swap")
+    engine.serve = clocked(engine.serve, parts, "serve")
+    ctrl._eligible = clocked(ctrl._eligible, parts, "eligibility")
+    prune = controller_mod.prune_state
+    controller_mod.prune_state = clocked(prune, parts, "prune")
+    reports, refits, windows, serve_ms, static = [], [], [], [], []
+    _build.reset_launches()
+    try:
+        for w in sim.windows():
+            n0 = len(parts)
+            rep = ctrl.step(w)
+            qs = [queries[i] for i in w.query_ids]
+            windows.append((w.query_ids, qs))
+            # the window's own batch is the step's first serve
+            serve_ms.append(next(s for k, s in parts[n0:] if k == "serve") * 1e3)
+            if rep.refit:
+                # the whole window again on the new generation == the oracle
+                got = engine.serve(qs)
+                ref = engine.serve_reference(qs)
+                check(all(np.array_equal(a, b) for a, b in zip(got, ref)),
+                      f"5b window {w.index}: serve != serve_reference after "
+                      f"the swap")
+                split = {}
+                for k, s in parts[n0:]:
+                    if k != "serve":
+                        split[k] = split.get(k, 0.0) + s
+                refits.append(dict(window=w.index, kind=rep.refit,
+                                   steps=rep.refit_steps, pruned=rep.pruned,
+                                   seconds=rep.refit_seconds, parts=split))
+            reports.append(rep)
+            # the static tiering's coverage of the same window
+            static.append(float(elig0[w.query_ids].mean()))
+            log(f"[phase 5] production {rep.line()}  static {static[-1]:.3f}"
+                f"  serve {serve_ms[-1]:.1f} ms")
+    finally:
+        controller_mod.prune_state = prune
+        for obj, name in ((pipe, "refit"), (engine, "prepare_tiering"),
+                          (engine, "swap_tiering"), (engine, "serve")):
+            delattr(obj, name)
+    launches = {k: v for k, v in _build.LAUNCHES.items() if v}
+    check(all(launches.get(k, 0) > 0 for k in MAIN_KERNELS),
+          f"5b: a kernel of the re-tiering path never launched: {launches}")
+    check(refits and all(r.parity_ok for r in reports if r.refit),
+          f"5b: no refit, or a parity check failed")
+    # eligibility through clause_match == classify_queries on a sample, for
+    # the first and the last tiering; the projection onto the vocabulary
+    # words some clause uses is exact (a word no clause uses passes)
+    ids = windows[0][0]
+    qbits = bitset.to_numpy(bitset.pack_tokens(
+        qt[torch.from_numpy(ids).to(qt.device)], p3["vocab"]))
+    for tiering in (t0, engine.tiering):
+        elig = ctrl._eligible(tiering)
+        cols = np.nonzero(tiering.clause_vocab_bits.any(0))[0]
+        sub = ClauseTiering(tiering.clauses, tiering.clause_vocab_bits[:, cols],
+                            tiering.tier1_docs, tiering.vocab_size)
+        want = sub.classify_queries(qbits[:, cols], chunk=512)
+        check(np.array_equal(elig[ids], want),
+              "5b: clause_match eligibility != classify_queries")
+    log(f"[phase 5] production: adapter {adapter_s:.2f}s; the detector's "
+        f"noise floor at window 0 would be {floor:.2f}; {len(refits)} refits "
+        + "; ".join(f"window {r['window']} {r['kind']} {r['steps']} steps "
+                    f"-{r['pruned']} {r['seconds']:.3f}s ("
+                    + ", ".join(f"{k} {v:.3f}s" for k, v in r["parts"].items())
+                    + ")" for r in refits)
+        + f"; mean coverage retiered "
+          f"{np.mean([r.coverage for r in reports]):.4f}, static "
+          f"{np.mean(static):.4f}"
+        + f"; eligibility over {len(queries)} queries == classify_queries "
+          f"on a {SERVE_B}-query sample; launches {launches}")
+    return dict(t0=t0, t1=engine.tiering, refits=refits,
+                windows=[qs for _, qs in windows], launches=launches,
+                serve_ms=serve_ms)
+
+
+def phase5_fleet(postings, n_docs: int, p5: dict) -> dict:
+    """5c: an 8-shard fleet (1 replica per tier) over phase 3's postings:
+    one batch at the greedy tiering, then a rolling swap to the refit's
+    tiering with a batch served per phase until it lands, then the batch
+    at the new generation; each batch == the single-tier oracle."""
+    from repro_torch.cluster import TieredCluster
+    from repro_torch.kernels import _build
+    gib = 2 ** 30
+    v, w = postings.shape
+    free, total = torch.cuda.mem_get_info()
+    need = 3 * v * w * 4
+    log(f"[phase 5] fleet memory: postings {v * w * 4 / gib:.1f} GiB held; "
+        f"Tier-2 shard copies {v * w * 4 / gib:.1f} GiB, Tier-1 sub-indexes "
+        f"{v * w * 4 / gib:.1f} GiB per live generation (two mid-rollout): "
+        f"{need / gib:.1f} GiB to add, {free / gib:.1f} of {total / gib:.1f} "
+        f"GiB free")
+    check(free > need + 2 * gib, "5c: the fleet does not fit on the card")
+    _build.reset_launches()
+    t = time.perf_counter()
+    fleet = TieredCluster(postings, p5["t0"], n_docs, n_shards=FLEET_SHARDS,
+                          t1_replicas=1, t2_replicas=1)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t
+    widths = sorted({s.n_words for s in fleet.shards})
+    batches = []
+
+    def serve(qs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = fleet.serve(qs)
+        dt = (time.perf_counter() - t0) * 1e3
+        ref = fleet.serve_reference(qs)
+        check(all(np.array_equal(a, b) for a, b in zip(got, ref)),
+              "5c: fleet batch != the single-tier oracle")
+        tr = fleet.trace[-1]
+        batches.append(dict(ms=dt, psi_generation=tr.psi_generation,
+                            n_tier1=tr.n_tier1, n_tier2=tr.n_tier2))
+
+    first, second = p5["windows"][0], p5["windows"][-1]
+    serve(first)
+    t = time.perf_counter()
+    gen = fleet.swap_tiering(p5["t1"])
+    torch.cuda.synchronize()
+    prepare_s = time.perf_counter() - t
+    n_roll = 0
+    while fleet.router.rollout is not None:
+        serve(second)
+        n_roll += 1
+    serve(second)
+    launches = {k: v for k, v in _build.LAUNCHES.items() if v}
+    check(fleet.consistency_ok(), "5c: a BatchTrace is not consistent")
+    check(batches[-1]["psi_generation"] == gen and batches[0]["psi_generation"] == 0,
+          f"5c: served generations {[b['psi_generation'] for b in batches]}")
+    check(all(launches.get(k, 0) > 0 for k in ("clause_match", "tier_match")),
+          f"5c: a kernel of the fleet path never launched: {launches}")
+    peak = torch.cuda.max_memory_allocated()
+    t1 = [b["ms"] for b in batches if b["psi_generation"] >= 0]
+    fb = [b["ms"] for b in batches if b["psi_generation"] < 0]
+    log(f"[phase 5] fleet: {fleet.describe()}; shard widths {widths} words "
+        f"(tier_match's vector path needs a multiple of 4: "
+        f"{all(x % 4 == 0 for x in widths)}); built in {build_s:.2f}s, next "
+        f"generation prepared in {prepare_s:.2f}s, rolled over {n_roll} "
+        f"batches; {len(batches)} batches of {SERVE_B} == the oracle, traces "
+        f"consistent; ms per batch: Tier-1 generations "
+        f"{[round(x, 1) for x in t1]}, Tier-2 fallback "
+        f"{[round(x, 1) for x in fb]} (single engine, 5b's windows: "
+        f"{[round(x, 1) for x in p5['serve_ms']]}); launches {launches}; "
+        f"max_memory_allocated {peak / gib:.2f} GiB")
+    return dict(batches=batches, launches=launches, widths=widths,
+                build_s=build_s, prepare_s=prepare_s)
+
+
+def start_launchers(root: Path) -> list:
+    """5d: the two launchers as users run them, as subprocesses on the card."""
+    env = dict(os.environ, PYTHONPATH=str(root / "src"))
+    procs = []
+    for name, args in LAUNCHERS:
+        cmd = [sys.executable, "-m", f"repro_torch.launch.{name}", *args]
+        procs.append((name, cmd, time.perf_counter(), subprocess.Popen(
+            cmd, cwd=root, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)))
+    return procs
+
+
+def finish_launchers(procs: list) -> None:
+    """Wait for each launcher; each must exit 0."""
+    for name, cmd, t0, p in procs:
+        out, _ = p.communicate(timeout=600)
+        log(f"[phase 5] {' '.join(cmd[2:])}: exit {p.returncode}, collected "
+            f"{time.perf_counter() - t0:.1f}s after its start")
+        for ln in out.strip().splitlines()[-4:]:
+            log(f"[phase 5]   {ln}")
+        check(p.returncode == 0, f"5d: launch.{name} exited {p.returncode}:"
+              f"\n{out[-3000:]}")
 
 
 def bound(nbytes, flops=0.0) -> tuple[float, str]:
@@ -2338,7 +2734,7 @@ def tiering_phases(seed: int) -> list[dict]:
 
     t = time.perf_counter()
     medium_counts: dict = {}
-    phase2(medium_counts)
+    medium = phase2(medium_counts)["data"]
     log(f"[phase 2] {time.perf_counter() - t:.1f}s")
 
     t = time.perf_counter()
@@ -2359,10 +2755,16 @@ def tiering_phases(seed: int) -> list[dict]:
     from repro_torch import obs
     plane = obs.set_enabled(False)     # kernel timings as before the plane
     rec = phase1_scale(p3)
+    obs.set_enabled(plane)
+    t_scale = time.perf_counter() - t
     shards = p3["shards"]
-    del p3                       # free the production operands (~50 GiB)
+
+    p5 = phase5(p3, medium)
+    del p3, medium               # free the production operands
     gc.collect()
     torch.cuda.empty_cache()
+    t = time.perf_counter()
+    plane = obs.set_enabled(False)
     xl = phase1_xl(seed)
     log(f"[phase 1] at scale sparse_gain {xl['shape']} (solve_sparse_xl, L2 "
         f"route): {xl['ms']:.3f} ms (bound {xl['bound_ms']:.3f} ms by "
@@ -2383,7 +2785,9 @@ def tiering_phases(seed: int) -> list[dict]:
                  launches_medium=medium_counts[r["name"]], library_ms=None,
                  launches_solvers={n: v["launches"].get(r["name"], 0)
                                    for n, v in solvers.items()
-                                   if isinstance(v, dict) and "launches" in v})
+                                   if isinstance(v, dict) and "launches" in v},
+                 launches_phase5={path: n.get(r["name"], 0)
+                                  for path, n in p5.items()})
         prof = [x for x in telemetry["rows"] if x["op"] == r["name"]]
         if prof:
             r["profiler"] = prof[0]
@@ -2398,8 +2802,45 @@ def tiering_phases(seed: int) -> list[dict]:
         f"{cx['bound_ms']:.3f} ms by {cx['bound_by']}, plain {cx['plain_ms']:.3f} ms on {cx['plain_queries']} queries); "
         f"fused_match {cx['fused_match_ms']:.3f} ms; {cx['eligible']:.4f} "
         f"eligible; max abs err {cx['max_abs_err']}")
-    log(f"[phase 1] at scale: {time.perf_counter() - t:.1f}s")
+    log(f"[phase 1] at scale: {t_scale + time.perf_counter() - t:.1f}s")
     return rec
+
+
+def phase5(p3: dict, medium) -> dict:
+    """Phase 5 a-d; returns each path's launches. Frees phase 3's clause
+    bitsets and its engine's Tier-1 copy before the fleet is built."""
+    t_all = time.perf_counter()
+    procs = start_launchers(Path(__file__).resolve().parent)
+    try:
+        t = time.perf_counter()
+        gpu = phase5_medium(medium)
+        log(f"[phase 5] a: {time.perf_counter() - t:.1f}s")
+        t = time.perf_counter()
+        finish_launchers(procs)
+        log(f"[phase 5] d: waited {time.perf_counter() - t:.1f}s for the "
+            f"launchers (started with a)")
+    finally:
+        for *_, p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    t = time.perf_counter()
+    prod = phase5_production(p3)
+    log(f"[phase 5] b: {time.perf_counter() - t:.1f}s")
+    t = time.perf_counter()
+    postings, n_docs = p3["engine"].postings_t2, p3["problem"].n_docs
+    for k in ("problem", "engine", "state", "greedy", "sparse", "qbits"):
+        p3.pop(k, None)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    fleet = phase5_fleet(postings, n_docs, prod)
+    log(f"[phase 5] c: {time.perf_counter() - t:.1f}s; phase 5 "
+        f"{time.perf_counter() - t_all:.1f}s")
+    return {"stream_medium": gpu["launches"]["engine"],
+            "fleet_medium": gpu["launches"]["fleet"],
+            "stream_production": prod["launches"],
+            "fleet_production": fleet["launches"]}
 
 
 if __name__ == "__main__":

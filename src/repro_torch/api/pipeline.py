@@ -18,11 +18,12 @@ Each stage materializes the artifact the next one consumes:
                    name, the flow baselines among them)
     tiering     -> ClauseTiering (ψ/φ classifiers of §3.1)
     deploy      -> serve.TieredEngine ready for traffic
+    deploy_cluster -> cluster.TieredCluster: the same tiering on a sharded,
+                   replicated fleet (host path)
 
 `solve`, `sweep` and `refit` take `budget_split` (per-shard caps, or
 "traffic" with `n_shards`) for shard-aware budgets. The pipeline runs on
 `device` (default CUDA; `device="cpu"` takes every kernel's plain version).
-Cluster deployment is a later slice of the port.
 """
 from __future__ import annotations
 
@@ -350,6 +351,34 @@ class TieringPipeline:
         from repro_torch.serve.engine import TieredEngine
         return TieredEngine(self.data.postings, self.tiering(),
                             self.data.n_docs, device=self.device)
+
+    def deploy_cluster(self, *, n_shards: int | None = None,
+                       t1_replicas: int = 2, t2_replicas: int = 1,
+                       trace_capacity: int | None | str = "default",
+                       cache=None):
+        """-> cluster.TieredCluster: the same tiering served by a sharded,
+        replicated fleet (scatter-gather + rolling swaps), still exact, on
+        the pipeline's device.
+
+        `n_shards` defaults to the solve's partition count when the solve
+        used a shard-aware `budget_split` (the fleet's shards then coincide
+        with the budget partitions, so each B_k bounds exactly one shard's
+        local Tier-1 sub-index), else 2. `trace_capacity` bounds the
+        retained `BatchTrace` history (None = keep every batch). `cache`
+        attaches a classify-keyed front-end result cache (True = defaults,
+        an int = capacity, or a configured `cluster.ResultCache`)."""
+        from repro_torch.cluster import TieredCluster
+        from repro_torch.cluster.router import DEFAULT_TRACE_CAPACITY
+        if n_shards is None:
+            n_shards = self.n_partitions or 2
+        if trace_capacity == "default":
+            trace_capacity = DEFAULT_TRACE_CAPACITY
+        return TieredCluster(self.data.postings, self.tiering(),
+                             self.data.n_docs, n_shards=n_shards,
+                             t1_replicas=t1_replicas,
+                             t2_replicas=t2_replicas,
+                             trace_capacity=trace_capacity,
+                             cache=cache, device=self.device)
 
     def summary(self) -> str:
         parts = [f"{self.corpus.n_docs} docs", f"{self.log.n_queries} queries"]

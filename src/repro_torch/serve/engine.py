@@ -54,7 +54,8 @@ class ServeStats:
     tier1_words: int = 0            # postings words scanned in tier 1
     tier2_words: int = 0
     full_words_per_query: int = 0   # untiered per-query traffic (denominator)
-    cache_hits: int = 0             # front-end result-cache hits (none here)
+    cache_hits: int = 0             # front-end result-cache hits (zero words
+    #                                 scanned; cluster.frontend.ResultCache)
 
     @property
     def tier1_fraction(self) -> float:
@@ -72,13 +73,45 @@ class ServeStats:
             return 0.0
         return 1.0 - (self.tier1_words + self.tier2_words) / base
 
+    def reset(self) -> None:
+        """Zero the traffic counters (window boundary); the engine-constant
+        `full_words_per_query` survives so ratios keep meaning."""
+        self.n_queries = self.n_tier1 = 0
+        self.tier1_words = self.tier2_words = 0
+        self.cache_hits = 0
+
+    def merge(self, other: "ServeStats") -> "ServeStats":
+        """Fold another window's counters into this one, in place."""
+        if self.full_words_per_query == 0:
+            self.full_words_per_query = other.full_words_per_query
+        elif other.full_words_per_query not in (0, self.full_words_per_query):
+            raise ValueError(
+                "merging stats from engines with different postings widths "
+                f"({self.full_words_per_query} vs {other.full_words_per_query})")
+        self.n_queries += other.n_queries
+        self.n_tier1 += other.n_tier1
+        self.tier1_words += other.tier1_words
+        self.tier2_words += other.tier2_words
+        self.cache_hits += other.cache_hits
+        return self
+
+    def snapshot(self) -> "ServeStats":
+        """Detached copy (per-window reporting while counters keep running)."""
+        return dataclasses.replace(self)
+
     def to_dict(self) -> dict:
-        """JSON-ready dict: raw counters + the derived ratios."""
+        """JSON-ready dict: raw counters + the derived ratios (`from_dict`
+        ignores the derived keys)."""
         d = {f.name: getattr(self, f.name) for f in dataclasses.fields(self)}
         d["tier1_fraction"] = self.tier1_fraction
         d["cost_saving"] = self.cost_saving
         d["cache_hit_rate"] = self.cache_hit_rate
         return d
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "ServeStats":
+        names = {f.name for f in dataclasses.fields(cls)}
+        return cls(**{k: v for k, v in d.items() if k in names})
 
 
 @dataclasses.dataclass(frozen=True)
@@ -131,16 +164,16 @@ class TieredEngine:
     def prepare_tiering(self, tiering: ClauseTiering) -> TieringBuffer:
         """Build the next Tier-1 generation off the request path.
 
-        Tier-1 is masked on the device (`postings_t2 & tier1 mask`): the same
+        Tier-1 is masked on the device (`matching.tier_postings`): the same
         words as the reference's host `tier_postings`, without a host round
         trip of the postings matrix.
         """
-        mask = bitset.to_tensor(bitset.np_pack(tiering.tier1_docs), self.device)
         words = bitset.n_words(int(tiering.tier1_docs.sum()))
         return TieringBuffer(
             tiering=tiering,
             clause_bits=bitset.to_tensor(tiering.clause_vocab_bits, self.device),
-            postings_t1=self.postings_t2 & mask,
+            postings_t1=matching.tier_postings(self.postings_t2,
+                                               tiering.tier1_docs),
             tier1_words_per_query=words)
 
     def swap_tiering(self, tiering: ClauseTiering | TieringBuffer) -> int:
