@@ -95,9 +95,10 @@ a non-zero exit):
         decode_step == forward on the tile kernel; then one
         prefill and two decode steps under torch.profiler for the device's
         busy time.
-  5. streaming re-tiering and the sharded fleet (host path), after the
-     production kernel timings of phase 1 and before phase 4, each path's
-     launches counted from 0:
+  5. streaming re-tiering, the sharded fleet (host path) and live
+     ingestion, after the production kernel timings of phase 1 and before
+     phase 4, each path's launches counted from 0, in the order a, e-a, d,
+     b, e-b, c, e-c:
      a. `medium`, on the card and then on the CPU: greedy (64 selections)
         under the re-tiering loop (`RetieringController`, rotate, 8 windows
         of 512 queries, a Theorem 3.1 check after every swap), then a
@@ -113,14 +114,41 @@ a non-zero exit):
         the controller's eligibility over the 2^20 queries (clause_match)
         == classify_queries on a 4096-query sample;
      c. phase 3's clause bitsets and Tier-1 copy freed, an 8-shard fleet (1
-        replica per tier) over phase 3's postings: a batch at the greedy
-        tiering, a rolling swap to 5b's last tiering with a batch per phase,
-        a batch at the new generation, each == the single-tier oracle, every
-        BatchTrace consistent;
+        replica per tier) over 5e-b's grown postings: a batch at the greedy
+        tiering, a rolling swap to 5b's last tiering (both re-derived on the
+        grown corpus) with a batch per phase, a batch at the new
+        generation, each == the single-tier oracle, every BatchTrace
+        consistent;
      d. `python -m repro_torch.launch.stream --scale small --windows 12
-        --verify` and `python -m repro_torch.launch.cluster --scale small
-        --shards 4 --replicas 2 --budget-split traffic --cache --verify` as
-        subprocesses on the card, started with 5a; each must exit 0.
+        --verify`, `python -m repro_torch.launch.cluster --scale small
+        --shards 4 --replicas 2 --budget-split traffic --cache --verify` and
+        `python -m repro_torch.launch.ingest --scale small --windows 6
+        --verify` as subprocesses on the card, started with 5a; each must
+        exit 0.
+     e. live document ingestion and corpus-versioned swaps:
+        a. `medium`, on the card and on the CPU (a worker process started
+           with phase 5), each arm on a fresh copy of phase 2's data: `run_ingest` (rotate, 6 windows of 512
+           queries, 64 arrivals a window, verify) on the engine (global
+           budget), on a traffic-split 2-shard fleet (2 Tier-1 and 2 Tier-2
+           replicas) rolling, and on the same fleet stop-the-world; solves
+           and refits of at most 64 selections. Window reports (but their
+           wall times), admission decisions, cumulative and fleet stats and
+           BatchTraces must be equal; no window fails its versioned parity
+           check, every trace is consistent;
+        b. after 5b, on phase 3's engine through 5b's pipeline: 2 windows
+           of 4096 queries, each appending a block of ~4096 documents drawn
+           from phase 3's queries (~128 words on 2^20 docs), refits off;
+           each window timed by part (feed, append, with_doc_block,
+           mandatory admission, the optional offers, swap_corpus with the
+           next Tier-1 copy) with memory reckoned before it; after each swap
+           the whole window == serve_reference at the new n_docs; then 5c's
+           tierings re-derived on the grown problem;
+        c. 5c's fleet is built on the grown corpus; after its rollout one
+           more block rolls through `TieredCluster.swap_corpus` (1 replica a
+           tier), a batch served at each phase == serve_reference at the
+           version it was served at, every trace consistent, the untouched
+           shards' Tier-2 tensors kept (their data_ptr), the grown last
+           slice copied once.
 The last lines are the kernels' JSON record, the card line, and the
 contract line {"ok": true, "device": {...}}.
 
@@ -133,6 +161,7 @@ import dataclasses
 import gc
 import json
 import math
+import multiprocessing
 import os
 import statistics
 import subprocess
@@ -173,6 +202,15 @@ REDUCED = {
               "128 selections, 3 windows apart; 5a (medium): 8 windows of "
               "512, solves and refits of at most 64 selections, 2 windows "
               "apart (128 every window took 105 s on 8 CPU cores)",
+    "ingest": "phase 5e-b: 2 windows of 4096 queries with ~4096 arrivals "
+              "each, refits off (5b times them); 5e-c: one block, its "
+              "tiering derived by ClauseTiering.from_selection over the doc "
+              "rows of the rolled-out selection's clauses, not by the "
+              "IngestController (the problem's 8 GiB of clause bits, and "
+              "with_doc_block's grown copy, do not fit beside 5c's fleet); "
+              "5e-a "
+              "(medium): 6 windows of 512 queries, 64 arrivals a window, "
+              "solves and refits of at most 64 selections",
 }
 
 
@@ -1287,6 +1325,7 @@ LAUNCHERS = (
     ("stream", ["--scale", "small", "--windows", "12", "--verify"]),
     ("cluster", ["--scale", "small", "--shards", "4", "--replicas", "2",
                  "--budget-split", "traffic", "--cache", "--verify"]),
+    ("ingest", ["--scale", "small", "--windows", "6", "--verify"]),
 )
 
 
@@ -1541,7 +1580,7 @@ def phase5_production(p3: dict) -> dict:
           f"on a {SERVE_B}-query sample; launches {launches}")
     return dict(t0=t0, t1=engine.tiering, refits=refits,
                 windows=[qs for _, qs in windows], launches=launches,
-                serve_ms=serve_ms)
+                serve_ms=serve_ms, pipe=pipe, log=log_)
 
 
 def phase5_fleet(postings, n_docs: int, p5: dict) -> dict:
@@ -1613,11 +1652,335 @@ def phase5_fleet(postings, n_docs: int, p5: dict) -> dict:
         f"{[round(x, 1) for x in p5['serve_ms']]}); launches {launches}; "
         f"max_memory_allocated {peak / gib:.2f} GiB")
     return dict(batches=batches, launches=launches, widths=widths,
-                build_s=build_s, prepare_s=prepare_s)
+                build_s=build_s, prepare_s=prepare_s, fleet=fleet)
+
+
+# -- phase 5e: live document ingestion and corpus-versioned swaps ------------
+
+INGEST_WINDOWS, INGEST_QPW = 6, 512     # 5e-a: `medium`, card == CPU
+INGEST_ARRIVALS = 64.0                  # 5e-a: mean docs a window
+INGEST_PROD_WINDOWS = 2                 # 5e-b: windows of SERVE_B queries
+INGEST_PROD_RATE = 4096.0               # 5e-b/c: mean docs a block (~128 words)
+
+
+def ingest_fields(report) -> list[dict]:
+    """Every IngestWindowReport field but the wall-clock ingest_seconds and
+    serve.refit_seconds."""
+    out = []
+    for w in report.to_dict()["windows"]:
+        w.pop("ingest_seconds")
+        w["serve"].pop("refit_seconds")
+        out.append(w)
+    return out
+
+
+INGEST_ARMS = (("engine", {}, "rolling"),
+               ("fleet", dict(budget_split="traffic", n_shards=2), "rolling"),
+               ("fleet_stw", dict(budget_split="traffic", n_shards=2), "stw"))
+
+
+def medium_ingest(data, device) -> dict:
+    """5e-a on one device: `run_ingest` on a fresh copy of `data` for each
+    arm (append_docs mutates it): the engine under the global budget, a
+    traffic-split 2-shard fleet (2 Tier-1 and 2 Tier-2 replicas) rolling,
+    the same fleet stop-the-world; each arm's launches counted from 0."""
+    import copy
+    from repro_torch import api, ingest
+    from repro_torch.kernels import _build
+    out: dict = {"launches": {}, "seconds": {}}
+    for arm, split, rollout in INGEST_ARMS:
+        pipe = api.TieringPipeline.from_data(
+            copy.deepcopy(data), device=device).solve(
+                "greedy", budget_frac=0.5, max_steps=STREAM_STEPS, **split)
+        fleet = pipe.deploy_cluster(n_shards=2, t1_replicas=2,
+                                    t2_replicas=2) if split else None
+        policy = ingest.AdmissionPolicy()
+        _build.reset_launches()
+        t = time.perf_counter()
+        rep = ingest.run_ingest(
+            pipe, scenario="rotate", n_windows=INGEST_WINDOWS,
+            queries_per_window=INGEST_QPW, seed=0,
+            arrivals_per_window=INGEST_ARRIVALS, admission=policy,
+            engine=fleet, rollout=rollout, verify=True,
+            detector=quick_detector(STREAM_HOLD))
+        out["seconds"][arm] = time.perf_counter() - t
+        out["launches"][arm] = {k: v for k, v in _build.LAUNCHES.items() if v}
+        out[arm] = dict(report=rep, windows=ingest_fields(rep),
+                        cumulative=rep.cumulative.to_dict(),
+                        decisions=[dataclasses.astuple(d)
+                                   for d in policy.decisions])
+        if fleet is not None:
+            out[arm].update(consistent=fleet.consistency_ok(),
+                            traces=[dataclasses.astuple(x) for x in fleet.trace],
+                            fleet_stats=fleet.stats.to_dict())
+    return out
+
+
+def medium_ingest_host(data) -> dict:
+    """5e-a's CPU half, for a worker process started with phase 5: the
+    card's half and 5a run meanwhile, so it takes half of the cores."""
+    torch.set_num_threads(max(1, (os.cpu_count() or 2) // 2))
+    return medium_ingest(data, torch.device("cpu"))
+
+
+def phase5_ingest_medium(data, host: dict,
+                         card=torch.device("cuda")) -> dict:
+    """5e-a: `medium` ingest on the card, equal to `host`, the same run on
+    the CPU."""
+    gpu = medium_ingest(data, card)
+    for arm, split, _ in INGEST_ARMS:
+        g, c = gpu[arm], host[arm]
+        for key in ("windows", "cumulative", "decisions") + \
+                (("traces", "fleet_stats") if split else ()):
+            check(g[key] == c[key], f"5e-a {arm}: {key} differ from the CPU run")
+        rep = g["report"]
+        check(rep.failed_windows() == 0 and all(w.ingest_ok for w in rep.windows)
+              and rep.n_ingested > 0,
+              f"5e-a {arm}: a window failed its versioned parity check")
+        if split:
+            check(g["consistent"], f"5e-a {arm}: a batch saw a mixed "
+                  "(ψ, Tier-1, Tier-2) triple")
+        want = ("bit_matvec", "partition_gain", "clause_match", "tier_match") \
+            if split else MAIN_KERNELS
+        got = gpu["launches"][arm]
+        check(all(got.get(k, 0) > 0 for k in want),
+              f"5e-a {arm}: a kernel of the path never launched: {got}")
+        log(f"[phase 5e] medium {arm}: {rep.summary()}; admission "
+            f"{rep.admission_summary}; cuda {gpu['seconds'][arm]:.2f}s cpu "
+            f"{host['seconds'][arm]:.2f}s; launches {json.dumps(got)}")
+        for w in rep.windows:
+            log(f"[phase 5e]   {w.line()}  ingest {w.ingest_seconds * 1e3:.1f} ms")
+    log("[phase 5e] medium: window reports, admission decisions, cumulative "
+        "stats, fleet stats and BatchTraces equal to the device='cpu' run")
+    return gpu
+
+
+def phase5_ingest_production(p3: dict, prod: dict) -> dict:
+    """5e-b: live ingestion on phase 3's engine through 5b's pipeline, two
+    windows of SERVE_B queries with a block of ~INGEST_PROD_RATE documents
+    each (stop-the-world: one engine), refits off. Each window is timed by
+    part; after each swap the whole window == serve_reference at the new
+    n_docs. Then 5c's two tierings are re-derived on the grown problem
+    (`state_for`), before it is freed, and 5e-c's data is taken: the
+    grown deployment with the doc rows of the rolled-out selection's
+    clauses only."""
+    import repro_torch.data.incidence as incidence_mod
+    from repro_torch import ingest, stream
+    from repro_torch.core import bitset
+    from repro_torch.core.problem import SCSKProblem
+    from repro_torch.core.tiering import ClauseTiering
+    from repro_torch.data.synthetic import Corpus
+    from repro_torch.kernels import _build
+    gib = 2 ** 30
+    pipe, engine, log_ = prod["pipe"], p3["engine"], prod["log"]
+    # 5c's selections: phase 3's greedy and 5b's last refit
+    sels = {"t0": np.asarray(p3["greedy"].selected),
+            "t1": np.asarray(pipe.result.selected).copy()}
+    for k in ("problem", "state", "sparse", "qbits"):
+        p3.pop(k, None)          # phase 3's problem holds the old clause bits
+    corpus = Corpus(doc_tokens=[()] * pipe.problem.n_docs, doc_bits=None,
+                    vocab_size=p3["vocab"])
+    pipe.corpus = corpus
+    # the deployment held on the card: device postings and the problem's
+    # clause bits, no query incidence and no corpus rows; the corpus lists
+    # its documents as empty token sets (append_docs reads the block's alone)
+    pipe.data = incidence_mod.TieringData(
+        corpus=corpus, log=log_, postings=engine.postings_t2,
+        clauses=p3["clauses"], clause_support=None,
+        clause_doc_bits=pipe.problem.clause_doc_bits,
+        clause_query_bits=None, query_doc_bits=None)
+    gc.collect()
+    torch.cuda.empty_cache()
+    feed = ingest.DocumentFeed(log=log_, vocab_size=p3["vocab"],
+                               rate=INGEST_PROD_RATE, seed=0)
+    sim = stream.TrafficSimulator(
+        log_, "rotate", seed=0, n_windows=INGEST_PROD_WINDOWS,
+        queries_per_window=SERVE_B)
+    ctrl = ingest.IngestController(pipe, feed=feed, engine=engine,
+                                   admission=ingest.AdmissionPolicy(),
+                                   verify_ingest=True, enable_refit=False,
+                                   serve_batch=SERVE_B)
+    parts: list = []
+    patched = [(incidence_mod, "append_docs"), (SCSKProblem, "with_doc_block"),
+               (SCSKProblem, "state_for")]
+    saved = [getattr(obj, name) for obj, name in patched]
+    for (obj, name), fn, key in zip(patched, saved,
+                                    ("append", "with_doc_block", "mandatory")):
+        setattr(obj, name, clocked(fn, parts, key))
+    feed.window = clocked(feed.window, parts, "feed")
+    ctrl._admit = clocked(ctrl._admit, parts, "offers")
+    engine.swap_corpus = clocked(engine.swap_corpus, parts, "swap_corpus")
+    engine.serve = clocked(engine.serve, parts, "serve")
+    windows = []
+    _build.reset_launches()
+    try:
+        for w in sim.windows():
+            v, wd = p3["vocab"], int(pipe.data.postings.shape[1])
+            c = pipe.problem.n_clauses
+            wb = bitset.n_words(int(1.2 * INGEST_PROD_RATE)) + 1
+            gc.collect()
+            torch.cuda.empty_cache()
+            free, total = torch.cuda.mem_get_info()
+            need = (v + c) * (wd + wb) * 4      # grown postings + clause bits
+            log(f"[phase 5e] production window {w.index} memory: "
+                f"{torch.cuda.memory_allocated() / gib:.2f} GiB held; the "
+                f"grown postings and clause bits add {need / gib:.2f} GiB "
+                f"while the old ones live, the next Tier-1 copy "
+                f"{v * (wd + wb) * 4 / gib:.2f} GiB after they go; "
+                f"{free / gib:.2f} of {total / gib:.2f} GiB free")
+            check(free > need + 2 * gib, "5e-b: the grown corpus does not fit")
+            torch.cuda.reset_peak_memory_stats()
+            n0 = len(parts)
+            rep = ctrl.step(w)
+            split: dict = {}
+            for k, sec in parts[n0:]:
+                split[k] = split.get(k, 0.0) + sec
+            qs = [log_.queries[i] for i in w.query_ids]
+            got = engine.serve(qs)
+            ref = engine.serve_reference(qs)
+            check(all(np.array_equal(a, b) for a, b in zip(got, ref)),
+                  f"5e-b window {w.index}: serve != serve_reference after "
+                  "the corpus swap")
+            check(rep.ingest_ok is True and engine.n_docs == rep.n_docs
+                  == pipe.problem.n_docs and engine.corpus_version == w.index + 1,
+                  f"5e-b window {w.index}: {rep.line()}")
+            windows.append(dict(
+                window=w.index, arrived=rep.n_arrived, n_docs=rep.n_docs,
+                words=int(pipe.data.postings.shape[1]),
+                mandatory=rep.n_mandatory, offers=rep.n_offers,
+                admitted=rep.n_admitted, ingest_s=rep.ingest_seconds,
+                offer_ms=split.get("offers", 0.0) * 1e3 / max(rep.n_offers, 1),
+                parts=split, peak_gib=torch.cuda.max_memory_allocated() / gib))
+            log(f"[phase 5e] production {rep.line()}; ingest "
+                f"{rep.ingest_seconds:.3f}s: " + ", ".join(
+                    f"{k} {v:.3f}s" for k, v in split.items())
+                + f"; {rep.n_offers} offers at "
+                  f"{windows[-1]['offer_ms']:.4f} ms each; peak "
+                  f"{windows[-1]['peak_gib']:.2f} GiB; the whole window == "
+                  f"serve_reference at {rep.n_docs} docs")
+    finally:
+        for (obj, name), fn in zip(patched, saved):
+            setattr(obj, name, fn)
+        for obj, name in ((feed, "window"), (ctrl, "_admit"),
+                          (engine, "swap_corpus"), (engine, "serve")):
+            delattr(obj, name)
+    launches = {k: v for k, v in _build.LAUNCHES.items() if v}
+    check(all(launches.get(k, 0) > 0 for k in MAIN_KERNELS),
+          f"5e-b: a kernel of the ingest path never launched: {launches}")
+    # 5c's tierings, re-derived on the grown problem: the old docs' Tier-1
+    # membership is unchanged (append-only), the block's follows the clauses
+    tierings = {}
+    for k, sel in sels.items():
+        st = pipe.problem.state_for(np.nonzero(sel)[0])
+        tierings[k] = ClauseTiering.from_selection(
+            pipe.data, st.selected.cpu().numpy())
+        old = prod[k].tier1_docs
+        check(np.array_equal(tierings[k].tier1_docs[:len(old)], old),
+              f"5e-b: re-derived {k} moved an old document's tier")
+    idx = np.nonzero(sels["t1"])[0]
+    rows = pipe.problem.clause_doc_bits[torch.as_tensor(
+        idx, device=pipe.problem.device)]
+    data = incidence_mod.TieringData(
+        corpus=corpus, log=log_, postings=pipe.data.postings,
+        clauses=[p3["clauses"][i] for i in idx], clause_support=None,
+        clause_doc_bits=bitset.to_numpy(rows), clause_query_bits=None,
+        query_doc_bits=None)
+    return dict(windows=windows, launches=launches, tierings=tierings,
+                data=data, log=log_)
+
+
+def phase5_fleet_corpus(p5c: dict, p5e: dict, p5: dict) -> dict:
+    """5e-c: one more block rolled through 5c's fleet by
+    `TieredCluster.swap_corpus` (rolling, 1 replica a tier), a batch served
+    at each phase, each == serve_reference at the version it was served
+    at; the untouched shards keep their Tier-2 tensors. The grown tiering
+    is `ClauseTiering.from_selection` over `data`, which holds the doc rows
+    of the fleet's selected clauses (all selected), grown by
+    `append_docs`."""
+    from repro_torch import ingest
+    from repro_torch.core.tiering import ClauseTiering
+    from repro_torch.data import incidence
+    from repro_torch.kernels import _build
+    gib = 2 ** 30
+    fleet, data = p5c["fleet"], p5e["data"]
+    feed = ingest.DocumentFeed(log=p5e["log"], vocab_size=data.vocab_size,
+                               rate=INGEST_PROD_RATE, seed=0)
+    docs = feed.window(INGEST_PROD_WINDOWS)         # the next window's block
+    v, w = data.postings.shape
+    grown = v * (w + 160) * 4
+    need = grown + v * (fleet.shards[-1].n_words + 160) * 4
+    gc.collect()
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    log(f"[phase 5e] fleet corpus memory: "
+        f"{torch.cuda.memory_allocated() / gib:.2f} GiB held; the grown "
+        f"postings and last slice add {need / gib:.2f} GiB while the old "
+        f"postings live, the next generation's Tier-1 sub-indexes "
+        f"{grown / gib:.2f} GiB after they go; {free / gib:.2f} of "
+        f"{total / gib:.2f} GiB free")
+    check(free > need + 2 * gib, "5e-c: the grown corpus does not fit")
+    torch.cuda.reset_peak_memory_stats()
+    ptrs = [t.data_ptr() for t in fleet._t2_dev]
+    _build.reset_launches()
+    t = time.perf_counter()
+    delta = incidence.append_docs(data, docs)
+    tiering = ClauseTiering.from_selection(data, np.ones(len(data.clauses), bool))
+    torch.cuda.synchronize()
+    append_s = time.perf_counter() - t
+    t = time.perf_counter()
+    gen = fleet.swap_corpus(data.postings, data.n_docs, tiering)
+    torch.cuda.synchronize()
+    swap_s = time.perf_counter() - t
+    old = fleet.tiering.tier1_docs
+    check(tiering.clauses == fleet.tiering.clauses
+          and np.array_equal(tiering.tier1_docs[:len(old)], old),
+          "5e-c: the grown tiering moved an old document's tier")
+    qs = p5["windows"][-1]
+    batches = []
+    while True:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        got = fleet.serve(qs)
+        dt = (time.perf_counter() - t) * 1e3
+        tr = fleet.trace[-1]
+        ref = fleet.serve_reference(qs, corpus_version=tr.corpus_version)
+        check(all(np.array_equal(a, b) for a, b in zip(got, ref)),
+              f"5e-c: a batch at corpus version {tr.corpus_version} != "
+              "serve_reference there")
+        batches.append(dict(ms=dt, psi_generation=tr.psi_generation,
+                            corpus_version=tr.corpus_version))
+        if fleet.router.rollout is None and tr.psi_generation == gen:
+            break
+        check(len(batches) < 64, "5e-c: the rollout never completed")
+    launches = {k: v for k, v in _build.LAUNCHES.items() if v}
+    after = [t.data_ptr() for t in fleet._t2_dev]
+    check(after[:-1] == ptrs[:-1] and after[-1] != ptrs[-1]
+          and fleet._t2_dev[-1].is_contiguous(),
+          "5e-c: an untouched shard's Tier-2 tensor moved, or the grown "
+          "slice was not copied once, contiguous")
+    check(fleet.consistency_ok() and fleet.corpus_version == 1,
+          "5e-c: a BatchTrace is not consistent")
+    check(all(launches.get(k, 0) > 0 for k in ("clause_match", "tier_match")),
+          f"5e-c: a kernel of the fleet path never launched: {launches}")
+    peak = torch.cuda.max_memory_allocated()
+    log(f"[phase 5e] fleet corpus swap: +{delta.n_new} docs ({delta.n_holes} "
+        f"holes) -> {data.n_docs} docs, {data.postings.shape[1]} words; "
+        f"append {append_s:.3f}s, swap_corpus (grown slice + next generation) "
+        f"{swap_s:.3f}s; {fleet.describe()}; {len(batches)} batches == "
+        f"serve_reference at their version (versions "
+        f"{[b['corpus_version'] for b in batches]}, generations "
+        f"{[b['psi_generation'] for b in batches]}), ms "
+        f"{[round(b['ms'], 1) for b in batches]} (5c: "
+        f"{[round(b['ms'], 1) for b in p5c['batches']]}); untouched shards "
+        f"kept their Tier-2 tensors; launches {launches}; "
+        f"max_memory_allocated {peak / gib:.2f} GiB")
+    return dict(batches=batches, launches=launches, append_s=append_s,
+                swap_s=swap_s, peak_gib=peak / gib)
 
 
 def start_launchers(root: Path) -> list:
-    """5d: the two launchers as users run them, as subprocesses on the card."""
+    """5d: the three launchers as users run them, as subprocesses on the
+    card."""
     env = dict(os.environ, PYTHONPATH=str(root / "src"))
     procs = []
     for name, args in LAUNCHERS:
@@ -2811,15 +3174,23 @@ def phase5(p3: dict, medium) -> dict:
     bitsets and its engine's Tier-1 copy before the fleet is built."""
     t_all = time.perf_counter()
     procs = start_launchers(Path(__file__).resolve().parent)
+    pool = multiprocessing.get_context("spawn").Pool(1)
     try:
+        host = pool.apply_async(medium_ingest_host, (medium,))
         t = time.perf_counter()
         gpu = phase5_medium(medium)
         log(f"[phase 5] a: {time.perf_counter() - t:.1f}s")
+        t = time.perf_counter()
+        ing_medium = phase5_ingest_medium(medium, host.get(timeout=900))
+        log(f"[phase 5e] a: {time.perf_counter() - t:.1f}s (the CPU half in "
+            f"a worker process since phase 5 began)")
         t = time.perf_counter()
         finish_launchers(procs)
         log(f"[phase 5] d: waited {time.perf_counter() - t:.1f}s for the "
             f"launchers (started with a)")
     finally:
+        pool.terminate()
+        pool.join()
         for *_, p in procs:
             if p.poll() is None:
                 p.kill()
@@ -2828,19 +3199,32 @@ def phase5(p3: dict, medium) -> dict:
     prod = phase5_production(p3)
     log(f"[phase 5] b: {time.perf_counter() - t:.1f}s")
     t = time.perf_counter()
-    postings, n_docs = p3["engine"].postings_t2, p3["problem"].n_docs
+    ing = phase5_ingest_production(p3, prod)
+    log(f"[phase 5e] b: {time.perf_counter() - t:.1f}s")
+    t = time.perf_counter()
+    data = ing["data"]
+    prod.update(ing["tierings"])       # 5c's tierings on the grown corpus
+    del prod["pipe"]
     for k in ("problem", "engine", "state", "greedy", "sparse", "qbits"):
         p3.pop(k, None)
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    fleet = phase5_fleet(postings, n_docs, prod)
-    log(f"[phase 5] c: {time.perf_counter() - t:.1f}s; phase 5 "
+    fleet = phase5_fleet(data.postings, data.n_docs, prod)
+    log(f"[phase 5] c: {time.perf_counter() - t:.1f}s")
+    t = time.perf_counter()
+    corpus = phase5_fleet_corpus(fleet, ing, prod)
+    del fleet["fleet"], data
+    log(f"[phase 5e] c: {time.perf_counter() - t:.1f}s; phase 5 "
         f"{time.perf_counter() - t_all:.1f}s")
     return {"stream_medium": gpu["launches"]["engine"],
             "fleet_medium": gpu["launches"]["fleet"],
             "stream_production": prod["launches"],
-            "fleet_production": fleet["launches"]}
+            "fleet_production": fleet["launches"],
+            **{f"ingest_medium_{arm}": ing_medium["launches"][arm]
+               for arm, *_ in INGEST_ARMS},
+            "ingest_production": ing["launches"],
+            "ingest_fleet_production": corpus["launches"]}
 
 
 if __name__ == "__main__":

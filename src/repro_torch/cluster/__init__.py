@@ -1,7 +1,7 @@
 """repro_torch.cluster — sharded, replicated two-tier serving (paper §2.2, Fig. 1).
 
 The port's counterpart of `repro.cluster`, host path only (no mesh
-serving and no corpus swaps yet), with the same names.
+serving yet), with the same names.
 
 The paper's economics are fleet economics: a small Tier 1 matters because a
 FLEET of small replicas absorbs eligible traffic that would otherwise need
@@ -57,7 +57,7 @@ from repro_torch.cluster.rollout import (                    # noqa: F401
 from repro_torch.cluster.router import (                     # noqa: F401
     BatchTrace, ClusterRouter, ShardReplica, TieredCluster)
 from repro_torch.cluster.shard import (                      # noqa: F401
-    DocShard, plan_shards, shard_postings,
+    DocShard, grow_shards, plan_shards, shard_postings,
     shard_tier_postings)
 
 __all__ = [
@@ -65,7 +65,7 @@ __all__ = [
     "ClusterRouter", "ClusterTieringBuffer", "DocShard", "LoadgenReport",
     "ReplicaSuggestion", "ResultCache", "RollingSwap",
     "ShardReplica", "StaleCorpusError", "TieredCluster",
-    "fit_service_model", "keys_of", "plan_shards",
+    "fit_service_model", "grow_shards", "keys_of", "plan_shards",
     "run_loadgen", "shard_postings", "shard_tier_postings",
     "suggest_replicas", "zipf_keys",
 ]

@@ -34,9 +34,8 @@ Each replica swap is two-phase: `step()` first marks the replica draining
 undrains.
 
 The port's counterpart of `repro.cluster.rollout`: a buffer's sub-indexes
-are int32 word tensors on the fleet's device, and it carries its clause set
-as device words for ψ. Corpus-versioned rollouts (ingest) are not ported
-yet; every buffer here is at corpus version 0.
+and pinned Tier-2 slices are int32 word tensors on the fleet's device, and
+it carries its clause set as device words for ψ.
 """
 from __future__ import annotations
 

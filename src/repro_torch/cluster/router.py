@@ -31,7 +31,7 @@ batch is classified on the fleet's device (tokens packed there, then
 (the `tier_match` kernel) on its contiguous sub-index, and the per-shard
 words are placed into one [B, W] device tensor whose rows become doc ids
 on the device. Every `serve` span carries `fused=False`: the fused mesh
-path and corpus swaps (ingest) are not ported yet.
+path is not ported yet.
 """
 from __future__ import annotations
 
@@ -489,9 +489,10 @@ class TieredCluster:
 
     Duck-types the `serve.TieredEngine` surface (`serve`, `classify`,
     `serve_reference`, `stats`, `tiering`, `generation`, `prepare_tiering`,
-    `swap_tiering`) so `stream.RetieringController` drives a whole cluster
-    exactly as it drives one engine — except swaps here start ROLLING
-    rollouts that progress one replica phase per served batch.
+    `swap_tiering`, `swap_corpus`) so `stream.RetieringController` and the
+    ingest loop drive a whole cluster exactly as they drive one engine —
+    except swaps here start ROLLING rollouts that progress one replica
+    phase per served batch.
 
     `postings` are host uint32 words [V, Wd] or int32 words on a device;
     the fleet runs on `device` (default: the tensor's device, else CUDA).
@@ -525,7 +526,7 @@ class TieredCluster:
             self.device = resolve_device(device)
             self.postings_t2 = bitset.to_tensor(postings, self.device)
         self.n_docs = n_docs
-        self.corpus_version = 0          # corpus swaps are not ported yet
+        self.corpus_version = 0
         self.shards, self._t2_dev = shard_mod.shard_postings(
             self.postings_t2, n_docs, n_shards)
         self._content_seq = 0
@@ -616,12 +617,40 @@ class TieredCluster:
     def serve(self, queries: list[tuple[int, ...]]) -> list[np.ndarray]:
         return self.router.serve(queries)
 
-    def serve_reference(self, queries: list[tuple[int, ...]]
+    def serve_reference(self, queries: list[tuple[int, ...]], *,
+                        generation: int | None = None,
+                        corpus_version: int | None = None
                         ) -> list[np.ndarray]:
-        """Single-tier, single-shard oracle for correctness tests: one
-        `ops.match_batch` over the whole postings."""
-        m = ops.match_batch(self.postings_t2, self.router._tokens(queries))
-        return bitset.rows_to_indices(m, self.n_docs)
+        """Single-tier, single-shard oracle for correctness tests.
+
+        By default one `ops.match_batch` over the NEWEST corpus; pass
+        `corpus_version=` (e.g. `trace[-1].corpus_version`) or
+        `generation=` to reference a batch served mid-ingest-rollout at an
+        older version. The oracle is then that buffer's pinned Tier-2
+        slices: the AND-match works column by column, so one `match_batch`
+        per slice with the words placed side by side is the match against
+        their concatenation, without a copy of the whole postings.
+        """
+        if generation is not None and corpus_version is not None:
+            raise ValueError("pass generation= or corpus_version=, not both")
+        toks = self.router._tokens(queries)
+        if generation is None and corpus_version is None:
+            m = ops.match_batch(self.postings_t2, toks)
+            return bitset.rows_to_indices(m, self.n_docs)
+        bufs = self.router._buffers
+        if generation is not None:
+            buf = bufs[generation]
+        else:
+            cands = [b for b in bufs.values()
+                     if b.corpus_version == corpus_version]
+            if not cands:
+                raise KeyError(
+                    f"no live buffer at corpus version {corpus_version}; "
+                    f"live: {sorted({b.corpus_version for b in bufs.values()})}")
+            buf = max(cands, key=lambda b: b.generation)
+        m = torch.cat([ops.match_batch(p, toks) for p in buf.t2_postings],
+                      dim=1)
+        return bitset.rows_to_indices(m, buf.n_docs)
 
     def prepare_tiering(self, tiering: ClauseTiering) -> ClusterTieringBuffer:
         """Build every shard's next Tier-1 sub-index OFF the request path."""
@@ -635,7 +664,7 @@ class TieredCluster:
         `immediate=True` (or call `drain_rollout`) to complete it with no
         traffic in between. Serving stays exact throughout either way.
         Raises `StaleCorpusError` for a tiering or prepared buffer built
-        against a different document count than the fleet's.
+        against an older corpus version than the fleet's.
         """
         buf = tiering if isinstance(tiering, ClusterTieringBuffer) \
             else self.prepare_tiering(tiering)
@@ -645,6 +674,58 @@ class TieredCluster:
         if immediate:
             self.drain_rollout()
         return buf.generation
+
+    def swap_corpus(self, postings, n_docs: int, tiering: ClauseTiering,
+                    *, immediate: bool = False) -> int:
+        """Roll the fleet to an appended corpus snapshot (ingest).
+
+        `postings` are host uint32 words or int32 words on a device (a
+        tensor on the fleet's device becomes the oracle index as it is).
+        Grow mode: the shard plan keeps every existing word range and the
+        LAST shard absorbs the appended words (`shard.grow_shards`), so
+        untouched Tier-2 slices — bit-identical by the append-only layout —
+        keep their resident tensors and content ids and never drain; only
+        the grown last slice is copied, once, contiguous. The new tiering
+        (rebuilt against the appended data, e.g. after mandatory and
+        secretary admission) rides the same rollout, so ψ, Tier-1 and
+        Tier-2 arrive as one generation. `immediate=True` is the
+        stop-the-world rebuild: the whole fleet jumps versions with no
+        traffic in between.
+        """
+        width = int(postings.shape[1])
+        have = int(self.postings_t2.shape[1])
+        if n_docs < self.n_docs or width < have:
+            raise ValueError(
+                f"corpus swaps are append-only: got {n_docs} docs x "
+                f"{width} words, have {self.n_docs} x {have}")
+        # the old oracle index goes before the grown slice is copied
+        self.postings_t2 = postings.to(self.device) \
+            if isinstance(postings, torch.Tensor) \
+            else bitset.to_tensor(np.asarray(postings), self.device)
+        old_shards = self.shards
+        new_shards = shard_mod.grow_shards(old_shards, n_docs)
+        contents, dev = [], []
+        for s, old in zip(new_shards, old_shards):
+            if s == old:
+                # append-only invariant: same word range => identical bits,
+                # so the resident device slice is reused as-is
+                contents.append(self._t2_content[s.index])
+                dev.append(self._t2_dev[s.index])
+            else:
+                contents.append(self._next_content())
+                dev.append(self.postings_t2[:, s.word_lo:s.word_hi]
+                           .contiguous())
+        self.shards = new_shards
+        self._t2_dev = dev
+        self._t2_content = tuple(contents)
+        self.n_docs = n_docs
+        self.corpus_version += 1
+        self.router.shards = new_shards
+        self.router.n_docs = n_docs
+        obs.event("corpus_swap", corpus_version=self.corpus_version,
+                  n_docs=n_docs,
+                  mode="immediate" if immediate else "rolling")
+        return self.swap_tiering(tiering, immediate=immediate)
 
     def drain_rollout(self) -> None:
         """Finish any in-progress rollout without serving traffic."""

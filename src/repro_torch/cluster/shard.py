@@ -56,6 +56,33 @@ def plan_shards(n_docs: int, n_shards: int) -> list[DocShard]:
     return shards
 
 
+def grow_shards(shards: list[DocShard], n_docs_new: int) -> list[DocShard]:
+    """Grow a shard plan for an appended word-aligned doc block.
+
+    Grow mode (ingest): every existing shard keeps its exact word range —
+    so its Tier-2 column slice is bit-identical and content-carried
+    through a rolling corpus swap — and the LAST shard absorbs the
+    appended words. Rebalancing would realign bounds under a
+    `PartitionedBudget` and force a full-fleet roll, so it is left to an
+    offline re-plan. The last shard's `n_docs` is also refreshed: appends
+    may fill hole slots' words and extend past the old tail.
+    """
+    if not shards:
+        raise ValueError("cannot grow an empty shard plan")
+    w_new = bitset.n_words(n_docs_new)
+    last = shards[-1]
+    if w_new < last.word_hi:
+        raise ValueError(
+            f"corpus shrank: {n_docs_new} docs need {w_new} words but the "
+            f"plan already covers {last.word_hi}")
+    grown = list(shards[:-1])
+    grown.append(DocShard(
+        index=last.index, word_lo=last.word_lo, word_hi=w_new,
+        doc_lo=last.doc_lo,
+        n_docs=min(n_docs_new, w_new * bitset.WORD) - last.doc_lo))
+    return grown
+
+
 def shard_postings(postings: torch.Tensor, n_docs: int, n_shards: int
                    ) -> tuple[list[DocShard], list[torch.Tensor]]:
     """Split int32 postings words [V, Wd] into per-shard column slices.

@@ -80,6 +80,37 @@ class SCSKProblem:
             else pad(test_weights),
         )
 
+    def with_doc_block(self, clause_cols, n_docs: int) -> "SCSKProblem":
+        """Grown copy for an appended word-aligned doc block (ingest).
+
+        `clause_cols` is the clause x block incidence from
+        `data.incidence.append_docs` (`AppendDelta.clause_cols`): host
+        uint32 words, uploaded here, or int32 words on the problem's
+        device. They are concatenated onto `clause_doc_bits` on the device
+        and `n_docs` becomes the post-append count. The query side (bitsets
+        and weights) is shared with `self`: documents never change the
+        query universe. States captured against `self` are stale at the new
+        width (`stream.check_state_width`); `state_for` re-derives them.
+        The grown copy is a new tensor: drop `self` before allocating
+        anything else large, so the old one is freed.
+        """
+        cols = clause_cols if isinstance(clause_cols, torch.Tensor) \
+            else bitset.to_tensor(np.asarray(clause_cols, np.uint32),
+                                  self.device)
+        if cols.shape[0] != self.n_clauses:
+            raise ValueError(
+                f"clause_cols must have {self.n_clauses} rows, "
+                f"got {cols.shape[0]}")
+        if n_docs < self.n_docs:
+            raise ValueError("doc blocks are append-only: n_docs "
+                             f"{n_docs} < current {self.n_docs}")
+        return dataclasses.replace(
+            self,
+            clause_doc_bits=torch.cat(
+                [self.clause_doc_bits, cols.to(self.device)], dim=1),
+            n_docs=n_docs,
+        )
+
     # -- shapes ---------------------------------------------------------------
     @property
     def device(self) -> torch.device:

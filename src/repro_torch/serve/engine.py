@@ -17,9 +17,9 @@ doc space), a Tier-2 match the full postings width.
 
 Telemetry (`repro_torch.obs`), as the reference's: the counters
 `serve_queries_total`, `serve_tier1_hits_total`, `serve_words_total{tier}`,
-the `tiering_swap` event, and per batch a `serve` span holding `classify`,
-`t1_match` / `t2_match` (each with its tier's query count, for the tiers
-that have queries) and `merge`. Both tiers are matched by one launch, made
+the `tiering_swap` and `corpus_swap` events, and per batch a `serve` span
+holding `classify`, `t1_match` / `t2_match` (each with its tier's query
+count, for the tiers that have queries) and `merge`. Both tiers are matched by one launch, made
 right after `classify`'s; the tier spans follow the one host read of the
 eligibility and carry each tier's word accounting. The counters are a view,
 never an input: results and `ServeStats` are bit-identical with the plane
@@ -138,7 +138,7 @@ class TieredEngine:
             self.device = resolve_device(device)
             self.postings_t2 = bitset.to_tensor(postings, self.device)
         self.n_docs = n_docs
-        self.corpus_version = 0          # corpus swaps are not ported yet
+        self.corpus_version = 0
         self._live = self.prepare_tiering(tiering)   # generation 0
         self.stats = ServeStats(full_words_per_query=self.postings_t2.shape[1])
 
@@ -190,6 +190,37 @@ class TieredEngine:
         obs.event("tiering_swap", generation=self._live.generation,
                   corpus_version=self.corpus_version)
         return self._live.generation
+
+    def swap_corpus(self, postings, n_docs: int, tiering: ClauseTiering, *,
+                    immediate: bool = True) -> int:
+        """Swap to an appended corpus snapshot (ingest).
+
+        `postings` are host uint32 words or int32 words on a device; a
+        tensor on the engine's device is adopted as it is, with no copy. A
+        single engine has one copy of each tier, so the swap is
+        stop-the-world by nature: both tiers and ψ move in one reference
+        store between batches (`immediate` is accepted for the cluster
+        facade's signature, but a single engine cannot roll). Append-only
+        growth keeps every match set already served valid at the new
+        version. The old postings are released before the next Tier-1 copy
+        is built.
+        """
+        del immediate                    # single engine: always atomic
+        width = int(postings.shape[1])
+        have = int(self.postings_t2.shape[1])
+        if n_docs < self.n_docs or width < have:
+            raise ValueError(
+                f"corpus swaps are append-only: got {n_docs} docs x "
+                f"{width} words, have {self.n_docs} x {have}")
+        self.postings_t2 = postings.to(self.device) \
+            if isinstance(postings, torch.Tensor) \
+            else bitset.to_tensor(np.asarray(postings), self.device)
+        self.n_docs = n_docs
+        self.corpus_version += 1
+        self.stats.full_words_per_query = width
+        obs.event("corpus_swap", corpus_version=self.corpus_version,
+                  n_docs=self.n_docs, mode="immediate")
+        return self.swap_tiering(tiering)
 
     def _tokens(self, queries: list[tuple[int, ...]]) -> torch.Tensor:
         return torch.from_numpy(matching.pad_token_batch(queries)).to(self.device)

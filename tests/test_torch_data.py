@@ -43,3 +43,24 @@ def test_fpgrowth_and_id_lists_match_reference():
         jmin.brute_force_frequent(tx, w, 0.01)
     rows = rng.integers(0, 2 ** 32, size=(6, 3), dtype=np.uint32)
     assert _same(tinc.padded_id_lists(rows, 90), jinc.padded_id_lists(rows, 90))
+
+
+@pytest.mark.parametrize("n_docs", [1, 31, 32, 33, 70])
+def test_incidence_builders_edge_cases(n_docs):
+    """build_postings and the vectorised clause/query incidence against the
+    reference's per-set loop: an empty clause, clauses of every length,
+    repeated tokens in a document, empty documents, a partial last word."""
+    rng = np.random.default_rng(n_docs)
+    docs = [tuple(rng.integers(0, 9, size=rng.integers(0, 6)).tolist())
+            for _ in range(n_docs)]
+    corpus = tsyn.Corpus(doc_tokens=docs, doc_bits=None, vocab_size=9)
+    post = tinc.build_postings(corpus)
+    assert _same(post, jinc.build_postings(corpus))
+    sets = [(), (3,), (1, 2), (0, 4, 8), (2, 5, 6, 7), (8,)]
+    assert _same(tinc.clause_doc_incidence(post, sets, n_docs),
+                 jinc.clause_doc_incidence(post, sets, n_docs))
+    assert tinc.clause_doc_incidence(post, [], n_docs).shape == \
+        (0, post.shape[1])
+    log = type("Log", (), {"queries": sets[1:]})()
+    assert _same(tinc.query_doc_incidence(post, log, n_docs),
+                 jinc.query_doc_incidence(post, log, n_docs))
