@@ -95,10 +95,11 @@ a non-zero exit):
         decode_step == forward on the tile kernel; then one
         prefill and two decode steps under torch.profiler for the device's
         busy time.
-  5. streaming re-tiering, the sharded fleet (host path) and live
-     ingestion, after the production kernel timings of phase 1 and before
-     phase 4, each path's launches counted from 0, in the order a, e-a, d,
-     b, e-b, c, e-c:
+  5. streaming re-tiering, the sharded fleet (the host path, and fused on
+     a shard mesh) and live ingestion, after the production kernel timings
+     of phase 1 and before phase 4, each path's launches counted from 0, in
+     the order a, e-a, f-a, d (with f-c), b, e-b, c (with f-b), e-c (with
+     f-b):
      a. `medium`, on the card and then on the CPU: greedy (64 selections)
         under the re-tiering loop (`RetieringController`, rotate, 8 windows
         of 512 queries, a Theorem 3.1 check after every swap), then a
@@ -149,6 +150,34 @@ a non-zero exit):
            version it was served at, every trace consistent, the untouched
            shards' Tier-2 tensors kept (their data_ptr), the grown last
            slice copied once.
+     f. the fleet on a shard mesh: `shard_mesh(4)`, 4 entries on cuda:0
+        (one card), each batch served through `cluster.mesh_serve`
+        (replicated `clause_match`, one `tier_match` per shard, the blocks
+        gathered on the first entry); each fused call's launches counted
+        from 0:
+        a. `medium`, on the card and on 4 CPU entries (the worker, after
+           5e-a's half): shards x replicas in {1, 2, 4}^2, 2 batches of 512
+           each, a rolling swap through the Tier-2 fallback, the result
+           cache mid-rollout, 3 ingest corpus versions by `swap_corpus`;
+           every fused batch == a host-path twin fleet's == serve_reference,
+           stats, BatchTraces and replicas equal to the twin's, tables
+           dropped with their generation and corpus version; a 4-shard
+           traffic-split partitioned solve (128 selections) under the mesh
+           == the direct one (order, g_part); card == CPU on all of it;
+           then, on the card only, a mixed mesh (card, CPU, card, CPU):
+           4 shards x 2 replicas == the host twin == the all-card mesh, the
+           table copies the CPU entries' shards, and a mesh
+           `partition_gain` gathers across devices == the direct call;
+        b. production: every batch of 5c and 5e-c served again fused at
+           the same rollout phase (the rollout held) == the host batch
+           (match sets and BatchTrace), ms per batch beside the host's,
+           each table's build ms and bytes, max_memory_allocated; the
+           gather's share of the fused serve at 5c's last generation by
+           CUDA events, beside the reference's ring merge of the same
+           blocks (equal words); one mesh `partition_gain` at phase 3's shapes (with
+           phase 1's timings) == the direct call, timed beside it;
+        c. `python -m repro_torch.launch.cluster --scale small --mesh
+           --verify` as a fourth launcher subprocess beside 5d's.
 The last lines are the kernels' JSON record, the card line, and the
 contract line {"ok": true, "device": {...}}.
 
@@ -158,7 +187,9 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import contextlib
 import gc
+import hashlib
 import json
 import math
 import multiprocessing
@@ -211,6 +242,10 @@ REDUCED = {
               "5e-a "
               "(medium): 6 windows of 512 queries, 64 arrivals a window, "
               "solves and refits of at most 64 selections",
+    "mesh": "phase 5f: shard_mesh(4) puts 4 entries on the one card (the "
+            "gather copies nothing, entries run in series); 5f-a (medium): 2 "
+            "batches of 512 per shards x replicas, 3 ingest versions; 5f-b "
+            "serves 5c's and 5e-c's batches again, fused",
 }
 
 
@@ -1326,6 +1361,8 @@ LAUNCHERS = (
     ("cluster", ["--scale", "small", "--shards", "4", "--replicas", "2",
                  "--budget-split", "traffic", "--cache", "--verify"]),
     ("ingest", ["--scale", "small", "--windows", "6", "--verify"]),
+    ("cluster", ["--scale", "small", "--mesh", "--verify",     # 5f-c
+                 "--obs-dir", "artifacts/obs/mesh"]),
 )
 
 
@@ -1587,7 +1624,9 @@ def phase5_fleet(postings, n_docs: int, p5: dict) -> dict:
     """5c: an 8-shard fleet (1 replica per tier) over phase 3's postings:
     one batch at the greedy tiering, then a rolling swap to the refit's
     tiering with a batch served per phase until it lands, then the batch
-    at the new generation; each batch == the single-tier oracle."""
+    at the new generation; each batch == the single-tier oracle. 5f-b:
+    each batch again, fused over the 4-entry mesh at the same phase, ==
+    the host batch; then the gather's share at the new generation."""
     from repro_torch.cluster import TieredCluster
     from repro_torch.kernels import _build
     gib = 2 ** 30
@@ -1608,6 +1647,7 @@ def phase5_fleet(postings, n_docs: int, p5: dict) -> dict:
     build_s = time.perf_counter() - t
     widths = sorted({s.n_words for s in fleet.shards})
     batches = []
+    frec = fused_record()
 
     def serve(qs):
         torch.cuda.synchronize()
@@ -1620,6 +1660,7 @@ def phase5_fleet(postings, n_docs: int, p5: dict) -> dict:
         tr = fleet.trace[-1]
         batches.append(dict(ms=dt, psi_generation=tr.psi_generation,
                             n_tier1=tr.n_tier1, n_tier2=tr.n_tier2))
+        fused_twin(fleet, qs, got, frec)
 
     first, second = p5["windows"][0], p5["windows"][-1]
     serve(first)
@@ -1632,10 +1673,14 @@ def phase5_fleet(postings, n_docs: int, p5: dict) -> dict:
         serve(second)
         n_roll += 1
     serve(second)
-    launches = {k: v for k, v in _build.LAUNCHES.items() if v}
+    add_counts(frec["host_launches"], _build.LAUNCHES)
+    launches = {k: v for k, v in frec["host_launches"].items() if v}
     check(fleet.consistency_ok(), "5c: a BatchTrace is not consistent")
     check(batches[-1]["psi_generation"] == gen and batches[0]["psi_generation"] == 0,
           f"5c: served generations {[b['psi_generation'] for b in batches]}")
+    check(all(frec["launches"].get(k, 0) > 0
+              for k in ("clause_match", "tier_match")),
+          f"5f-b: a kernel of the fused path never launched: {frec['launches']}")
     check(all(launches.get(k, 0) > 0 for k in ("clause_match", "tier_match")),
           f"5c: a kernel of the fleet path never launched: {launches}")
     peak = torch.cuda.max_memory_allocated()
@@ -1651,8 +1696,11 @@ def phase5_fleet(postings, n_docs: int, p5: dict) -> dict:
         f"{[round(x, 1) for x in fb]} (single engine, 5b's windows: "
         f"{[round(x, 1) for x in p5['serve_ms']]}); launches {launches}; "
         f"max_memory_allocated {peak / gib:.2f} GiB")
+    merge = merge_share(fleet, second, frec["mesh"])
+    log_fused("5c's fleet", frec, [b["ms"] for b in batches], merge)
     return dict(batches=batches, launches=launches, widths=widths,
-                build_s=build_s, prepare_s=prepare_s, fleet=fleet)
+                build_s=build_s, prepare_s=prepare_s, fleet=fleet,
+                fused=frec, merge=merge)
 
 
 # -- phase 5e: live document ingestion and corpus-versioned swaps ------------
@@ -1937,6 +1985,7 @@ def phase5_fleet_corpus(p5c: dict, p5e: dict, p5: dict) -> dict:
           "5e-c: the grown tiering moved an old document's tier")
     qs = p5["windows"][-1]
     batches = []
+    frec = fused_record()
     while True:
         torch.cuda.synchronize()
         t = time.perf_counter()
@@ -1949,10 +1998,17 @@ def phase5_fleet_corpus(p5c: dict, p5e: dict, p5: dict) -> dict:
               "serve_reference there")
         batches.append(dict(ms=dt, psi_generation=tr.psi_generation,
                             corpus_version=tr.corpus_version))
+        fused_twin(fleet, qs, got, frec)
         if fleet.router.rollout is None and tr.psi_generation == gen:
             break
         check(len(batches) < 64, "5e-c: the rollout never completed")
-    launches = {k: v for k, v in _build.LAUNCHES.items() if v}
+    add_counts(frec["host_launches"], _build.LAUNCHES)
+    launches = {k: v for k, v in frec["host_launches"].items() if v}
+    check(all(frec["launches"].get(k, 0) > 0
+              for k in ("clause_match", "tier_match")),
+          f"5f-b: a kernel of the fused path never launched: {frec['launches']}")
+    check({k[1] for k in fleet.router._mesh_tables} == {1},
+          "5f-b: a table outlived its corpus version")
     after = [t.data_ptr() for t in fleet._t2_dev]
     check(after[:-1] == ptrs[:-1] and after[-1] != ptrs[-1]
           and fleet._t2_dev[-1].is_contiguous(),
@@ -1974,8 +2030,380 @@ def phase5_fleet_corpus(p5c: dict, p5e: dict, p5: dict) -> dict:
         f"{[round(b['ms'], 1) for b in p5c['batches']]}); untouched shards "
         f"kept their Tier-2 tensors; launches {launches}; "
         f"max_memory_allocated {peak / gib:.2f} GiB")
+    log_fused("5e-c's corpus swap", frec, [b["ms"] for b in batches], None)
     return dict(batches=batches, launches=launches, append_s=append_s,
-                swap_s=swap_s, peak_gib=peak / gib)
+                swap_s=swap_s, peak_gib=peak / gib, fused=frec)
+
+
+# -- phase 5f: the fleet on a shard mesh -------------------------------------
+
+MESH_ENTRIES = 4                        # 5f: shard_mesh(4): 4 entries on cuda:0
+MESH_SHAPES = [(s, r) for s in (1, 2, 4) for r in (1, 2, 4)]
+MESH_BATCHES, MESH_B = 2, 512           # 5f-a: batches of each shards x replicas
+MESH_VERSIONS = 3                       # 5f-a: ingest corpus versions
+
+
+def digest(sets) -> str:
+    """sha256 over a batch's match sets (lengths and ids)."""
+    h = hashlib.sha256()
+    for x in sets:
+        x = np.ascontiguousarray(x, np.int64)
+        h.update(np.int64(x.size).tobytes())
+        h.update(x.tobytes())
+    return h.hexdigest()
+
+
+def fleet_state(fleet) -> dict:
+    """Stats, every BatchTrace and every replica's counters."""
+    reps = [(r.tier, r.shard.index, r.generation, r.content, r.draining,
+             r.n_batches, r.n_queries, r.words_scanned, r.n_installs)
+            for groups in (fleet.router.t1, fleet.router.t2)
+            for g in groups for r in g]
+    return dict(stats=fleet.stats.to_dict(), replicas=reps,
+                traces=[dataclasses.astuple(x) for x in fleet.trace],
+                consistent=fleet.consistency_ok())
+
+
+def mesh_medium(data, device) -> dict:
+    """5f-a on one device, over a 4-entry shard mesh of its type: fused
+    serving at every shards x replicas in {1, 2, 4}^2, a rolling swap
+    through the Tier-2 fallback, the result cache mid-rollout, three ingest
+    corpus versions, each batch == a host-path twin fleet (same state,
+    same rotation) == serve_reference; then a 4-shard traffic-split
+    partitioned solve under the mesh == the direct one. Returns digests,
+    fleet states and orders for the other device's run, and the fused
+    path's launches (each fused call counted from 0)."""
+    import copy
+    from repro_torch import api, distributed, ingest
+    from repro_torch.data import incidence
+    from repro_torch.kernels import _build
+    mesh = distributed.shard_mesh(MESH_ENTRIES, device_type=device.type)
+    counts: dict = {}
+    t_all = time.perf_counter()
+
+    def fused(m, fn, *args, **kw):
+        _build.reset_launches()
+        with distributed.use_mesh(m):
+            out = fn(*args, **kw)
+        add_counts(counts, _build.LAUNCHES)
+        return out
+
+    def same(a, b, what):
+        check(len(a) == len(b)
+              and all(np.array_equal(x, y) for x, y in zip(a, b)),
+              f"5f-a: {what}")
+
+    def pair(f, h, qs, what, m=mesh):
+        """A batch fused on `f` over `m`, host on its twin `h`, and the
+        oracle."""
+        got = fused(m, f.serve, qs)
+        same(got, h.serve(qs), f"{what}: fused != host path")
+        v = f.trace[-1].corpus_version
+        same(got, f.serve_reference(qs, corpus_version=v),
+             f"{what}: fused != serve_reference")
+        return digest(got)
+
+    def twins(f, h, what, tables=True):
+        fs, hs = fleet_state(f), fleet_state(h)
+        check(fs == hs, f"{what}: fused stats, traces or replicas != host's")
+        check(fs["consistent"], f"{what}: a BatchTrace is not consistent")
+        check(bool(f.router._mesh_tables) == tables
+              and not h.router._mesh_tables,
+              f"{what}: the fused path did not serve, or the host did")
+        return fs
+
+    solve = dict(max_steps=STREAM_STEPS)
+    pipe = api.TieringPipeline.from_data(data, device=device).solve(
+        "greedy", budget_frac=0.5, **solve)
+    # the next tiering: the first half of the selection (a rollout changes
+    # every shard's Tier-1 content)
+    t_new = api.TieringPipeline.from_data(data, device=device).solve(
+        "greedy", budget_frac=0.5, max_steps=STREAM_STEPS // 2).tiering()
+    qs_all = data.log.queries
+    batches = [qs_all[i * MESH_B:(i + 1) * MESH_B] for i in range(MESH_BATCHES)]
+    out: dict = {"combos": {}}
+    for n_shards, reps in MESH_SHAPES:
+        kw = dict(n_shards=n_shards, t1_replicas=reps, t2_replicas=reps)
+        f, h = pipe.deploy_cluster(**kw), pipe.deploy_cluster(**kw)
+        what = f"{n_shards} shards x {reps} replicas"
+        dig = [pair(f, h, qs, what) for qs in batches]
+        out["combos"][what] = dict(digests=dig, state=twins(f, h, what))
+    if device.type == "cuda":
+        out["mixed"] = mesh_mixed(pipe, batches, out["combos"], pair, twins,
+                                  fused)
+
+    # the rolling swap through the Tier-2 fallback (1 replica a tier)
+    f, h = (pipe.deploy_cluster(n_shards=2, t1_replicas=1) for _ in range(2))
+    qs = batches[0]
+    dig = [pair(f, h, qs, "rollout")]
+    f.swap_tiering(t_new)
+    h.swap_tiering(t_new)
+    while f.router.rollout is not None:
+        dig.append(pair(f, h, qs, "rollout"))
+        check(len(dig) < 64, "5f-a: the rollout never completed")
+    dig.append(pair(f, h, qs, "rollout"))
+    fallback = sum(t.psi_generation == -1 for t in f.trace)
+    check(fallback > 0, "5f-a: the rollout never opened a Tier-2 fallback")
+    check({k[0] for k in f.router._mesh_tables} <= set(f.router._buffers),
+          "5f-a: a table outlived its generation")
+    out["rollout"] = dict(digests=dig, state=twins(f, h, "rollout"),
+                          fallback=fallback)
+
+    # the result cache mid-rollout: a cached fused fleet, an uncached host
+    c = pipe.deploy_cluster(n_shards=2, t1_replicas=2, cache=True)
+    h = pipe.deploy_cluster(n_shards=2, t1_replicas=2)
+    dig = [pair(c, h, qs, "cache")]
+    c.swap_tiering(t_new)
+    h.swap_tiering(t_new)
+    while c.router.rollout is not None:
+        dig.append(pair(c, h, qs, "cache"))
+    dig.append(pair(c, h, qs, "cache"))              # warm: all hits
+    check(c.trace[-1].n_cached == len(qs) and c.cache.stats.hits > 0
+          and c.cache.stats.invalidations > 0 and c.consistency_ok()
+          and c.router._mesh_tables,
+          f"5f-a: cache {c.cache.snapshot()}")
+    out["cache"] = dict(digests=dig, cache=c.cache.snapshot(),
+                        state=fleet_state(c))
+
+    # three ingest corpus versions, rolling (2 replicas a tier)
+    ip = api.TieringPipeline.from_data(copy.deepcopy(data), device=device)
+    ip.solve("greedy", budget_frac=0.5, budget_split="traffic", n_shards=2,
+             **solve)
+    kw = dict(n_shards=2, t1_replicas=2, t2_replicas=2)
+    f, h = ip.deploy_cluster(**kw), ip.deploy_cluster(**kw)
+    feed = ingest.DocumentFeed(log=data.log, vocab_size=data.vocab_size,
+                               rate=INGEST_ARRIVALS, seed=7)
+    dig, mid = [], 0
+    for t in range(MESH_VERSIONS):
+        delta = incidence.append_docs(ip.data, list(feed.window(t)))
+        ip.problem = ip.problem.with_doc_block(delta.clause_cols,
+                                               delta.n_docs)
+        ip.adopt_selection(ip.problem.state_for(
+            np.nonzero(np.asarray(ip.result.selected))[0]))
+        tiering = ip.tiering()
+        for fleet in (f, h):
+            fleet.swap_corpus(ip.data.postings, ip.data.n_docs, tiering)
+        while True:
+            dig.append(pair(f, h, qs, f"ingest version {t + 1}"))
+            mid += f.trace[-1].corpus_version < f.corpus_version
+            if f.router.rollout is None:
+                break
+            check(len(dig) < 64 * MESH_VERSIONS, "5f-a: an ingest rollout "
+                  "never completed")
+        check({k[1] for k in f.router._mesh_tables} == {f.corpus_version},
+              "5f-a: a table outlived its corpus version")
+    check(mid > 0 and f.corpus_version == MESH_VERSIONS,
+          "5f-a: no batch was served mid-ingest-rollout")
+    out["ingest"] = dict(digests=dig, state=twins(f, h, "ingest"), mid=mid)
+
+    # the partitioned solve: owner-local partition_gain under the mesh
+    split = dict(budget_frac=0.5, budget_split="traffic", n_shards=4,
+                 max_steps=MEDIUM_STEPS)
+    direct = api.TieringPipeline.from_data(data, device=device).solve(
+        "greedy", **split).result
+    on_mesh = fused(mesh, api.TieringPipeline.from_data(data, device=device).solve,
+                    "greedy", **split).result
+    check(on_mesh.order == direct.order and on_mesh.extra["g_part"].tobytes()
+          == direct.extra["g_part"].tobytes(),
+          "5f-a: the partitioned solve under the mesh != the direct one")
+    out["solve"] = dict(order=list(on_mesh.order),
+                        g_part=on_mesh.extra["g_part"].tolist())
+    out.update(launches={k: v for k, v in counts.items() if v},
+               seconds=time.perf_counter() - t_all,
+               mesh=str(mesh))
+    return out
+
+
+def mesh_mixed(pipe, batches, combos, pair, twins, fused) -> dict:
+    """5f-a's mixed mesh, on the card only: entries alternate between the
+    card and the CPU, so the table copies the CPU entries' shards, tokens
+    and blocks cross devices in the fused serve, and a mesh
+    `partition_gain` gathers the CPU entries' columns on the card. Each
+    batch == the host twin == the oracle == the all-card mesh's batch."""
+    from repro_torch import distributed
+    from repro_torch.core.constraint import partition_bounds
+    from repro_torch.kernels import ops
+    card, cpu = torch.device("cuda", torch.cuda.current_device()), \
+        torch.device("cpu")
+    mixed = distributed.Mesh(distributed.SHARD_AXIS, (card, cpu) * 2)
+    kw = dict(n_shards=4, t1_replicas=2, t2_replicas=2)
+    f, h = pipe.deploy_cluster(**kw), pipe.deploy_cluster(**kw)
+    what = f"mixed mesh {mixed}"
+    dig = [pair(f, h, qs, what, mixed) for qs in batches]
+    check(dig == combos["4 shards x 2 replicas"]["digests"],
+          f"5f-a: {what}: match sets != the all-card mesh's")
+    twins(f, h, what)
+    (table,) = f.router._mesh_tables.values()
+    on_cpu = [sh.t2.device == cpu for own in table.owned for sh in own]
+    check(table.bytes_added > 0 and on_cpu == [False, True, False, True],
+          f"5f-a: {what}: the CPU entries' shards were not copied there")
+    a = pipe.problem.clause_doc_bits
+    bounds = partition_bounds(pipe.problem.n_docs, 4)
+    got = fused(mixed, ops.partition_gain, a, a[0], bounds)
+    check(got.device == card
+          and torch.equal(got, ops.partition_gain(a, a[0], bounds)),
+          f"5f-a: partition_gain on the {what} != the direct call")
+    return dict(digests=dig, bytes_added=table.bytes_added, mesh=str(mixed))
+
+
+def mesh_medium_host(data) -> dict:
+    """5f-a's CPU half (4 CPU entries), for the worker process started with
+    phase 5."""
+    torch.set_num_threads(max(1, (os.cpu_count() or 2) // 2))
+    return mesh_medium(data, torch.device("cpu"))
+
+
+def phase5_mesh_medium(data, host: dict, card=torch.device("cuda")) -> dict:
+    """5f-a: `medium` on a 4-entry mesh on the card, equal to `host`, the
+    same run on 4 CPU entries."""
+    gpu = mesh_medium(data, card)
+    for key in ("combos", "rollout", "cache", "ingest", "solve"):
+        check(gpu[key] == host[key], f"5f-a: {key} differ from the CPU run")
+    got = gpu["launches"]
+    check(all(got.get(k, 0) > 0 for k in ("clause_match", "tier_match",
+                                          "partition_gain")),
+          f"5f-a: a kernel of the fused path never launched: {got}")
+    log(f"[phase 5f] medium on {gpu['mesh']} == 4 CPU entries: "
+        f"{len(MESH_SHAPES)} shards x replicas, {MESH_BATCHES} batches of "
+        f"{MESH_B} each, match sets == host path == serve_reference, stats, "
+        f"traces and replicas == the host twins'; the rollout over "
+        f"{len(gpu['rollout']['digests'])} batches ({gpu['rollout']['fallback']} "
+        f"in the Tier-2 fallback); the cache {gpu['cache']['cache']}; "
+        f"{MESH_VERSIONS} ingest versions over {len(gpu['ingest']['digests'])} "
+        f"batches ({gpu['ingest']['mid']} mid-rollout); the partitioned solve "
+        f"({len(gpu['solve']['order'])} selections, g_part "
+        f"{gpu['solve']['g_part']}) == the direct one; cuda "
+        f"{gpu['seconds']:.2f}s cpu {host['seconds']:.2f}s; on the "
+        f"{gpu['mixed']['mesh']}: {len(gpu['mixed']['digests'])} batches == "
+        f"the host twin, the all-card mesh and serve_reference, the table "
+        f"copied {gpu['mixed']['bytes_added']} bytes, partition_gain == the "
+        f"direct call; launches "
+        f"{json.dumps(got)}")
+    return gpu
+
+
+@contextlib.contextmanager
+def held_rollout(fleet):
+    """Serve `fleet` without advancing its rollout: a batch served inside
+    sees the phase the previous batch saw."""
+    fleet.router.advance_rollout = lambda steps=1: None
+    try:
+        yield
+    finally:
+        del fleet.router.advance_rollout
+
+
+def fused_twin(fleet, qs, got, rec: dict) -> None:
+    """5f-b: `qs` served again, fused over the 4-entry mesh on the card, at
+    the rollout phase the host batch `got` was served at: equal match sets
+    and BatchTrace. Host-clock ms (a sync on both sides), table builds (ms,
+    bytes copied, bytes allocated) and launches (counted from 0; what came
+    before goes to rec["host_launches"]) go into `rec`."""
+    from repro_torch import distributed
+    from repro_torch.cluster import mesh_serve
+    from repro_torch.kernels import _build
+    add_counts(rec["host_launches"], _build.LAUNCHES)
+    build = mesh_serve.build_table
+
+    def timed_build(*args, **kw):
+        torch.cuda.synchronize()
+        m0, t = torch.cuda.memory_allocated(), time.perf_counter()
+        table = build(*args, **kw)
+        torch.cuda.synchronize()
+        rec["builds"].append(dict(
+            ms=(time.perf_counter() - t) * 1e3, bytes=table.bytes_added,
+            allocated=torch.cuda.memory_allocated() - m0))
+        return table
+
+    mesh_serve.build_table = timed_build
+    _build.reset_launches()
+    try:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        with distributed.use_mesh(rec["mesh"]), held_rollout(fleet):
+            fused = fleet.serve(qs)
+        torch.cuda.synchronize()
+        rec["ms"].append((time.perf_counter() - t) * 1e3)
+    finally:
+        mesh_serve.build_table = build
+    add_counts(rec["launches"], _build.LAUNCHES)
+    _build.reset_launches()
+    check(all(np.array_equal(a, b) for a, b in zip(fused, got)),
+          "5f-b: a fused batch != the host path's")
+    check(dataclasses.astuple(fleet.trace[-1])
+          == dataclasses.astuple(fleet.trace[-2]),
+          "5f-b: the fused batch's BatchTrace != the host batch's")
+
+
+def fused_record() -> dict:
+    from repro_torch import distributed
+    return dict(mesh=distributed.shard_mesh(MESH_ENTRIES), ms=[], builds=[],
+                launches={}, host_launches={})
+
+
+def ring_merge(devices, b: int, w_total: int, blks) -> list[torch.Tensor]:
+    """The reference's ring merge, for 5f-b's comparison only: each entry
+    ORs its blocks into a zeroed [B, w_total], then at hop h = 1..n-1
+    entry d ORs in entry (d - h) % n's blocks; every entry ends with the
+    whole result."""
+    n = len(devices)
+    outs = [torch.zeros((b, w_total), dtype=torch.int32, device=dev)
+            for dev in devices]
+    for hop in range(n):
+        for d, out in enumerate(outs):
+            for lo, m in blks[(d - hop) % n]:
+                out[:, lo:lo + m.shape[1]].bitwise_or_(m.to(devices[d]))
+    return outs
+
+
+def merge_share(fleet, qs, mesh, reps: int = 5) -> dict:
+    """5f-b: device time of the fused serve's steps at the fleet's
+    generation, by CUDA events: ψ + the owner-local matches, then the
+    gather on the first entry; and the reference's ring merge of the same
+    blocks, which must give the same words."""
+    from repro_torch.cluster import mesh_serve
+    from repro_torch.serve import matching
+    buf = fleet.router._buffers[fleet.generation]
+    table = mesh_serve.build_table(buf, mesh)
+    toks = torch.from_numpy(matching.pad_token_batch(qs)).to(mesh.devices[0])
+    ev = [[torch.cuda.Event(enable_timing=True) for _ in range(4)]
+          for _ in range(reps + 1)]
+    for e in ev:
+        e[0].record()
+        _, blks = mesh_serve.local_match(table, toks)
+        e[1].record()
+        words = mesh_serve.gather(table.devices, blks)
+        e[2].record()
+        ring = ring_merge(table.devices, len(qs), table.w_total, blks)[0]
+        e[3].record()
+    torch.cuda.synchronize()
+    check(torch.equal(words, ring), "5f-b: the gather != the ring merge")
+    del words, ring
+    local, gather, ring = (statistics.median(e[i].elapsed_time(e[i + 1])
+                                             for e in ev[1:])
+                           for i in range(3))
+    return dict(local_ms=local, gather_ms=gather, ring_ms=ring,
+                share=gather / (local + gather))
+
+
+def log_fused(tag: str, rec: dict, host_ms: list, merge: dict | None) -> None:
+    b = rec["builds"]
+    log(f"[phase 5f] {tag}: {len(rec['ms'])} batches of {SERVE_B} fused on "
+        f"{rec['mesh']} == the host path (match sets and BatchTraces) == "
+        f"serve_reference; ms per batch fused "
+        f"{[round(x, 1) for x in rec['ms']]} vs host "
+        f"{[round(x, 1) for x in host_ms]} (host clock, a sync on both sides); "
+        f"{len(b)} tables built in {[round(x['ms'], 3) for x in b]} ms, "
+        f"{sum(x['bytes'] for x in b)} bytes copied, "
+        f"{sum(x['allocated'] for x in b)} bytes allocated; "
+        + (f"gather {merge['gather_ms']:.3f} ms of "
+           f"{merge['local_ms'] + merge['gather_ms']:.3f} ({merge['share']:.1%}; "
+           f"CUDA events, ψ + matches {merge['local_ms']:.3f} ms; the "
+           f"reference's ring merge of the same blocks {merge['ring_ms']:.3f} "
+           f"ms, equal words); " if merge else "")
+        + f"fused launches {({k: v for k, v in rec['launches'].items() if v})}; "
+          f"max_memory_allocated "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
 
 
 def start_launchers(root: Path) -> list:
@@ -1997,7 +2425,8 @@ def finish_launchers(procs: list) -> None:
         out, _ = p.communicate(timeout=600)
         log(f"[phase 5] {' '.join(cmd[2:])}: exit {p.returncode}, collected "
             f"{time.perf_counter() - t0:.1f}s after its start")
-        for ln in out.strip().splitlines()[-4:]:
+        lines = out.strip().splitlines()
+        for ln in [x for x in lines[:-4] if "] mesh:" in x] + lines[-4:]:
             log(f"[phase 5]   {ln}")
         check(p.returncode == 0, f"5d: launch.{name} exited {p.returncode}:"
               f"\n{out[-3000:]}")
@@ -2097,13 +2526,37 @@ def phase1_scale(p3: dict) -> list[dict]:
     rec.append(dict(name="partition_gain", max_abs_err=err,
                     ms=time_ms(lambda: ops.partition_gain(a, mask, bounds), 20),
                     plain_ms=time_ms(lambda: ref.partition_gain(a, mask, bounds), 2),
-                    bound_ms=b_ms, bound_by=b_by, shape=[c, w, p]))
+                    bound_ms=b_ms, bound_by=b_by, shape=[c, w, p],
+                    mesh=mesh_partition_gain(a, mask, bounds, out)))
 
     # sparse_gain: the phase-3 id lists against the sparse round's covered
     # docs (2^20 docs: the shared-memory route)
     ids, mask = p3["sparse"]["ids"], p3["sparse"]["covered_d"]
     rec.append(sparse_record(ids, mask, sample(ids.shape[0]), "smem"))
     return rec
+
+
+def mesh_partition_gain(a, mask, bounds, direct) -> dict:
+    """5f-b: one `ops.partition_gain` call under the 4-entry shard mesh
+    (owner-local: each entry copies its partitions' word columns and
+    launches on them) == the direct call `direct`, timed beside it."""
+    from repro_torch import distributed
+    from repro_torch.kernels import ops
+    mesh = distributed.shard_mesh(MESH_ENTRIES)
+    with distributed.use_mesh(mesh):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        m0 = torch.cuda.memory_allocated()
+        got = ops.partition_gain(a, mask, bounds)
+        torch.cuda.synchronize()
+        extra = torch.cuda.max_memory_allocated() - m0
+        check(torch.equal(got, direct),
+              "5f-b: partition_gain on the mesh != the direct call")
+        ms = time_ms(lambda: ops.partition_gain(a, mask, bounds), 5)
+    log(f"[phase 5f] partition_gain {list(a.shape)} over {len(bounds) - 1} "
+        f"partitions on {mesh}: {ms:.3f} ms (CUDA events), == the direct "
+        f"call; peak +{extra} bytes allocated during the call")
+    return dict(ms=ms, extra_bytes=int(extra))
 
 
 def serve_route_inputs(p3: dict) -> dict:
@@ -3170,13 +3623,14 @@ def tiering_phases(seed: int) -> list[dict]:
 
 
 def phase5(p3: dict, medium) -> dict:
-    """Phase 5 a-d; returns each path's launches. Frees phase 3's clause
+    """Phase 5 a-f; returns each path's launches. Frees phase 3's clause
     bitsets and its engine's Tier-1 copy before the fleet is built."""
     t_all = time.perf_counter()
     procs = start_launchers(Path(__file__).resolve().parent)
     pool = multiprocessing.get_context("spawn").Pool(1)
     try:
         host = pool.apply_async(medium_ingest_host, (medium,))
+        mesh_host = pool.apply_async(mesh_medium_host, (medium,))
         t = time.perf_counter()
         gpu = phase5_medium(medium)
         log(f"[phase 5] a: {time.perf_counter() - t:.1f}s")
@@ -3184,6 +3638,10 @@ def phase5(p3: dict, medium) -> dict:
         ing_medium = phase5_ingest_medium(medium, host.get(timeout=900))
         log(f"[phase 5e] a: {time.perf_counter() - t:.1f}s (the CPU half in "
             f"a worker process since phase 5 began)")
+        t = time.perf_counter()
+        mesh_med = phase5_mesh_medium(medium, mesh_host.get(timeout=900))
+        log(f"[phase 5f] a: {time.perf_counter() - t:.1f}s (the CPU half in "
+            f"the worker after 5e-a's)")
         t = time.perf_counter()
         finish_launchers(procs)
         log(f"[phase 5] d: waited {time.perf_counter() - t:.1f}s for the "
@@ -3224,7 +3682,10 @@ def phase5(p3: dict, medium) -> dict:
             **{f"ingest_medium_{arm}": ing_medium["launches"][arm]
                for arm, *_ in INGEST_ARMS},
             "ingest_production": ing["launches"],
-            "ingest_fleet_production": corpus["launches"]}
+            "ingest_fleet_production": corpus["launches"],
+            "mesh_medium": mesh_med["launches"],
+            "mesh_fleet_production": fleet["fused"]["launches"],
+            "mesh_ingest_fleet_production": corpus["fused"]["launches"]}
 
 
 if __name__ == "__main__":

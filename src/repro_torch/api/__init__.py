@@ -10,6 +10,10 @@
   * `TieringPipeline` — data -> mine -> solve -> tiering -> deploy, with
     shard-aware `solve(budget_split=..., n_shards=...)`, `sweep` and
     `refit`.
+  * `ExecutionPlan`, `current_plan`, `shard_mesh`, `use_mesh` — the shard
+    mesh: under `use_mesh(shard_mesh(n))` partitioned solves compute each
+    partition's gains on the entry that owns it and deployed fleets serve
+    each batch as one fused program.
 
 Quickstart:
 
@@ -37,12 +41,14 @@ from repro_torch.api import flow_adapter  # noqa: F401,E402  (flow baselines)
 from repro_torch.api.partition import (  # noqa: F401,E402
     partition_budgets, shard_traffic_shares)
 from repro_torch.api.pipeline import TieringPipeline  # noqa: F401,E402
+from repro_torch.distributed import (  # noqa: F401,E402
+    ExecutionPlan, current_plan, shard_mesh, use_mesh)
 
 __all__ = [
-    "GlobalBudget", "KnapsackConstraint", "PartitionedBudget", "SCSKProblem",
+    "ExecutionPlan", "GlobalBudget", "KnapsackConstraint", "PartitionedBudget", "SCSKProblem",
     "SolveConfig", "SolverResult", "SolverSpec", "SolverState",
-    "TieringPipeline", "Trace", "get_solver", "list_solvers",
+    "TieringPipeline", "Trace", "current_plan", "get_solver", "list_solvers",
     "partition_bounds", "partition_budgets", "partition_capacities",
-    "register_solver", "shard_traffic_shares", "solve", "solve_sweep",
-    "trim_state",
+    "register_solver", "shard_mesh", "shard_traffic_shares", "solve",
+    "solve_sweep", "trim_state", "use_mesh",
 ]

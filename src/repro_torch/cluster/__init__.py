@@ -1,7 +1,7 @@
 """repro_torch.cluster — sharded, replicated two-tier serving (paper §2.2, Fig. 1).
 
-The port's counterpart of `repro.cluster`, host path only (no mesh
-serving yet), with the same names.
+The port's counterpart of `repro.cluster`, with the same names: the host
+path, and the fused serve over a shard mesh (`mesh_serve`).
 
 The paper's economics are fleet economics: a small Tier 1 matters because a
 FLEET of small replicas absorbs eligible traffic that would otherwise need
@@ -27,6 +27,11 @@ full-index machines. This package models that fleet end to end:
     p50/p95/p99 latency, fleet word traffic and per-replica
     utilization/backlog — which `suggest_replicas(plan, offered_load,
     slo_p95)` closes into an autoscaling loop;
+  * `MeshRouteTable` / `serve_fused` — under
+    `distributed.use_mesh(distributed.shard_mesh(n))` the router serves
+    each batch as one fused program over the mesh's entries: replicated ψ,
+    an owner-local `tier_match` per shard and a gather on the first entry,
+    bit-identical to the host path, with the same stats and traces;
   * `TieredCluster` — engine-compatible facade, so
     `stream.RetieringController` re-tiers a whole cluster through rolling
     swaps exactly as it hot-swaps one engine.
@@ -52,6 +57,8 @@ from repro_torch.cluster.frontend import (                   # noqa: F401
 from repro_torch.cluster.loadgen import (                    # noqa: F401
     ClusterPlan, LoadgenReport, ReplicaSuggestion, fit_service_model,
     run_loadgen, suggest_replicas)
+from repro_torch.cluster.mesh_serve import (                 # noqa: F401
+    MeshRouteTable, serve_fused)
 from repro_torch.cluster.rollout import (                    # noqa: F401
     ClusterTieringBuffer, RollingSwap, StaleCorpusError)
 from repro_torch.cluster.router import (                     # noqa: F401
@@ -63,9 +70,9 @@ from repro_torch.cluster.shard import (                      # noqa: F401
 __all__ = [
     "AdmissionPolicy", "BatchTrace", "CacheStats", "ClusterPlan",
     "ClusterRouter", "ClusterTieringBuffer", "DocShard", "LoadgenReport",
-    "ReplicaSuggestion", "ResultCache", "RollingSwap",
+    "MeshRouteTable", "ReplicaSuggestion", "ResultCache", "RollingSwap",
     "ShardReplica", "StaleCorpusError", "TieredCluster",
     "fit_service_model", "grow_shards", "keys_of", "plan_shards",
-    "run_loadgen", "shard_postings", "shard_tier_postings",
+    "run_loadgen", "serve_fused", "shard_postings", "shard_tier_postings",
     "suggest_replicas", "zipf_keys",
 ]

@@ -25,13 +25,18 @@ generation (single-replica groups mid-swap), the whole batch is served from
 the newest corpus version with full Tier-2 cover, which is exact for any
 query at that version.
 
-The port's counterpart of `repro.cluster.router`, host path only: each
+The port's counterpart of `repro.cluster.router`. On the host path each
 batch is classified on the fleet's device (tokens packed there, then
 `ops.clause_match`), each shard replica matches with `ops.match_batch`
 (the `tier_match` kernel) on its contiguous sub-index, and the per-shard
 words are placed into one [B, W] device tensor whose rows become doc ids
-on the device. Every `serve` span carries `fused=False`: the fused mesh
-path is not ported yet.
+on the device. Under a shard mesh of more than one entry
+(`distributed.use_mesh(distributed.shard_mesh(n))`) every batch, or the
+cache's misses, goes through `cluster.mesh_serve.serve_fused` instead —
+never the host path — and the replicas it rotates onto are accounted as
+the host path would account them, so `ServeStats` and every `BatchTrace`
+are equal on both paths. The `serve` span carries `fused=` the plan's
+`shard_fused`.
 """
 from __future__ import annotations
 
@@ -40,7 +45,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from repro_torch import obs
+from repro_torch import distributed, obs
 from repro_torch.cluster import frontend
 from repro_torch.cluster import shard as shard_mod
 from repro_torch.cluster.rollout import (ClusterTieringBuffer, RollingSwap,
@@ -118,11 +123,16 @@ class ShardReplica:
     def match(self, tokens: torch.Tensor) -> torch.Tensor:
         """AND-match a padded token batch [B, L] (on the replica's device)
         against the local sub-index: int32 words [B, n_words]."""
-        n = int(tokens.shape[0])
-        self.n_batches += 1
-        self.n_queries += n
-        self.words_scanned += n * self.words_per_query
+        self.account(int(tokens.shape[0]))
         return ops.match_batch(self.postings, tokens)
+
+    def account(self, n_queries: int) -> None:
+        """Batch bookkeeping without a local match — the fused mesh path
+        serves from the SAME resident content this replica holds, so the
+        replica this batch rotated onto still carries the counters."""
+        self.n_batches += 1
+        self.n_queries += n_queries
+        self.words_scanned += n_queries * self.words_per_query
 
     def __repr__(self) -> str:  # debugging/observability
         return (f"ShardReplica(t{self.tier} s{self.shard.index} "
@@ -184,6 +194,9 @@ class ClusterRouter:
         self.rollout: RollingSwap | None = None
         self._rr: dict[tuple[int, int], int] = {}
         self.trace: obs.Ring = obs.Ring(trace_capacity)
+        # fused-serve operands per (generation, corpus version, contents,
+        # tier path, mesh, shard count); dropped with their generation
+        self._mesh_tables: dict = {}
         self.stats = ServeStats(
             full_words_per_query=buffer0.w_total
             or sum(s.n_words for s in shards))
@@ -269,6 +282,10 @@ class ClusterRouter:
     def _prune_buffers(self) -> None:
         keep = self.live_generations() | {self.target_generation}
         self._buffers = {g: b for g, b in self._buffers.items() if g in keep}
+        # a table references its buffer's device tensors: an evicted
+        # generation's must not stay alive through it
+        self._mesh_tables = {k: t for k, t in self._mesh_tables.items()
+                             if k[0] in self._buffers}
         if self.cache is not None:
             # epoch bump: results computed under a now-dead generation can
             # never be served again — free them eagerly (memory hygiene;
@@ -308,7 +325,8 @@ class ClusterRouter:
 
     def serve(self, queries: list[tuple[int, ...]]) -> list[np.ndarray]:
         """Exact global match sets (sorted int64 doc ids) per query, at the
-        served buffer's corpus version: one `match_batch` per shard."""
+        served buffer's corpus version: one `match_batch` per shard, or one
+        fused serve over the ambient shard mesh."""
         self.advance_rollout()              # one drain-or-swap phase per batch
         b = len(queries)
         if b == 0:
@@ -324,10 +342,18 @@ class ClusterRouter:
                       n_queries=b)
         if buf.w_total and self.stats.full_words_per_query != buf.w_total:
             self.stats.full_words_per_query = buf.w_total
+        plan = distributed.current_plan()
+
+        def match(qs):
+            if plan.shard_fused:
+                return self._match_mesh(qs, buf, use_t1, plan)
+            return self._match_host(qs, buf, use_t1)
+
         cache = self.cache
         dev = self.device
         with obs.span("serve", n=b, generation=gen,
-                      corpus_version=buf.corpus_version, fused=False):
+                      corpus_version=buf.corpus_version,
+                      fused=plan.shard_fused):
             # -- front-end result cache, before the tier match. The key is
             # the packed query vocab bitset (the reference's uint32 words):
             # equal keys => equal token sets => bit-identical match sets at
@@ -351,7 +377,7 @@ class ClusterRouter:
                             hits.append((j, ent))
                     miss_idx = np.asarray(miss, int)
             if len(miss_idx) == b:          # no cache, or every query missed
-                out, elig = self._match_host(queries, buf, use_t1)
+                out, elig = match(queries)
                 m_out, m_elig = out, elig
             else:
                 w_total = buf.w_total or self.stats.full_words_per_query
@@ -361,7 +387,7 @@ class ClusterRouter:
                 m_elig = np.zeros(0, bool)
                 if len(miss_idx):           # fresh-match only the misses
                     sub = [queries[j] for j in miss_idx]
-                    m_out, m_elig = self._match_host(sub, buf, use_t1)
+                    m_out, m_elig = match(sub)
                     out.index_copy_(0, torch.from_numpy(miss_idx).to(dev),
                                     m_out)
                     elig[miss_idx] = m_elig
@@ -422,6 +448,39 @@ class ClusterRouter:
                     words[:, s.word_lo:s.word_hi] = sp.sync(rep.match(sub))
             out.index_copy_(0, rows, words)
         return out, elig
+
+    def _match_mesh(self, queries, buf, use_t1, plan
+                    ) -> tuple[torch.Tensor, np.ndarray]:
+        """One fused serve over the plan's shard mesh for the whole batch;
+        the replicas this batch rotates onto still pay the (virtual) scan
+        accounting, so observability matches the host path exactly."""
+        from repro_torch.cluster import mesh_serve
+        shards = buf.shards or self.shards
+        # generation identifies ψ's clause set: two generations can share
+        # every shard's Tier-1 CONTENT (doc sets equal, clauses not), so
+        # contents alone would serve a stale clause table; the corpus
+        # version and Tier-2 contents invalidate it across appends
+        key = (buf.generation, buf.corpus_version, buf.shard_content,
+               buf.t2_content, use_t1, plan.mesh, len(shards))
+        table = self._mesh_tables.get(key)
+        if table is None:
+            table = mesh_serve.build_table(buf, plan.mesh, use_t1=use_t1)
+            if len(self._mesh_tables) > 8:
+                self._mesh_tables.clear()
+            self._mesh_tables[key] = table
+        # one fused program: classify, match and merge get a single span
+        # instead of the host path's nest
+        with obs.span("mesh_fused", n=len(queries)) as sp:
+            out, elig = mesh_serve.serve_fused(table, queries)
+            sp.sync(out)
+        n1 = int(elig.sum())
+        for s in shards:
+            if n1 and use_t1 and buf.shard_nonempty(s.index):
+                self._served(1, s.index, buf).account(n1)
+            if n1 < len(queries):
+                self._served(2, s.index, buf,
+                             draining_ok=not use_t1).account(len(queries) - n1)
+        return out.to(self.device), elig
 
     def _served(self, tier: int, shard_idx: int, buf,
                 draining_ok: bool = False) -> ShardReplica:

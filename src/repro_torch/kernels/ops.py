@@ -9,7 +9,8 @@ reference accounts (`bit_matvec`, `coverage_gain`, `clause_match`,
 `partition_gain`, `sparse_gain`, `fused_match`) reports the reference's
 shape-derived word and byte models to the process profiler on every call
 while the telemetry plane is on, labelled `(op, path)` with path "cuda" or
-"cpu" (where the operands lie). With the plane off the only cost is one
+"cpu" (where the operands lie), or "mesh" for `partition_gain`'s
+owner-local path over a shard mesh. With the plane off the only cost is one
 `_state.on` check, and results are bit-identical either way. `tier_match`
 and `match_batch` are not accounted, as the reference's `match_batch` is
 not.
@@ -20,6 +21,7 @@ import time
 
 import torch
 
+from repro_torch import distributed as _dist
 from repro_torch.kernels import bit_matvec as _bm
 from repro_torch.kernels import clause_match as _cm
 from repro_torch.kernels import coverage_gain as _cg
@@ -91,15 +93,16 @@ def path_of(t: torch.Tensor) -> str:
     return "cuda" if t.is_cuda else "cpu"
 
 
-def _run(op: str, fn, cost, *args):
-    """`fn(*args)`, with cost accounting while the plane is on."""
+def _run(op: str, fn, cost, *args, path: str | None = None):
+    """`fn(*args)`, with cost accounting while the plane is on, labelled
+    `path` (default: where the operands lie)."""
     if not _obs_state.on:
         return fn(*args)
     prof = _profiler()
     words, nbytes = cost(*args)
     t0 = time.perf_counter() if prof.active else 0.0
     out = fn(*args)
-    prof.record(op, path_of(args[0]), words, nbytes,
+    prof.record(op, path or path_of(args[0]), words, nbytes,
                 out=out if prof.active else None, t0=t0)
     return out
 
@@ -139,16 +142,61 @@ def fused_match(query_bits: torch.Tensor, clause_bits: torch.Tensor,
 def partition_gain(a_bits: torch.Tensor, mask: torch.Tensor,
                    bounds) -> torch.Tensor:
     """gains [C, P]: per-partition popcount(a & ~mask) over the word ranges
-    of `bounds` (P+1 word offsets)."""
+    of `bounds` (P+1 word offsets).
+
+    Under a `"shard"` mesh the partitions are the fleet's shards: each mesh
+    entry computes its own partitions' gains (`_partition_gain_mesh`) and
+    the [C, P] columns are gathered on the first entry — integer sums, so
+    bit-identical to the direct call.
+    """
     bounds = tuple(int(b) for b in bounds)
 
     def cost(a, m):
         return _cost_partition_gain(a, m, bounds)
 
+    fused = _dist.mesh_fused(_partition_gain_mesh)
+    if fused is not None:
+        def fn(a, m):
+            return fused(a, m, bounds)
+        return _run("partition_gain", fn, cost, a_bits, mask, path="mesh")
+
     def fn(a, m):
         return _pg.partition_gain(a, m, bounds)
 
     return _run("partition_gain", fn, cost, a_bits, mask)
+
+
+def _partition_gain_mesh(devices, a_bits: torch.Tensor, mask: torch.Tensor,
+                         bounds: tuple[int, ...]) -> torch.Tensor:
+    """Each partition's AND-NOT popcount on the mesh entry that owns it.
+
+    Entry d owns a contiguous block of partitions (`distributed.blocks`,
+    the reference's padded leading axis split over the entries), so its
+    operand is one contiguous copy of the block's word columns [C, w_d]
+    with the block's own bounds, placed on its device, and one
+    `partition_gain` launch there (the plain version on the CPU). The
+    reference pads every partition to the widest and masks the padding
+    with all-ones words; a per-entry column block needs no padding. The
+    [C, P_d] results are gathered on the first entry, where the operands
+    must lie.
+    """
+    if a_bits.device != devices[0] or mask.device != devices[0]:
+        raise ValueError(f"partition_gain on the mesh gathers its result on "
+                         f"{devices[0]}; the operands lie on {a_bits.device} "
+                         f"and {mask.device}")
+    _pg.check_bounds(bounds, a_bits.shape[1])
+    cols = []
+    for dev, own in zip(devices, _dist.blocks(len(bounds) - 1,
+                                               len(devices))):
+        if not own:
+            continue
+        lo, hi = bounds[own.start], bounds[own.stop]
+        part = _pg.partition_gain(
+            a_bits[:, lo:hi].contiguous().to(dev),
+            mask[lo:hi].contiguous().to(dev),
+            [b - lo for b in bounds[own.start:own.stop + 1]])
+        cols.append(part.to(devices[0]))
+    return torch.cat(cols, dim=1)
 
 
 def sparse_gain(doc_ids: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:

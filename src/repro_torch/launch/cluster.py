@@ -17,22 +17,29 @@ reproducible from its log alone.
 
 The port's counterpart of `repro.launch.cluster`, with the same flags and
 `--device` (default: the CUDA card; `--device cpu` runs every kernel's
-plain version). The fleet serves on the host path only: `--mesh` (the
-fused multi-device data plane) is not ported yet (ROADMAP queue 1, item
-7) and exits non-zero.
+plain version). `--mesh` runs everything under a 4-entry shard mesh on
+the run's device type (`distributed.shard_mesh(4, device_type=...)`: one
+entry per card on four cards, four entries on `cuda:0` on one, four CPU
+entries with `--device cpu`), as the reference's launcher forces 4 host
+devices: partitioned solves compute owner-local gains and every fleet
+batch is served fused; `--verify` then also checks that the fused path
+served.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import time
+
+import torch
 
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--shards", type=int, default=2)
     ap.add_argument("--mesh", action="store_true",
-                    help="the fused multi-device data plane (not ported "
-                         "yet: exits non-zero)")
+                    help="serve (and solve) under a 4-entry shard mesh on "
+                         "the run's device type: the fused data plane")
     ap.add_argument("--replicas", type=int, default=2,
                     help="Tier-1 replicas per shard")
     ap.add_argument("--t2-replicas", type=int, default=1)
@@ -81,12 +88,15 @@ def main() -> None:
                          "REPRO_OBS=0 disables the whole plane)")
     args = ap.parse_args()
 
-    if args.mesh:
-        raise SystemExit("[cluster] --mesh: the fused multi-device serving "
-                         "path is not ported yet (ROADMAP queue 1, item 7); "
-                         "run without --mesh for the host path")
+    from repro_torch import api, cluster, distributed, obs, stream
 
-    from repro_torch import api, cluster, obs, stream
+    stack = contextlib.ExitStack()
+    if args.mesh:
+        mesh = stack.enter_context(distributed.use_mesh(distributed.shard_mesh(
+            4, device_type=torch.device(args.device).type)))
+        print(f"[cluster] mesh: {mesh.size} entries on axis 'shard' "
+              f"({', '.join(str(d) for d in mesh.devices)}) — fused serve "
+              f"{'ON' if distributed.current_plan().shard_fused else 'inert'}")
 
     if args.obs_dir and obs.enabled():
         obs.set_exporter(obs.JsonlExporter(args.obs_dir, run="cluster"))
@@ -181,6 +191,9 @@ def main() -> None:
         if not report.parity_all_ok():
             raise SystemExit("[cluster] PARITY FAILURE: sharded serving "
                              "diverged from single-tier matching")
+        if args.mesh and not fleet.router._mesh_tables:
+            raise SystemExit("[cluster] MESH FAILURE: no batch was served "
+                             "through the fused path")
         # never verify vacuously: if no refit triggered (so no swap parity
         # check ran), probe scatter-gather exactness directly
         direct_checks = 0
@@ -226,7 +239,8 @@ def main() -> None:
               + (f", {cache_checks} cached answers oracle-exact"
                  if cache_checks else "")
               + (", per-shard caps respected" if budget_split is not None
-                 else ""))
+                 else "")
+              + (", served fused on the mesh" if args.mesh else ""))
     if args.cache:
         c = fleet.cache.snapshot()
         print(f"[cluster] frontend cache: {c['hits']}/{c['lookups']} hits "
@@ -242,6 +256,7 @@ def main() -> None:
         ex = obs.get_exporter()
         if ex is not None and ex.n_written:
             print(f"[cluster] obs: {ex.n_written} snapshots -> {ex.path}")
+    stack.close()
 
 
 if __name__ == "__main__":

@@ -5,7 +5,8 @@ The port's counterpart of `repro.obs.profile`. Every public tiering op in
 postings words read, modelled HBM bytes for operands + result) to the
 process profiler on each dispatch, labelled `(op, path)` where path is
 where the operands lie: "cuda" (the hand-written kernel) or "cpu" (its
-plain PyTorch version). The word and byte models are the reference's.
+plain PyTorch version), or "mesh" for the owner-local fusion over a shard
+mesh (`ops.partition_gain` under `distributed.use_mesh`). The word and byte models are the reference's.
 Two tiers of accounting:
 
   * always (while the plane is on): two counter incs —

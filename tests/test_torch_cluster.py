@@ -826,12 +826,15 @@ def test_cluster_launcher_runs_on_cpu(monkeypatch, capsys):
 
 
 def test_cluster_launcher_refuses_mesh():
+    """`--mesh` on a device type with no visible device refuses before any
+    work, instead of serving on another device."""
     import os
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               CUDA_VISIBLE_DEVICES="")
     out = subprocess.run([sys.executable, "-m", "repro_torch.launch.cluster",
-                          "--mesh", "--device", "cpu", "--obs-dir", ""],
+                          "--mesh", "--device", "cuda", "--obs-dir", ""],
                          cwd=ROOT, env=env, capture_output=True, text=True,
                          timeout=120)
     assert out.returncode != 0
-    assert "item 7" in out.stderr
+    assert "no visible cuda device for a shard mesh" in out.stderr
     assert "offline solve" not in out.stdout
