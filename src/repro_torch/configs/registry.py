@@ -34,7 +34,7 @@ class ArchSpec:
 
 
 ARCHS: dict[str, ArchSpec] = {}
-_ARCH_MODULES = ["gemma2_2b"]
+_ARCH_MODULES = ["gemma2_2b", "gemma3_12b", "internlm2_1_8b"]
 _LOADED = False
 
 

@@ -3,7 +3,8 @@
   * `mesh_context` — the ambient mesh (`use_mesh`, `current_mesh`): code
     never threads a mesh through calls;
   * `plan` — `ExecutionPlan` binds the ambient mesh and its `"shard"` axis
-    (`shard_fused`: the cluster router serves fused);
+    (`shard_fused`: the cluster router serves fused) and looks up the
+    autotuner's tiles (`tile_params`);
     `shard_mesh` builds a mesh over the visible devices; `mesh_fused` is
     the gate `ops.partition_gain` goes through.
 

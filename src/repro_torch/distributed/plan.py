@@ -7,12 +7,14 @@ whether the fleet-facing ops fuse: the cluster router branches on it, and
 one-entry mesh, or a mesh without the `"shard"` axis, neither fuses and
 the caller takes its direct path.
 
-What the reference's plan also carries is absent here on purpose: there is
-no kernel backend (`resolve_backend`, `placement`, `pinned`,
+`ExecutionPlan.tile_params` is the autotuner's lookup (`kernels.autotune`):
+the tile a kernel dispatch passes to its wrapper for (op, path, shape
+bucket). What the reference's plan also carries is absent here on purpose:
+there is no kernel backend (`resolve_backend`, `placement`, `pinned`,
 `REPRO_KERNEL_BACKEND`), because in the port the operands' device picks the
-route (CPU tensors take the plain version, CUDA tensors the kernel), and
-no `tile_params`, which come with the autotuner. The model-axis helpers
-(`owner_row`, `owner_select`, `axis_rank`) belong to the training side.
+route (CPU tensors take the plain version, CUDA tensors the kernel). The
+model-axis helpers (`owner_row`, `owner_select`, `axis_rank`) belong to the
+training side.
 
 A shard mesh is driven by one process: each entry's work is launched on
 its device in turn, and results are gathered on the first entry by tensor
@@ -21,6 +23,7 @@ copies (a peer copy between cards, nothing on one card).
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
 
@@ -49,6 +52,24 @@ class ExecutionPlan:
     def shard_fused(self) -> bool:
         """Fuse fleet-facing ops over the `"shard"` axis?"""
         return self.shard_axis is not None and self.n_shard_devices > 1
+
+    def tile_params(self, op: str, path: str, shape_bucket) -> dict:
+        """Autotuned kernel keywords for (op, path, shape bucket): how the
+        kernel tiles, where the operands' device already picked which
+        kernel runs. {} (the wrapper's defaults) on a cache miss, when
+        `shape_bucket` is None (an untuned op), or when autotuning is
+        disabled (REPRO_TORCH_KERNEL_TILES=off)."""
+        if shape_bucket is None:
+            return {}
+        return _autotune().tile_params(op, path, shape_bucket)
+
+
+@functools.cache
+def _autotune():
+    """`kernels.autotune`, imported on first use (the kernels import this
+    package)."""
+    from repro_torch.kernels import autotune
+    return autotune
 
 
 def current_plan() -> ExecutionPlan:

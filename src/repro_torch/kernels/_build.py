@@ -38,12 +38,12 @@ LAUNCHES: dict[str, int] = {k: 0 for k in KERNELS}
 _P, _I64, _INT, _F32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_float
 _PINT = ctypes.POINTER(ctypes.c_int)
 _SIGNATURES = {
-    "coverage_gain_launch": [_P, _P, _P, _I64, _I64, _INT, _P],
-    "bit_matvec_launch": [_P, _P, _P, _I64, _I64, _I64, _INT, _P],
+    "coverage_gain_launch": [_P, _P, _P, _I64, _I64, _INT, _INT, _P],
+    "bit_matvec_launch": [_P, _P, _P, _I64, _I64, _I64, _INT, _INT, _P],
     "clause_match_launch": [_P] * 5 + [_I64] * 3 + [_INT, _INT, _P],
     "clause_tokens_launch": [_P] * 3 + [_I64] * 2 + [_INT, _P],
     "tier_match_launch": [_P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _INT, _P],
-    "partition_gain_launch": [_P, _P, _P, _P, _I64, _I64, _I64, _INT, _P],
+    "partition_gain_launch": [_P, _P, _P, _P, _I64, _I64, _I64, _INT, _INT, _P],
     "sparse_gain_launch": [_P, _P, _P, _I64, _I64, _I64, _INT, _INT, _P],
     "flash_attention_launch": [_P] * 4 + [_I64] * 17 + [_F32, _INT, _INT, _I64, _P],
     "flash_decode_launch": [_P] * 5 + [_I64] * 16 + [_INT, _F32, _INT, _INT, _INT, _P],

@@ -5,10 +5,12 @@ Kernel: `csrc/clause_match.cu` (replaces the Pallas
 stream: pass A compacts each clause row into its first `SLOTS` set-bit
 positions and its count (`ref.clause_tokens`), pass B tests every query
 against that table (`ref.token_match`), `plan`'s number of queries to a
-block; the wrapper allocates the table.
+block (or the caller's `qpb`, the autotuner's tile: one of `QPB`, whose
+staged rows fit shared memory at the call's Wv, else ValueError); the
+wrapper allocates the table.
 With no query or no clause the answer is all-False and nothing is
-launched. CPU tensors take the plain version; CUDA tensors launch the
-kernel or raise.
+launched. CPU tensors take the plain version (which ignores a valid
+`qpb`); CUDA tensors launch the kernel or raise.
 """
 from __future__ import annotations
 
@@ -23,6 +25,7 @@ TABLE_BYTES = 4 * SLOTS + 4   # a clause's tokens and count
 SMEM_BYTES = 232448     # H100 per-block shared memory opt-in (227 KB)
 FLAG_BYTES = 16         # pass B's static shared memory, rounded up
 MAX_Q = 32              # queries per block of pass B (one bit each)
+QPB = (1, 2, 4, 8, 16, 32)  # the autotuner's space for pass B's queries a block
 # pass B stages at least one query's words in shared memory
 MAX_VOCAB_WORDS = (SMEM_BYTES - FLAG_BYTES) // 4
 
@@ -31,6 +34,22 @@ def smem_rows(qpb: int) -> int:
     """Vocab-word rows pass B stages: its queries, and their union when it
     has more than one."""
     return qpb + (qpb > 1)
+
+
+def fits(qpb: int, wv: int) -> bool:
+    """Do pass B's staged rows of `qpb` queries fit shared memory at `wv`?"""
+    return smem_rows(qpb) * wv * 4 <= SMEM_BYTES - FLAG_BYTES
+
+
+def check_qpb(qpb, wv: int) -> int:
+    """`qpb` if it is one of `QPB` and fits at `wv`, else ValueError."""
+    if isinstance(qpb, bool) or qpb not in QPB:
+        raise ValueError(f"qpb must be one of {QPB}, got {qpb!r}")
+    if not fits(qpb, wv):
+        raise ValueError(f"qpb {qpb} stages {smem_rows(qpb) * wv * 4} bytes of "
+                         f"shared memory at {wv} vocab words, more than "
+                         f"{SMEM_BYTES - FLAG_BYTES}")
+    return int(qpb)
 
 
 def plan(b: int, k: int, wv: int, sms: int) -> int:
@@ -77,9 +96,12 @@ def clause_tokens(clause_bits: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor
     return tokens, count
 
 
-def clause_match(query_bits: torch.Tensor,
-                 clause_bits: torch.Tensor) -> torch.Tensor:
-    """int32 words query_bits [B, Wv], clause_bits [K, Wv] -> bool [B]."""
+def clause_match(query_bits: torch.Tensor, clause_bits: torch.Tensor, *,
+                 qpb: int | None = None) -> torch.Tensor:
+    """int32 words query_bits [B, Wv], clause_bits [K, Wv] -> bool [B];
+    `qpb` None: `plan`'s queries per block."""
+    if qpb is not None:
+        check_qpb(qpb, query_bits.shape[-1])
     b, k = query_bits.shape[0], clause_bits.shape[0]
     if b == 0 or k == 0:
         return torch.zeros(b, dtype=torch.bool, device=query_bits.device)
@@ -92,8 +114,9 @@ def clause_match(query_bits: torch.Tensor,
         raise ValueError(f"clause_bits has {clause_bits.shape[1]} words, "
                          f"query_bits has {wv}")
     dev = query_bits.device
-    qpb = plan(b, k, wv, _sms(dev.index if dev.index is not None
-                              else torch.cuda.current_device()))
+    if qpb is None:
+        qpb = plan(b, k, wv, _sms(dev.index if dev.index is not None
+                                  else torch.cuda.current_device()))
     tokens, count, vec = _operands(clause_bits, query_bits)
     out = torch.empty(b, dtype=torch.bool, device=dev)
     _build.launch("clause_match", dev, lambda lib, stream:

@@ -21,6 +21,10 @@
 // the kernel is bound by the bytes of A. The TPU kernel unpacked each tile
 // to f32 for the MXU; on Hopper a dense unpack would turn a bandwidth-bound
 // sparse sum into 32 operations per word, so the bits are visited instead.
+//
+// A block holds `warps` tasks, set at launch (1-32; 8 unless the autotuner
+// picks another, kernels/autotune.py). Each task's sum is one warp's in a
+// fixed lane order, so the result is the same whatever the block.
 #include "common.cuh"
 
 namespace repro_torch {
@@ -36,11 +40,12 @@ __device__ __forceinline__ double sum_bits(uint32_t bits, const float* xs,
   return acc;
 }
 
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kMaxThreads, 1)
 bit_matvec_kernel(const uint32_t* __restrict__ a, const float* __restrict__ x,
                   float* __restrict__ out, int64_t C, int64_t W, int64_t R,
                   int vec) {
-  const int64_t task = (int64_t)blockIdx.x * kWarpsPerBlock + threadIdx.x / kWarp;
+  const int64_t task =
+      (int64_t)blockIdx.x * (blockDim.x / kWarp) + threadIdx.x / kWarp;
   const int lane = threadIdx.x % kWarp;
   if (task >= C * R) return;  // whole warp leaves together
   const int64_t row = task / R;
@@ -69,12 +74,14 @@ bit_matvec_kernel(const uint32_t* __restrict__ a, const float* __restrict__ x,
 
 }  // namespace repro_torch
 
+// warps: warps per block (one (row, column) task each), 1-32.
 extern "C" int bit_matvec_launch(const void* a, const void* x, void* out,
                                  int64_t C, int64_t W, int64_t R, int vec,
-                                 void* stream) {
+                                 int warps, void* stream) {
   using namespace repro_torch;
-  const dim3 grid((unsigned)ceil_div(C * R, kWarpsPerBlock));
-  bit_matvec_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+  if (warps < 1 || warps > kMaxWarps) return (int)cudaErrorInvalidValue;
+  const dim3 grid((unsigned)ceil_div(C * R, warps));
+  bit_matvec_kernel<<<grid, warps * kWarp, 0, (cudaStream_t)stream>>>(
       (const uint32_t*)a, (const float*)x, (float*)out, C, W, R, vec);
   return (int)cudaGetLastError();
 }

@@ -24,7 +24,9 @@
 //      words of qpb queries in shared memory, and with qpb > 1 the
 //      complement of their union (the wrapper's `plan` picks qpb: 1 when
 //      the table is smaller than a query's words, else as many as fit,
-//      leaving at least two blocks per SM); its threads stride over the
+//      leaving at least two blocks per SM; the autotuner's cache,
+//      kernels/autotune.py, may pick another that fits); its threads
+//      stride over the
 //      table. A clause lies in a
 //      query iff none of its tokens hits a 0 bit of the query: a few
 //      shared-memory lookups, wherever the bits sit. A clause with a token

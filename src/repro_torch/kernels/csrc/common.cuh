@@ -15,6 +15,10 @@ constexpr int kWarp = 32;
 constexpr int kWord = 32;  // bits per packed word
 constexpr int kWarpsPerBlock = 8;
 constexpr int kThreads = kWarp * kWarpsPerBlock;
+// the warp-per-row kernels take their warps per block at launch (1-32,
+// the autotuner's `warps`); kWarpsPerBlock is their default
+constexpr int kMaxWarps = 32;
+constexpr int kMaxThreads = kWarp * kMaxWarps;
 constexpr unsigned kFull = 0xffffffffu;
 
 inline int64_t ceil_div(int64_t a, int64_t b) { return (a + b - 1) / b; }

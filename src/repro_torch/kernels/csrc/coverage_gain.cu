@@ -15,16 +15,22 @@
 // hint). Lanes keep a private count and a shuffle reduction finishes the
 // row; lane 0 writes it. The TPU kernel's grid-carried accumulator over the
 // W axis becomes the lane loop.
+//
+// A block holds `warps` rows, set at launch (1-32; 8 unless the autotuner's
+// cache, kernels/autotune.py, picks another for the call's shape bucket):
+// the counterpart of the Pallas kernel's block_c. The rows are independent,
+// so the choice moves the time, never the result.
 #include "common.cuh"
 
 namespace repro_torch {
 
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kMaxThreads, 1)
 coverage_gain_kernel(const uint32_t* __restrict__ a,
                      const uint32_t* __restrict__ mask,
                      int32_t* __restrict__ out, int64_t C, int64_t W,
                      int vec) {
-  const int64_t row = (int64_t)blockIdx.x * kWarpsPerBlock + threadIdx.x / kWarp;
+  const int64_t row =
+      (int64_t)blockIdx.x * (blockDim.x / kWarp) + threadIdx.x / kWarp;
   const int lane = threadIdx.x % kWarp;
   if (row >= C) return;  // whole warp leaves together
   const uint32_t* r = a + row * W;
@@ -48,12 +54,14 @@ coverage_gain_kernel(const uint32_t* __restrict__ a,
 
 }  // namespace repro_torch
 
+// warps: warps per block (one row each), 1-32.
 extern "C" int coverage_gain_launch(const void* a, const void* mask, void* out,
-                                    int64_t C, int64_t W, int vec,
+                                    int64_t C, int64_t W, int vec, int warps,
                                     void* stream) {
   using namespace repro_torch;
-  const dim3 grid((unsigned)ceil_div(C, kWarpsPerBlock));
-  coverage_gain_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+  if (warps < 1 || warps > kMaxWarps) return (int)cudaErrorInvalidValue;
+  const dim3 grid((unsigned)ceil_div(C, warps));
+  coverage_gain_kernel<<<grid, warps * kWarp, 0, (cudaStream_t)stream>>>(
       (const uint32_t*)a, (const uint32_t*)mask, (int32_t*)out, C, W, vec);
   return (int)cudaGetLastError();
 }

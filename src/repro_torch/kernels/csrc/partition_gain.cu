@@ -18,6 +18,7 @@
 // are 16-byte aligned each partition is a scalar head up to the next
 // 4-word boundary, a uint4 body, and a scalar tail; otherwise lanes load
 // consecutive words. Lane 0 writes the P counts of its row.
+// A block holds `warps` rows, set at launch as in coverage_gain.
 #include "common.cuh"
 
 namespace repro_torch {
@@ -27,13 +28,14 @@ __device__ __forceinline__ int and_not_pop(uint4 x, uint4 m) {
          __popc(x.w & ~m.w);
 }
 
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kMaxThreads, 1)
 partition_gain_kernel(const uint32_t* __restrict__ a,
                       const uint32_t* __restrict__ mask,
                       const long long* __restrict__ bounds,
                       int32_t* __restrict__ out, int64_t C, int64_t W,
                       int64_t P, int vec) {
-  const int64_t row = (int64_t)blockIdx.x * kWarpsPerBlock + threadIdx.x / kWarp;
+  const int64_t row =
+      (int64_t)blockIdx.x * (blockDim.x / kWarp) + threadIdx.x / kWarp;
   const int lane = threadIdx.x % kWarp;
   if (row >= C) return;  // whole warp leaves together
   const uint32_t* r = a + row * W;
@@ -66,13 +68,15 @@ partition_gain_kernel(const uint32_t* __restrict__ a,
 
 }  // namespace repro_torch
 
+// warps: warps per block (one row each), 1-32.
 extern "C" int partition_gain_launch(const void* a, const void* mask,
                                      const void* bounds, void* out, int64_t C,
-                                     int64_t W, int64_t P, int vec,
+                                     int64_t W, int64_t P, int vec, int warps,
                                      void* stream) {
   using namespace repro_torch;
-  const dim3 grid((unsigned)ceil_div(C, kWarpsPerBlock));
-  partition_gain_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+  if (warps < 1 || warps > kMaxWarps) return (int)cudaErrorInvalidValue;
+  const dim3 grid((unsigned)ceil_div(C, warps));
+  partition_gain_kernel<<<grid, warps * kWarp, 0, (cudaStream_t)stream>>>(
       (const uint32_t*)a, (const uint32_t*)mask, (const long long*)bounds,
       (int32_t*)out, C, W, P, vec);
   return (int)cudaGetLastError();

@@ -14,14 +14,24 @@ owner-local path over a shard mesh. With the plane off the only cost is one
 `_state.on` check, and results are bit-identical either way. `tier_match`
 and `match_batch` are not accounted, as the reference's `match_batch` is
 not.
+
+Tiles: `bit_matvec`, `coverage_gain`, `clause_match` and the direct
+`partition_gain` look their shape bucket up through
+`ExecutionPlan.tile_params` (`kernels.autotune`'s cache; a memoised probe)
+and pass a hit to the wrapper as a keyword, as the reference's dispatch
+does. A miss, or the cache turned off, keeps the wrapper's defaults. The
+mesh path of `partition_gain` is not tuned, as the reference's fused path
+is not.
 """
 from __future__ import annotations
 
+import functools
 import time
 
 import torch
 
 from repro_torch import distributed as _dist
+from repro_torch.kernels import autotune as _autotune
 from repro_torch.kernels import bit_matvec as _bm
 from repro_torch.kernels import clause_match as _cm
 from repro_torch.kernels import coverage_gain as _cg
@@ -94,8 +104,15 @@ def path_of(t: torch.Tensor) -> str:
 
 
 def _run(op: str, fn, cost, *args, path: str | None = None):
-    """`fn(*args)`, with cost accounting while the plane is on, labelled
-    `path` (default: where the operands lie)."""
+    """`fn(*args)` with the autotuned tiles of `op`'s shape bucket, and cost
+    accounting while the plane is on, labelled `path` (default: where the
+    operands lie)."""
+    shape_bucket = _autotune.bucket_from_args(op, args)
+    if shape_bucket is not None:
+        tiles = _dist.current_plan().tile_params(op, path_of(args[0]),
+                                                 shape_bucket)
+        if tiles:
+            fn = functools.partial(fn, **tiles)
     if not _obs_state.on:
         return fn(*args)
     prof = _profiler()
@@ -160,8 +177,13 @@ def partition_gain(a_bits: torch.Tensor, mask: torch.Tensor,
             return fused(a, m, bounds)
         return _run("partition_gain", fn, cost, a_bits, mask, path="mesh")
 
+    tiles = _dist.current_plan().tile_params(
+        "partition_gain", path_of(a_bits),
+        _autotune.bucket("partition_gain", a_bits.shape[0], a_bits.shape[1],
+                         len(bounds) - 1))
+
     def fn(a, m):
-        return _pg.partition_gain(a, m, bounds)
+        return _pg.partition_gain(a, m, bounds, **tiles)
 
     return _run("partition_gain", fn, cost, a_bits, mask)
 

@@ -4,6 +4,8 @@
 Kernel: `csrc/partition_gain.cu` (replaces the Pallas
 `repro.kernels.partition_gain.partition_gain`). CPU tensors take the plain
 version `ref.partition_gain`; CUDA tensors launch the kernel or raise.
+`warps` is the kernel's rows per block (`tiles.WARPS`; the autotuner's
+tile); the plain version ignores it.
 """
 from __future__ import annotations
 
@@ -12,6 +14,7 @@ import functools
 import torch
 
 from repro_torch.kernels import _build, ref
+from repro_torch.kernels.tiles import DEFAULT_WARPS, check_warps
 
 
 def check_bounds(bounds, w: int) -> tuple[int, ...]:
@@ -30,9 +33,10 @@ def _device_bounds(bounds: tuple[int, ...], device: torch.device) -> torch.Tenso
     return torch.tensor(bounds, dtype=torch.int64, device=device)
 
 
-def partition_gain(a_bits: torch.Tensor, mask: torch.Tensor,
-                   bounds) -> torch.Tensor:
+def partition_gain(a_bits: torch.Tensor, mask: torch.Tensor, bounds, *,
+                   warps: int = DEFAULT_WARPS) -> torch.Tensor:
     """int32 words a_bits [C, W], mask [W], P+1 word offsets -> int32 [C, P]."""
+    check_warps(warps)
     c, w = a_bits.shape
     bounds = check_bounds(bounds, w)
     if _build.on_cpu(a_bits, mask):
@@ -50,5 +54,5 @@ def partition_gain(a_bits: torch.Tensor, mask: torch.Tensor,
     _build.launch("partition_gain", a_bits.device, lambda lib, stream:
                   lib.partition_gain_launch(
                       a_bits.data_ptr(), mask.data_ptr(), dev_bounds.data_ptr(),
-                      out.data_ptr(), c, w, p, vec, stream))
+                      out.data_ptr(), c, w, p, vec, warps, stream))
     return out

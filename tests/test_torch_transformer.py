@@ -1,10 +1,14 @@
 """The port's dense transformer serving path (forward, lm_serve prefill,
-decode_step) against the reference's, on gemma2-2b's SMOKE config (2 layers,
-d 64, window 8, both softcaps) with the reference's `init_params` carried
-over by `convert.transformer_params_from_numpy`. f32 runs at rtol = atol =
-1e-4 (1e-3 for the 12-step decode chain); one bf16 run at a looser stated
-tolerance, since XLA and torch round bf16 products and elementwise ops at
-different places."""
+decode_step) against the reference's, on the SMOKE configs of the three
+ported LMs: gemma2-2b (2 layers, window 8, both softcaps), gemma3-12b (3
+layers, window 8 on 2 of 3, QK-norm, no softcap) and internlm2-1.8b (2
+global layers, untied unembedding, no softcap). The reference's
+`init_params` are carried over by `convert.transformer_params_from_numpy`,
+with every norm scale drawn away from its zero init (so a scale applied
+wrongly, the QK-norm's included, shows). f32 runs at rtol = atol = 1e-4
+(1e-3 for the 12-step decode chain); bf16 at a looser stated tolerance,
+since XLA and torch round bf16 products and elementwise ops at different
+places."""
 import dataclasses
 
 import jax
@@ -14,10 +18,14 @@ import pytest
 import torch
 
 from repro.configs import gemma2_2b as jgemma
+from repro.configs import gemma3_12b as jgemma3
+from repro.configs import internlm2_1_8b as jintern
 from repro.configs import registry as jregistry
 from repro.models import transformer as JT
 from repro_torch import convert
 from repro_torch.configs import gemma2_2b as tgemma
+from repro_torch.configs import gemma3_12b as tgemma3
+from repro_torch.configs import internlm2_1_8b as tintern
 from repro_torch.configs import registry as tregistry
 from repro_torch.models import common as tcommon
 from repro_torch.models import transformer as TT
@@ -26,16 +34,38 @@ from repro_torch.models import transformer as TT
 # differently rounded products and norms stay within a few of them
 BF16_TOL = 5e-2
 
+# arch name -> (reference config module, port config module)
+ARCHS = {"gemma2-2b": (jgemma, tgemma), "gemma3-12b": (jgemma3, tgemma3),
+         "internlm2-1.8b": (jintern, tintern)}
+SMOKES = list(ARCHS)
+_NORMS = ("ln1", "ln2", "qnorm", "knorm", "final_norm")
 
-def _cfgs(dtype: str):
-    return (dataclasses.replace(jgemma.SMOKE, dtype=dtype),
-            dataclasses.replace(tgemma.SMOKE, dtype=dtype))
+
+def _cfgs(arch: str, dtype: str):
+    jmod, tmod = ARCHS[arch]
+    return (dataclasses.replace(jmod.SMOKE, dtype=dtype),
+            dataclasses.replace(tmod.SMOKE, dtype=dtype))
+
+
+def _norms_drawn(tree, rng):
+    """The tree with every norm scale drawn from N(0, 0.2^2) (the init is
+    zero, i.e. a scale of 1)."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out[k] = _norms_drawn(v, rng)
+        elif k in _NORMS:
+            out[k] = (0.2 * rng.standard_normal(v.shape)).astype(v.dtype)
+        else:
+            out[k] = v
+    return out
 
 
 def _params(jcfg, tcfg, seed=0):
-    jp = JT.init_params(jax.random.key(seed), jcfg)
-    tp = convert.transformer_params_from_numpy(
-        jax.tree.map(np.asarray, jp), tcfg, device="cpu")
+    tree = _norms_drawn(jax.tree.map(np.asarray, JT.init_params(jax.random.key(seed), jcfg)),
+                        np.random.default_rng(seed + 100))
+    jp = jax.tree.map(jnp.asarray, tree)
+    tp = convert.transformer_params_from_numpy(tree, tcfg, device="cpu")
     return jp, tp
 
 
@@ -49,8 +79,9 @@ def _close(got: torch.Tensor, want, tol):
 
 
 @pytest.mark.parametrize("dtype,tol", [("float32", 1e-4), ("bfloat16", BF16_TOL)])
-def test_forward_hidden_states(dtype, tol):
-    jcfg, tcfg = _cfgs(dtype)
+@pytest.mark.parametrize("arch", SMOKES)
+def test_forward_hidden_states(arch, dtype, tol):
+    jcfg, tcfg = _cfgs(arch, dtype)
     jp, tp = _params(jcfg, tcfg)
     toks = _tokens(jcfg, 2, 24)
     want, _ = JT.forward(jp, jnp.asarray(toks), jcfg)
@@ -60,9 +91,11 @@ def test_forward_hidden_states(dtype, tol):
 
 
 @pytest.mark.parametrize("dtype,tol", [("float32", 1e-4), ("bfloat16", BF16_TOL)])
-def test_prefill_logits(dtype, tol):
-    """lm_serve's prefill: last-token logits without the final softcap."""
-    jcfg, tcfg = _cfgs(dtype)
+@pytest.mark.parametrize("arch", SMOKES)
+def test_prefill_logits(arch, dtype, tol):
+    """lm_serve's prefill: last-token logits without the final softcap
+    (through the untied unembedding on internlm2)."""
+    jcfg, tcfg = _cfgs(arch, dtype)
     jp, tp = _params(jcfg, tcfg)
     toks = _tokens(jcfg, 2, 20)
     want = jregistry.lm_serve(jcfg, "prefill_32k")(jp, {"tokens": jnp.asarray(toks)})
@@ -71,10 +104,12 @@ def test_prefill_logits(dtype, tol):
     _close(got, want, tol)
 
 
-def test_decode_steps_logits_and_cache():
+@pytest.mark.parametrize("arch", SMOKES)
+def test_decode_steps_logits_and_cache(arch):
     """12 decode steps from an empty cache: logits and the updated cache
-    equal the reference's at each step (f32, 1e-3 for the chain)."""
-    jcfg, tcfg = _cfgs("float32")
+    equal the reference's at each step (f32, 1e-3 for the chain; the
+    window of 8 is passed at step 9)."""
+    jcfg, tcfg = _cfgs(arch, "float32")
     jp, tp = _params(jcfg, tcfg)
     toks = _tokens(jcfg, 2, 12, seed=3)
     jcache = JT.init_cache(jcfg, 2, 16)
@@ -92,29 +127,29 @@ def test_decode_steps_logits_and_cache():
 
 
 @pytest.mark.parametrize("dtype,tol", [("float32", 1e-3), ("bfloat16", BF16_TOL)])
-def test_decode_matches_forward_with_window(dtype, tol):
-    """The port's own: teacher-forcing 12 tokens through decode_step gives
-    forward's softcapped logits at every position (window 4 < 12, so the
-    local layer's window is exercised); the reference's test_models check,
-    on the port's own init_params."""
-    cfg = TT.TransformerConfig(
-        name="t", n_layers=2, d_model=32, n_heads=4, n_kv_heads=2, d_head=8,
-        d_ff=64, vocab_size=64, local_window=4, global_every=2,
-        attn_softcap=50.0, final_softcap=30.0, dtype=dtype)
-    params = TT.serving_params(TT.init_params(torch.Generator().manual_seed(0), cfg), cfg)
-    toks = torch.from_numpy(_tokens(cfg, 1, 12))
+@pytest.mark.parametrize("arch", SMOKES)
+def test_decode_matches_forward_with_window(arch, dtype, tol):
+    """The port's own: teacher-forcing 16 tokens through decode_step gives
+    forward's softcapped logits at every position (the SMOKE windows of 8 <
+    16, so the local layers' windows are exercised), on the reference's
+    converted params cast by `serving_params`; the reference's test_models
+    check."""
+    jcfg, cfg = _cfgs(arch, dtype)
+    params = TT.serving_params(_params(jcfg, cfg)[1], cfg)
+    toks = torch.from_numpy(_tokens(cfg, 1, 16))
     h, _ = TT.forward(params, toks, cfg)
     full = tcommon.softcap((h @ TT.unembed_matrix(params, cfg).to(h.dtype)).float(),
                            cfg.final_softcap)
     cache = TT.init_cache(cfg, 1, 16, device="cpu")
-    for i in range(12):
+    for i in range(16):
         step, cache = TT.decode_step(params, cache, toks[:, i:i + 1], i, cfg)
         np.testing.assert_allclose(step.numpy(), full[:, i].numpy(), rtol=tol, atol=tol)
 
 
-def test_serving_params_gives_the_same_numbers():
+@pytest.mark.parametrize("arch", SMOKES)
+def test_serving_params_gives_the_same_numbers(arch):
     """The one-time cast to the activation dtype changes no output."""
-    cfg = tgemma.SMOKE
+    cfg = ARCHS[arch][1].SMOKE
     params = TT.init_params(torch.Generator().manual_seed(2), cfg)
     toks = torch.from_numpy(_tokens(cfg, 1, 16))
     a, _ = TT.forward(params, toks, cfg)
@@ -122,25 +157,40 @@ def test_serving_params_gives_the_same_numbers():
     assert torch.equal(a, b)
 
 
-def test_gemma2_2b_config_matches_reference():
-    j, t = jgemma.CONFIG, tgemma.CONFIG
+# (param count, the first six layers' windows) of each full config
+FULL = {"gemma2-2b": (2614222080, [4096, None, 4096, None, 4096, None]),
+        "gemma3-12b": (11765419776, [1024] * 5 + [None]),
+        "internlm2-1.8b": (1889110016, [None] * 6)}
+
+
+@pytest.mark.parametrize("arch", SMOKES)
+def test_config_matches_reference(arch):
+    """CONFIG and SMOKE equal the reference's field for field: gemma3's one
+    rope_theta for every layer and QK-norm, internlm2's untied unembedding,
+    neither with a softcap."""
+    (jmod, tmod), (count, windows) = ARCHS[arch], FULL[arch]
+    j, t = jmod.CONFIG, tmod.CONFIG
     assert dataclasses.asdict(t) == dataclasses.asdict(j)
-    assert t.param_count() == j.param_count() == 2614222080
+    assert t.param_count() == j.param_count() == count
     assert t.is_global_layer() == j.is_global_layer().tolist()
-    assert [TT._window_of(t, f) for f in t.is_global_layer()[:4]] == [4096, None, 4096, None]
-    assert dataclasses.asdict(tgemma.SMOKE) == dataclasses.asdict(jgemma.SMOKE)
+    assert [TT._window_of(t, f) for f in t.is_global_layer()[:6]] == windows
+    assert dataclasses.asdict(tmod.SMOKE) == dataclasses.asdict(jmod.SMOKE)
+    assert t.name == arch
 
 
-def test_registry_cells_match_reference():
-    tarch, jarch = tregistry.get_arch("gemma2-2b"), jregistry.get_arch("gemma2-2b")
+@pytest.mark.parametrize("arch", SMOKES)
+def test_registry_cells_match_reference(arch):
+    tarch, jarch = tregistry.get_arch(arch), jregistry.get_arch(arch)
+    cfg = ARCHS[arch][1].CONFIG
     assert tarch.shapes == jarch.shapes and tarch.skips == jarch.skips
-    assert tarch.config_for("decode_32k") is tgemma.CONFIG
+    assert ("long_500k" in tarch.skips) == cfg.pure_full_attention
+    assert tarch.config_for("decode_32k") is cfg
     mesh = jax.make_mesh((1,), ("data",))
-    pre = jregistry.lm_cell(jgemma.CONFIG, "prefill_32k", mesh, 1)
+    pre = jregistry.lm_cell(ARCHS[arch][0].CONFIG, "prefill_32k", mesh, 1)
     assert tarch.cell_for("prefill_32k").dims == dict(
         zip(("batch", "seq_len"), pre.inputs["tokens"].shape))
     for shape in ("decode_32k", "long_500k"):
-        ref = jregistry.lm_cell(jgemma.CONFIG, shape, mesh, 1)
+        ref = jregistry.lm_cell(ARCHS[arch][0].CONFIG, shape, mesh, 1)
         cell = tarch.cell_for(shape)
         assert cell.kind == ref.kind == "decode"
         assert cell.dims["cache"] == ref.inputs["cache"]["k"].shape
@@ -158,7 +208,7 @@ def test_moe_configs_are_refused():
 def test_entry_points_without_device_raise_when_there_is_no_card(monkeypatch):
     """The cache and the converted weights go to the card unless the caller
     names a device; with no card they raise instead of landing on the CPU."""
-    jcfg, tcfg = _cfgs("float32")
+    jcfg, tcfg = _cfgs("gemma2-2b", "float32")
     tree = jax.tree.map(np.asarray, JT.init_params(jax.random.key(0), jcfg))
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
