@@ -113,17 +113,32 @@ a non-zero exit):
         prefill and two decode steps under torch.profiler for the device's
         busy time.
      c. internlm2-1.8b (24 layers, Hq 16, Hkv 8, D 128, no window, no
-        softcap, untied unembedding) and gemma3-12b (48 layers, Hq 16, Hkv
-        8, D 256, window 1024 on 5 of 6 layers, QK-norm, no softcap) at
-        full width and depth, parameters made on the card from --seed:
+        softcap, untied unembedding) at full width and depth and gemma3-12b
+        (24 of its 48 layers, Hq 16, Hkv 8, D 256, window 1024 on 5 of 6
+        layers, QK-norm, no softcap) at full width, parameters made on the
+        card from --seed:
         flash_attention == its plain version at each model's shapes (a),
         then each setting timed beside one SDPA call where SDPA computes
         the same function (every internlm2 layer, gemma3's global layers)
         and one compiled flex_attention call where it does not (gemma3's
         windowed layers); then the model as in b: decode == forward, card
         == CPU at 2 layers, prefill B=1 x 32768, decode at B=8 (internlm2)
-        and B=2 (gemma3: its f32 tree, 47 GB, freed before the bf16
-        prefill and the 25.8 GB cache), each run's launches counted. the sharded fleet (the host path, and fused on
+        and B=2 (gemma3: its f32 tree freed before the bf16 prefill and
+        the cache), each run's launches counted.
+     d. kimi-k2 (Hq 64, Hkv 8, 384 experts, top 8) at 1 layer and llama4
+        (Hq 40, Hkv 8, 128 experts, top 1) at 2, full width, bf16
+        parameters made on the card from --seed (a layer's experts are
+        33.8 and 32.2 GB): flash_attention == its plain version at each
+        model's shapes and timed beside SDPA (as in c); decode_step ==
+        forward over 64 tokens in bf16 at the capacity that drops nothing,
+        positions routed otherwise at a gate near-tie excluded and logged;
+        card == CPU at the SMOKE configs (f32 and bf16) and on one MoE layer
+        at full width with 32 / 16 experts (f32); expert parallelism on
+        Mesh("model", 4 x cuda:0) == the one-entry call (a full layer over
+        4096 tokens in bf16, SMOKE in f32); then prefill B=1 x 32768 and
+        decode at B=8 against a 32768-position cache as in b, with the
+        (token, choice) pairs each layer drops at the reference's capacity.
+  5. the sharded fleet (the host path, and fused on
      a shard mesh) and live ingestion, after the production kernel timings
      of phase 1 and before phase 4, each path's launches counted from 0, in
      the order a, e-a, f-a, d (with f-c), b, e-b, c (with f-b), e-c (with
@@ -278,19 +293,55 @@ REDUCED = {
             "batches of 512 per shards x replicas, 3 ingest versions; 5f-b "
             "serves 5c's and 5e-c's batches again, fused",
 }
-# the other ported LMs at full width and depth (phase 4c), each with its
-# decode batch: B x 32768 cached positions are 25.8 GB on both
-LM_MODELS = (("internlm2_1_8b", 8), ("gemma3_12b", 2))
+# the other ported LMs at full width (phase 4c), each with its
+# decode batch and its layers on the card (None: all): internlm2's B=8 x
+# 32768 cached positions are 25.8 GB; gemma3-12b runs 24 of its 48 layers
+# (the 5:1 pattern kept), cut to hold the script near 950 s
+LM_MODELS = (("internlm2_1_8b", 8, None), ("gemma3_12b", 2, 24))
+# phase 4d: the MoE models at full width, (config module, layers on one card,
+# experts of the one-layer card == CPU check): kimi-k2's bf16 layer is 38.8 GB
+# (33.8 of experts) beside 4.7 GB of embedding and unembedding, llama4's 32.4
+# GB beside 4.1 GB; 32 and 16 experts keep the CPU's f32 copy at 5.6 and 8.1 GB
+MOE_MODELS = (("kimi_k2_1t_a32b", 1, 32), ("llama4_maverick_400b_a17b", 2, 16))
+MOE_EP_TOKENS = 4096          # tokens of the expert-parallel check at full width
+NEAR_TIE = 2.0 ** -6          # f32 gate-probability gap under which bf16 may route otherwise
 LM_MODEL_REDUCED = {
     "internlm2-1.8b": {
         "prefill_batch": "1 (prefill_32k has 32); length 32768 kept",
         "decode_batch": "8 (decode_32k has 128, whose cache would be 412 GB); "
                         "cache length 32768 kept (25.8 GB)"},
     "gemma3-12b": {
+        "layers": "24 of 48 (4 global, 20 windowed: the 5:1 pattern kept); "
+                  "cut in PR 24, when phase 4d brought the script past 950 s",
         "prefill_batch": "1 (prefill_32k has 32); length 32768 kept",
-        "decode_batch": "2 (decode_32k has 128, whose cache would be 1649 GB; "
-                        "B=8 would need 103 GB); cache length 32768 kept "
-                        "(25.8 GB)"},
+        "decode_batch": "2 (decode_32k has 128, whose cache would be 1649 GB "
+                        "at 48 layers); cache length 32768 kept (12.9 GB)"},
+    "kimi-k2-1t-a32b": {
+        "layers": "1 (61 in the config: 2084 GB of bf16 weights; one layer is "
+                  "38.8 GB beside 4.7 GB of embedding and unembedding)",
+        "prefill_batch": "1 (prefill_32k has 32); length 32768 kept",
+        "decode_batch": "8 (decode_32k has 128); cache length 32768 kept "
+                        "(1.07 GB a layer)",
+        "decode_vs_forward": "capacity factor 48 (n_experts / top_k: nothing "
+                             "drops); no f32 model at full width (a layer's f32 "
+                             "experts are 67.6 GB): the noise forward keeps the "
+                             "bf16 weights",
+        "card_vs_cpu": "the SMOKE config (f32 and bf16), and one MoE layer at full "
+                       "d_model, d_expert, top_k and capacity factor over 256 "
+                       "tokens with 32 of 384 experts (f32, 5.6 GB on the CPU)"},
+    "llama4-maverick-400b-a17b": {
+        "layers": "2 (48 in the config: 1556 GB of bf16 weights; two layers are "
+                  "64.8 GB beside 4.1 GB of embedding and unembedding)",
+        "prefill_batch": "1 (prefill_32k has 32); length 32768 kept",
+        "decode_batch": "8 (decode_32k has 128); cache length 32768 kept "
+                        "(1.07 GB a layer)",
+        "decode_vs_forward": "capacity factor 128 (n_experts / top_k: nothing "
+                             "drops); no f32 model at full width (a layer's f32 "
+                             "experts are 64.4 GB): the noise forward keeps the "
+                             "bf16 weights",
+        "card_vs_cpu": "the SMOKE config (f32 and bf16), and one MoE layer at full "
+                       "d_model, d_expert, top_k and capacity factor over 256 "
+                       "tokens with 16 of 128 experts (f32, 8.1 GB on the CPU)"},
 }
 
 
@@ -2955,7 +3006,7 @@ BF16_NOISE_FACTOR = 1.25
 # rows that see no key (the window starts past the last valid key), alone,
 # mixed with live rows in one tile, and kv_len 0; bf16 D = 256 row counts
 # that are not a multiple of flash_prefill's 128, with q_offset > 0 and
-# kv_len < Skv
+# kv_len < Skv; the MoE models' head groups
 FA_CASES = [
     # b, sq, skv, hq, hkv, d, causal, window, cap, q_offset, kv_len
     (1, 16, 16, 2, 1, 8, True, None, None, 0, None),
@@ -2980,6 +3031,16 @@ FA_CASES = [
     (1, 20, 50, 4, 2, 128, True, None, 30.0, 10, 0),
     (1, 100, 400, 8, 4, 256, True, None, 50.0, 200, 280),
     (2, 70, 90, 4, 4, 128, False, 30, None, 5, 80),
+    # the MoE models' head groups at D 128: G 5 (llama4, Hq 40 / Hkv 8) and
+    # G 8 (kimi-k2, Hq 64 / Hkv 8), Sq not a multiple of 64 / G (a
+    # position's heads straddle flash_prefill's 64-row halves and its CTAs),
+    # a q_offset and kv_len < Skv, and one decode row each
+    (1, 45, 45, 40, 8, 128, True, None, None, 0, None),
+    (2, 201, 300, 40, 8, 128, True, None, None, 40, 260),
+    (1, 37, 37, 64, 8, 128, True, None, None, 0, None),
+    (1, 130, 200, 64, 8, 128, True, None, None, 70, 200),
+    (3, 1, 700, 40, 8, 128, True, None, None, 650, 651),
+    (2, 1, 500, 64, 8, 128, True, None, None, 499, None),
 ]
 
 
@@ -3565,8 +3626,8 @@ def busy_share(part: dict | None, kernel: str, wall_ms: float) -> str:
 
 def phase4_model(seed: int, dev, cfg=None, decode_b: int | None = None,
                  reduced: dict | None = None, noise_tol: bool = False) -> dict:
-    """An LM at full width and depth through lm_serve (gemma2-2b unless
-    `cfg` names another): decode matches forward (f32 and bf16), card
+    """An LM at full width and `cfg.n_layers` layers through lm_serve
+    (gemma2-2b unless `cfg` names another): decode matches forward (f32 and bf16), card
     matches CPU at 2 layers, then prefill B=1 x 32768 and decode steps at
     `decode_b` against a 32768-position cache. The f32 tree is freed once
     its bf16 copy is made, before the prefill and the cache. `noise_tol`:
@@ -3611,17 +3672,36 @@ def phase4_model(seed: int, dev, cfg=None, decode_b: int | None = None,
     res.update(decode_vs_forward_bf16=bf["err"], bf16_atol=bf["atol"],
                bf16_forward_vs_f32=bf["fwd_vs_f32"])
     log(f"[phase 4] {cfg.name} decode_step == forward over a 64-token prompt at full "
-        f"width and depth: max abs logit err f32 {res['decode_vs_forward_f32']:.3g} "
+        f"width, {cfg.n_layers} layers: max abs logit err f32 {res['decode_vs_forward_f32']:.3g} "
         f"(1e-3), bf16 {bf['err']:.3g} (atol {bf['atol']:.4g}, rtol {BF16_TOL}; "
         f"the bf16 forward's own distance from the f32 forward {bf['fwd_vs_f32']:.3g}); "
         f"{time.perf_counter() - t:.1f}s")
     res["card_vs_cpu"] = card_vs_cpu(sp, cfg, gen)
+    lm_serve_path(sp, cfg, gen, dev, decode_b, res)
+    return res
 
+
+def lm_serve_path(sp, cfg, gen, dev, decode_b: int, res: dict,
+                  tag: str = "[phase 4]") -> None:
+    """The main path on serving parameters `sp` into `res`: prefill B=1 x
+    32768 (a warm-up, then one timed run whose launches must be
+    flash_prefill's alone, one per layer), then decode steps at `decode_b`
+    against a 32768-position cache filled at random (a warm-up step, then
+    DECODE_STEPS timed, flash_decode's launches alone, one per layer and
+    step), each also traced once for the device's busy time. On an MoE
+    model the warm-up runs count the (token, choice) pairs each layer
+    keeps (`moe_drops`): prefill's drop share per layer, decode's dropped
+    picks per step."""
+    from repro_torch.configs import registry
+    from repro_torch.kernels import _build
+    from repro_torch.models import transformer as T
     # the main path: prefill, then decode steps, each run's launches counted
     prefill = registry.lm_serve(cfg, "prefill_32k")
     toks = torch.randint(0, cfg.vocab_size, (PREFILL_B, PREFILL_S), generator=gen,
                          device=dev)
-    prefill(sp, {"tokens": toks})                    # warm-up
+    kept_prefill: list = []
+    with moe_drops(kept_prefill):
+        prefill(sp, {"tokens": toks})                # warm-up
     torch.cuda.synchronize()
     _build.reset_launches()
     t = time.perf_counter()
@@ -3638,10 +3718,14 @@ def phase4_model(seed: int, dev, cfg=None, decode_b: int | None = None,
           and bool(torch.isfinite(logits).all()), "prefill logits not finite")
     res["prefill"] = dict(s=dt, tokens_per_s=PREFILL_B * PREFILL_S / dt,
                           launches=launches["flash_prefill"])
-    log(f"[phase 4] {cfg.name} prefill B={PREFILL_B} S={PREFILL_S}: {dt * 1e3:.1f} ms, "
-        f"{res['prefill']['tokens_per_s']:.1f} tokens/s; launches {launches}")
+    if kept_prefill:
+        res["prefill"]["drop_share"] = [1 - k / n for k, n in kept_prefill]
+    log(f"{tag} {cfg.name} prefill B={PREFILL_B} S={PREFILL_S}: {dt * 1e3:.1f} ms, "
+        f"{res['prefill']['tokens_per_s']:.1f} tokens/s; launches {launches}"
+        + (f"; (token, choice) pairs dropped per layer "
+           f"{[round(x, 5) for x in res['prefill']['drop_share']]}" if kept_prefill else ""))
     res["prefill"]["device_ms"] = device_ms(lambda i: prefill(sp, {"tokens": toks}), 1)
-    log(f"[phase 4] {cfg.name} prefill under torch.profiler: "
+    log(f"{tag} {cfg.name} prefill under torch.profiler: "
         + busy_share(res["prefill"]["device_ms"], "flash_prefill", dt * 1e3))
     del logits
     torch.cuda.empty_cache()
@@ -3653,12 +3737,14 @@ def phase4_model(seed: int, dev, cfg=None, decode_b: int | None = None,
         for i in range(cfg.n_layers):
             cache[key][i].normal_(generator=gen)
     torch.cuda.synchronize()
-    log(f"[phase 4] {cfg.name} decode cache {tuple(cache['k'].shape)} x2 "
+    log(f"{tag} {cfg.name} decode cache {tuple(cache['k'].shape)} x2 "
         f"({2 * cache['k'].numel() * 2 / 2 ** 30:.1f} GiB) filled in "
         f"{time.perf_counter() - t:.1f}s")
     tok = torch.randint(0, cfg.vocab_size, (decode_b, 1), generator=gen, device=dev)
     start = DECODE_S - DECODE_STEPS - 1
-    decode(sp, {"cache": cache, "tokens": tok, "cur_len": start})     # warm-up
+    kept_decode: list = []
+    with moe_drops(kept_decode):
+        decode(sp, {"cache": cache, "tokens": tok, "cur_len": start})     # warm-up
     torch.cuda.synchronize()
     _build.reset_launches()
     steps = []
@@ -3678,20 +3764,23 @@ def phase4_model(seed: int, dev, cfg=None, decode_b: int | None = None,
           f"{launches['flash_prefill']} times")
     res["decode"] = dict(ms_per_step=statistics.median(steps), steps_ms=steps,
                          launches=launches["flash_decode"])
+    if kept_decode:
+        res["decode"]["dropped_per_step"] = sum(n - k for k, n in kept_decode)
     res["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
-    log(f"[phase 4] {cfg.name} decode B={decode_b} against a {DECODE_S}-position cache: "
+    log(f"{tag} {cfg.name} decode B={decode_b} against a {DECODE_S}-position cache: "
         f"{res['decode']['ms_per_step']:.3f} ms per step (median; steps {steps}); "
-        f"launches {launches}; max_memory_allocated {res['peak_gib']:.2f} GiB")
+        f"launches {launches}; max_memory_allocated {res['peak_gib']:.2f} GiB"
+        + (f"; picks dropped in the warm-up step {res['decode']['dropped_per_step']} "
+           f"of {sum(n for _, n in kept_decode)}" if kept_decode else ""))
     # two more steps over the last two positions again, traced
     prof = device_ms(lambda i: decode(sp, {"cache": cache, "tokens": tok,
                                            "cur_len": DECODE_S - 2 + i}), 2)
     res["decode"]["device_ms"] = prof
-    log(f"[phase 4] {cfg.name} decode under torch.profiler, per step: "
+    log(f"{tag} {cfg.name} decode under torch.profiler, per step: "
         + busy_share(prof, "flash_decode", res["decode"]["ms_per_step"]))
-    return res
 
 
-def phase4_kernel_lm(seed: int, dev, cfg, decode_b: int) -> dict:
+def phase4_kernel_lm(seed: int, dev, cfg, decode_b: int, tag: str = "[phase 4c]") -> dict:
     """Phase 4c's kernel part: flash_attention at an LM's own shapes against
     its plain version, at each window its layers have (its local window and
     global): prefill B=1 x 32768 (bf16 on flash_prefill, f32 copies on the
@@ -3736,7 +3825,7 @@ def phase4_kernel_lm(seed: int, dev, cfg, decode_b: int) -> dict:
                      "flash_decode": ["bf16", "f32"]},
           f"{cfg.name} shapes took the routes {routed}")
     for kn, wk in worst.items():
-        log(f"[phase 4c] {kn} == plain at {cfg.name} shapes (Hq {hq}, Hkv {hkv}, "
+        log(f"{tag} {kn} == plain at {cfg.name} shapes (Hq {hq}, Hkv {hkv}, "
             f"D {d}, windows {windows}; prefill {s}, decode B={decode_b} at "
             f"cur_len {curs}): worst error / limit "
             + ", ".join(f"{n} {wk[n]:.3g}" for n in routed[kn])
@@ -3758,7 +3847,7 @@ def phase4_kernel_lm(seed: int, dev, cfg, decode_b: int) -> dict:
     for name, r in settings.items():
         kn = "flash_decode" if name.startswith("decode") else "flash_prefill"
         lib = "SDPA" if r["library_call"].startswith("scaled") else "flex_attention"
-        log(f"[phase 4c] {cfg.name} {kn} {name} {r['shape']} window {r['window']}: "
+        log(f"{tag} {cfg.name} {kn} {name} {r['shape']} window {r['window']}: "
             f"{r['ms']:.3f} ms"
             + (f" (device {fmt_ms(r['device_ms'])}, {lib} device "
                f"{fmt_ms(r['library_device_ms'])} by the profiler)" if "device_ms" in r else "")
@@ -3769,7 +3858,7 @@ def phase4_kernel_lm(seed: int, dev, cfg, decode_b: int) -> dict:
                 layers={"global": sum(flags), "local": len(flags) - sum(flags)})
 
 
-def lm_model_entries(kern: dict, model: dict, cfg) -> dict:
+def lm_model_entries(kern: dict, model: dict, cfg, tag: str = "[phase 4c]") -> dict:
     """One LM's entries (phase 4c) for the records of flash_prefill,
     flash_decode and the tile kernel: each setting's times beside its
     bound, plain version and SDPA or flex_attention, the model's prefill
@@ -3794,7 +3883,7 @@ def lm_model_entries(kern: dict, model: dict, cfg) -> dict:
         else:
             out[kn].update(decode_ms_per_step=wall,
                            decode_device_ms_per_step=model["decode"]["device_ms"])
-        log(f"[phase 4c] {cfg.name} attention share of {run}: {attn:.3f} of "
+        log(f"{tag} {cfg.name} attention share of {run}: {attn:.3f} of "
             f"{wall:.3f} ms ({attn / wall:.1%}; {n['global']} global and "
             f"{n['local']} local layers at the timed settings' kernel times)")
     out["flash_attention"] = dict(
@@ -3806,14 +3895,16 @@ def lm_model_entries(kern: dict, model: dict, cfg) -> dict:
 
 
 def phase4_lm(seed: int, dev) -> dict:
-    """Phase 4c: the other ported LMs (`LM_MODELS`) at full width and depth,
-    each its kernels at its shapes then its model path; returns their
-    entries by kernel and model."""
+    """Phase 4c: the other ported LMs (`LM_MODELS`) at full width, at the
+    depth listed there, each its kernels at its shapes then its model
+    path; returns their entries by kernel and model."""
     import importlib
     entries: dict = {}
-    for mod, decode_b in LM_MODELS:
+    for mod, decode_b, layers in LM_MODELS:
         t = time.perf_counter()
         cfg = importlib.import_module(f"repro_torch.configs.{mod}").CONFIG
+        if layers is not None:
+            cfg = dataclasses.replace(cfg, n_layers=layers)
         kern = phase4_kernel_lm(seed, dev, cfg, decode_b)
         gc.collect()
         torch.cuda.empty_cache()
@@ -3824,6 +3915,372 @@ def phase4_lm(seed: int, dev) -> dict:
         for kn, e in lm_model_entries(kern, model, cfg).items():
             entries.setdefault(kn, {})[cfg.name] = e
         log(f"[phase 4c] {cfg.name}: {time.perf_counter() - t:.1f}s")
+    return entries
+
+
+# -- phase 4d: the MoE models ---------------------------------------------------
+
+@contextlib.contextmanager
+def moe_routes(sink: list):
+    """Record each `moe._route` call made inside the block into `sink`: its
+    top-k experts [T, k], sorted (a set: the order only moves rounding), and
+    per token the smallest gap between consecutive f32 gate probabilities
+    among the k + 1 largest, computed from the call's input in f32 (the
+    routing's near-tie margin)."""
+    from repro_torch.models import moe
+    inner = moe._route
+
+    def spy(params, x, cfg):
+        out = inner(params, x, cfg)
+        probs = torch.softmax(x.float() @ params["gate"].float(), dim=-1)
+        top = torch.topk(probs, min(cfg.top_k + 1, cfg.n_experts), dim=-1).values
+        sink.append({"experts": torch.sort(out[0], dim=-1).values,
+                     "margin": (top[:, :-1] - top[:, 1:]).min(-1).values})
+        return out
+    moe._route = spy
+    try:
+        yield sink
+    finally:
+        moe._route = inner
+
+
+@contextlib.contextmanager
+def moe_drops(sink: list):
+    """Record (pairs kept, pairs) of each MoE dispatch inside the block (one
+    per layer and call) into `sink`; reads them back, so only in untimed
+    runs. Records nothing on a dense model."""
+    from repro_torch.models import moe
+    inner = moe.capacity_slots
+
+    def spy(topk_e, lo, e_local, cap_e):
+        slot, keep = inner(topk_e, lo, e_local, cap_e)
+        sink.append((int(keep.sum()), keep.numel()))
+        return slot, keep
+    moe.capacity_slots = spy
+    try:
+        yield sink
+    finally:
+        moe.capacity_slots = inner
+
+
+@contextlib.contextmanager
+def moe_oracle():
+    """Inside the block the MoE FFN is `moe_apply_dense_oracle`, which casts
+    one expert at a time to the activation dtype: at a capacity that drops
+    nothing it computes moe_apply's function without an f32 copy of a
+    layer's experts (67.6 GB at kimi-k2)."""
+    from repro_torch.models import moe
+    inner = moe.moe_apply
+
+    def oracle(params, x, cfg):
+        return (moe.moe_apply_dense_oracle(params, x, cfg),
+                torch.zeros((), dtype=torch.float32, device=x.device))
+    moe.moe_apply = oracle
+    try:
+        yield
+    finally:
+        moe.moe_apply = inner
+
+
+def no_drops(cfg):
+    """`cfg` at the MoE capacity factor n_experts / top_k: no pair drops.
+    A decode step's capacity comes from its B tokens and a forward's from
+    B*S, so only there does decode == forward hold for MoE (the reference's
+    own gap is up to 3.5 logits at its SMOKE capacity)."""
+    return dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=cfg.moe.n_experts / cfg.moe.top_k))
+
+
+def route_diff(a: list, b: list, n_tok: int) -> dict:
+    """{token: [layers]} where two runs' recorded routings (`moe_routes`,
+    one entry per layer, each over the same n_tok tokens) choose different
+    expert sets."""
+    out: dict = {}
+    for layer, (ra, rb) in enumerate(zip(a, b)):
+        for t in torch.nonzero((ra["experts"] != rb["experts"]).any(-1))[:, 0].tolist():
+            out.setdefault(t, []).append(layer)
+    return out
+
+
+def moe_decode_vs_forward(sp, prompt, cfg) -> dict:
+    """decode_step == forward in bf16 over `prompt` [1, n] at the capacity
+    that drops nothing (`no_drops`). The atol follows PR 23's noise rule:
+    BF16_NOISE_FACTOR x the bf16 forward's distance from an f32 forward on
+    the same prompt (the bf16 weights, the experts one at a time through
+    the dense oracle, `moe_oracle`), where that is above BF16_TOL. A
+    position where decode and forward route some layer's token to
+    different experts (a bf16 near-tie of the gate) is excluded and logged
+    with its f32 margin (from the f32 forward), which must be <= NEAR_TIE;
+    the noise is measured where the f32 and bf16 forwards route alike, up to
+    the first position they route otherwise in a layer before the last."""
+    from repro_torch.kernels import _build
+    from repro_torch.models import common
+    from repro_torch.models import transformer as T
+    cfg = no_drops(cfg)
+    n, L = prompt.shape[1], cfg.n_layers
+    unembed = T.unembed_matrix(sp, cfg)
+    fwd, f32r, dec = [], [], []
+    with moe_routes(fwd):
+        h, _ = T.forward(sp, prompt, cfg)
+    full = common.softcap((h @ unembed.to(h.dtype)).float(), cfg.final_softcap)
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    _build.reset_launches()
+    with moe_routes(f32r), moe_oracle():
+        h32, _ = T.forward(sp, prompt, cfg32)
+    f32_launches = dict(_build.LAUNCHES)
+    full32 = common.softcap(h32 @ unembed.float(), cfg.final_softcap)
+    del h, h32
+    cache = T.init_cache(cfg, 1, n, device=prompt.device)
+    steps = []
+    with moe_routes(dec):
+        for i in range(n):
+            step, cache = T.decode_step(sp, cache, prompt[:, i:i + 1], i, cfg)
+            steps.append(step[0])
+    del cache
+    # decode's routing: one call per step and layer, over one token
+    dec_layers = [{"experts": torch.cat([dec[i * L + l]["experts"] for i in range(n)]),
+                   "margin": torch.cat([dec[i * L + l]["margin"] for i in range(n)])}
+                  for l in range(L)]
+    flips = route_diff(fwd, dec_layers, n)
+    near = []
+    for t, layers in sorted(flips.items()):
+        m = min(float(f32r[l]["margin"][t]) for l in layers)
+        near.append((t, layers, m))
+        check(m <= NEAR_TIE, f"{cfg.name} decode and forward route position {t} "
+              f"(layers {layers}) otherwise with an f32 top-k margin {m:.3g} > 2^-6")
+    # the noise: where the f32 and bf16 forwards route alike, and before the
+    # first position they route otherwise in a layer with another after it
+    # (whose attention carries that position's change to every later one)
+    noisy = route_diff(fwd, f32r, n)
+    spread = min([t for t, layers in noisy.items() if min(layers) < L - 1], default=n)
+    alike = [t for t in range(spread) if t not in noisy and t not in flips]
+    fwd_vs_f32 = float((full[0, alike] - full32[0, alike]).abs().max()) if alike else 0.0
+    atol = max(BF16_TOL, BF16_NOISE_FACTOR * fwd_vs_f32)
+    worst = 0.0
+    for i, step in enumerate(steps):
+        if i in flips:
+            continue
+        torch.testing.assert_close(step, full[0, i], rtol=BF16_TOL, atol=atol,
+                                   msg=lambda m: f"{cfg.name} bf16 decode step {i} != "
+                                   f"forward (atol {atol:.4g}): {m}")
+        worst = max(worst, float((step - full[0, i]).abs().max()))
+        a, b = int(step.argmax()), int(full[0, i].argmax())
+        gap = max(float(step[a] - step[b]), float(full[0, i, b] - full[0, i, a]))
+        check(a == b or gap <= 2 * atol, f"{cfg.name} decode step {i}: argmax {a} "
+              f"!= forward's {b} with logit gap {gap}")
+    return dict(err=worst, atol=atol, fwd_vs_f32=fwd_vs_f32, near_ties=near,
+                f32_forward_routes_otherwise=sorted(noisy), noise_positions=len(alike),
+                f32_path_launches=f32_launches["flash_attention"])
+
+
+def moe_card_vs_cpu_smoke(smoke, seed: int, dev) -> dict:
+    """A SMOKE MoE config's forward on the card and on the CPU from the
+    same weights (made on the CPU from `seed`), over 2 x 64 tokens: f32 at
+    its own capacity (drops included) with equal routing, hidden states
+    within 1e-4 and aux within 1e-5; bf16 at the capacity that drops
+    nothing, routing equal but at near-ties (f32 margin <= NEAR_TIE, such
+    tokens excluded), hidden states within BF16_TOL. Then expert
+    parallelism on the card: every layer's moe_apply under a 4-entry
+    "model" mesh on cuda:0 == the one-entry call within 1e-5 (f32)."""
+    from repro_torch.distributed import Mesh, use_mesh
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as T
+    out = {}
+    toks = torch.randint(0, smoke.vocab_size, (2, 64),
+                         generator=torch.Generator().manual_seed(seed))
+    for dtype, tol in (("float32", 1e-4), ("bfloat16", BF16_TOL)):
+        cfg = dataclasses.replace(smoke, dtype=dtype)
+        if dtype == "bfloat16":
+            cfg = no_drops(cfg)
+        p_cpu = T.init_params(torch.Generator().manual_seed(seed), cfg)
+        p_card = T.tree_map(lambda a: a.to(dev), p_cpu)
+        runs = {}
+        for where, p, tk in (("card", p_card, toks.to(dev)), ("cpu", p_cpu, toks)):
+            r: list = []
+            with moe_routes(r):
+                h, aux = T.forward(p, tk, cfg)
+            runs[where] = (h.float().cpu(), float(aux),
+                           [{k: v.cpu() for k, v in e.items()} for e in r])
+        (hg, ag, rg), (hc, ac, rc) = runs["card"], runs["cpu"]
+        flips = route_diff(rg, rc, toks.numel())
+        for t, layers in flips.items():
+            m = min(float(rc[l]["margin"][t]) for l in layers)
+            check(dtype == "bfloat16" and m <= NEAR_TIE,
+                  f"{cfg.name} {dtype}: card and CPU route token {t} otherwise "
+                  f"(layers {layers}, f32 margin {m:.3g})")
+        keep = torch.ones(toks.numel(), dtype=torch.bool)
+        keep[list(flips)] = False
+        hg, hc = hg.reshape(-1, cfg.d_model)[keep], hc.reshape(-1, cfg.d_model)[keep]
+        torch.testing.assert_close(hg, hc, rtol=tol, atol=tol,
+                                   msg=lambda m: f"{cfg.name} {dtype} card != CPU: {m}")
+        if dtype == "float32":
+            check(abs(ag - ac) <= 1e-5, f"{cfg.name} aux card {ag} != CPU {ac}")
+        out[dtype] = dict(err=float((hg - hc).abs().max()), near_ties=sorted(flips))
+    # expert parallelism at SMOKE, f32, on the card
+    cfg = smoke
+    p = T.tree_map(lambda a: a.to(dev), T.init_params(torch.Generator().manual_seed(seed), cfg))
+    x = torch.randn((128, cfg.d_model), generator=torch.Generator().manual_seed(seed + 1)).to(dev)
+    errs = []
+    for i in range(cfg.n_layers):
+        lp = T.layer_params(p, i)["ffn"]
+        direct, _ = moe.moe_apply(lp, x, cfg.moe)
+        with use_mesh(Mesh("model", (dev,) * 4)):
+            ep, _ = moe.moe_apply(lp, x, cfg.moe)
+        torch.testing.assert_close(ep, direct, rtol=1e-5, atol=1e-5,
+                                   msg=lambda m: f"{cfg.name} expert-parallel != direct: {m}")
+        errs.append(float((ep - direct).abs().max()))
+    out["expert_parallel_err"] = max(errs)
+    log(f"[phase 4d] {smoke.name} card == CPU over 2 x 64 tokens: f32 (capacity "
+        f"{smoke.moe.capacity_factor}, drops included) max abs err "
+        f"{out['float32']['err']:.3g} (1e-4), routing equal; bf16 (no drops) "
+        f"{out['bfloat16']['err']:.3g} ({BF16_TOL}), near-tie tokens excluded "
+        f"{out['bfloat16']['near_ties']}; expert-parallel on 4 entries of cuda:0 == "
+        f"direct, f32 max abs err {out['expert_parallel_err']:.3g} (1e-5)")
+    return out
+
+
+def moe_layer_card_vs_cpu(cfg, n_experts: int, gen, tokens: int = 256) -> dict:
+    """One MoE layer at the model's d_model, d_expert, top_k and capacity
+    factor with `n_experts` experts, in f32 (the CPU's experts 8 GB at most),
+    over `tokens` rms-normed random tokens, on the card and on the CPU:
+    routing equal but at near-ties, outputs of the tokens routed alike
+    within 1e-4, aux within 1e-5."""
+    from repro_torch.models import moe
+    mcfg = dataclasses.replace(cfg.moe, n_experts=n_experts)
+    p = moe.init_moe_params(gen, cfg.d_model, mcfg)
+    x = torch.randn((tokens, cfg.d_model), generator=gen, device=gen.device)
+    runs = {}
+    for where, dev in (("card", gen.device), ("cpu", torch.device("cpu"))):
+        pp = {k: v.to(dev) for k, v in p.items()}
+        r: list = []
+        t = time.perf_counter()
+        with moe_routes(r):
+            y, aux = moe.moe_apply(pp, x.to(dev), mcfg)
+        runs[where] = (y.cpu(), float(aux), [{k: v.cpu() for k, v in e.items()} for e in r],
+                       time.perf_counter() - t)
+        del pp
+    (yg, ag, rg, tg), (yc, ac, rc, tc) = runs["card"], runs["cpu"]
+    flips = route_diff(rg, rc, tokens)
+    for t, layers in flips.items():
+        check(float(rc[0]["margin"][t]) <= NEAR_TIE,
+              f"{cfg.name} MoE layer: card and CPU route token {t} otherwise with "
+              f"margin {float(rc[0]['margin'][t]):.3g}")
+    keep = torch.ones(tokens, dtype=torch.bool)
+    keep[list(flips)] = False
+    torch.testing.assert_close(yg[keep], yc[keep], rtol=1e-4, atol=1e-4,
+                               msg=lambda m: f"{cfg.name} MoE layer card != CPU: {m}")
+    check(abs(ag - ac) <= 1e-5, f"{cfg.name} MoE layer aux card {ag} != CPU {ac}")
+    res = dict(err=float((yg[keep] - yc[keep]).abs().max()), near_ties=sorted(flips),
+               n_experts=n_experts, tokens=tokens, cpu_s=tc,
+               cap_e=moe.capacity(tokens, mcfg))
+    log(f"[phase 4d] {cfg.name} one MoE layer (d_model {cfg.d_model}, d_expert "
+        f"{mcfg.d_expert}, top {mcfg.top_k}, capacity factor {mcfg.capacity_factor}, "
+        f"{n_experts} experts, {tokens} tokens, f32) card == CPU: max abs err "
+        f"{res['err']:.3g} (1e-4), aux {ag:.6g} / {ac:.6g}, near-tie tokens "
+        f"{res['near_ties']}; CPU {tc:.1f}s")
+    return res
+
+
+def moe_expert_parallel(sp, cfg, gen, tokens: int = MOE_EP_TOKENS) -> dict:
+    """Layer 0's bf16 moe_apply under Mesh("model", 4 x cuda:0) over
+    `tokens` random tokens == the one-entry call within BF16_TOL: entry r
+    runs experts [r E/4, (r+1) E/4) on views of the stacked weights, and the
+    4 partial outputs are summed on the first entry."""
+    from repro_torch.distributed import Mesh, use_mesh
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as T
+    lp = T.layer_params(sp, 0)["ffn"]
+    x = torch.randn((tokens, cfg.d_model), generator=gen, device=gen.device,
+                    dtype=cfg.adtype)
+    direct, _ = moe.moe_apply(lp, x, cfg.moe)
+    with use_mesh(Mesh("model", (gen.device,) * 4)):
+        ep, _ = moe.moe_apply(lp, x, cfg.moe)
+    torch.testing.assert_close(ep.float(), direct.float(), rtol=BF16_TOL, atol=BF16_TOL,
+                               msg=lambda m: f"{cfg.name} expert-parallel != direct: {m}")
+    err = float((ep.float() - direct.float()).abs().max())
+    log(f"[phase 4d] {cfg.name} layer 0 moe_apply on Mesh(\"model\", 4 x cuda:0) over "
+        f"{tokens} tokens == the one-entry call: max abs err {err:.3g} ({BF16_TOL})")
+    return dict(err=err, tokens=tokens)
+
+
+def phase4_moe_model(seed: int, dev, cfg, smoke, n_experts_cpu: int, decode_b: int,
+                     reduced: dict) -> dict:
+    """An MoE model at full width and `cfg.n_layers` layers, bf16
+    parameters made on the card from `seed`: decode_step == forward
+    (`moe_decode_vs_forward`), card == CPU (`moe_card_vs_cpu_smoke` at its
+    SMOKE config, `moe_layer_card_vs_cpu` on one layer with
+    `n_experts_cpu` experts), expert parallelism (`moe_expert_parallel`),
+    then the main path (`lm_serve_path`)."""
+    from repro_torch.models import transformer as T
+    res: dict = {"reduced": reduced, "decode_b": decode_b}
+    gen = torch.Generator(dev).manual_seed(seed + 2)
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    sp = T.init_params(gen, cfg)
+    torch.cuda.synchronize()
+    res["params_gib"] = torch.cuda.memory_allocated() / 2 ** 30
+    log(f"[phase 4d] {cfg.name}: {cfg.param_count()} parameters ({cfg.param_dtype}, "
+        f"{res['params_gib']:.2f} GiB; active per token {cfg.active_param_count()}) "
+        f"made on the card in {time.perf_counter() - t:.1f}s, peak "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; reduced "
+        f"{json.dumps(reduced)}")
+    sp = T.serving_params(sp, cfg)          # a bf16 tree: no copy
+
+    t = time.perf_counter()
+    prompt = torch.randint(0, cfg.vocab_size, (1, 64), generator=gen, device=dev)
+    dvf = moe_decode_vs_forward(sp, prompt, cfg)
+    res.update(decode_vs_forward_bf16=dvf["err"], bf16_atol=dvf["atol"],
+               bf16_forward_vs_f32=dvf["fwd_vs_f32"], near_ties=dvf["near_ties"],
+               f32_path_launches=dvf["f32_path_launches"])
+    check(dvf["f32_path_launches"] == cfg.n_layers,
+          f"the f32 forward launched the tile kernel {dvf['f32_path_launches']} times")
+    log(f"[phase 4d] {cfg.name} decode_step == forward over a 64-token prompt (bf16, "
+        f"capacity factor {cfg.moe.n_experts / cfg.moe.top_k}: nothing drops): max abs "
+        f"logit err {dvf['err']:.3g} (atol {dvf['atol']:.4g}, rtol {BF16_TOL}; the bf16 "
+        f"forward's distance from the f32 forward on the same bf16 weights "
+        f"{dvf['fwd_vs_f32']:.3g} over {dvf['noise_positions']} positions); positions "
+        f"routed otherwise by decode and excluded "
+        f"(position, layers, f32 margin): {dvf['near_ties']}; the f32 forward routes "
+        f"positions {dvf['f32_forward_routes_otherwise']} otherwise; "
+        f"{time.perf_counter() - t:.1f}s")
+    t = time.perf_counter()
+    res["card_vs_cpu"] = dict(smoke=moe_card_vs_cpu_smoke(smoke, seed, dev),
+                              layer=moe_layer_card_vs_cpu(cfg, n_experts_cpu, gen))
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["expert_parallel"] = moe_expert_parallel(sp, cfg, gen)
+    log(f"[phase 4d] {cfg.name} card == CPU and expert parallelism: "
+        f"{time.perf_counter() - t:.1f}s")
+    lm_serve_path(sp, cfg, gen, dev, decode_b, res, tag="[phase 4d]")
+    return res
+
+
+def phase4_moe(seed: int, dev) -> dict:
+    """Phase 4d: kimi-k2 and llama4 at full width, their depth cut to what
+    one card holds (`MOE_MODELS`): flash_attention at each model's shapes
+    (`phase4_kernel_lm`), then the model (`phase4_moe_model`); returns
+    their entries by kernel and model."""
+    import importlib
+    entries: dict = {}
+    for mod, layers, n_cpu in MOE_MODELS:
+        t = time.perf_counter()
+        conf = importlib.import_module(f"repro_torch.configs.{mod}")
+        cfg = dataclasses.replace(conf.CONFIG, n_layers=layers)
+        kern = phase4_kernel_lm(seed, dev, cfg, DECODE_B, tag="[phase 4d]")
+        gc.collect()
+        torch.cuda.empty_cache()
+        model = phase4_moe_model(seed, dev, cfg, conf.SMOKE, n_cpu, DECODE_B,
+                                 LM_MODEL_REDUCED[cfg.name])
+        gc.collect()
+        torch.cuda.empty_cache()
+        for kn, e in lm_model_entries(kern, model, cfg, tag="[phase 4d]").items():
+            if kn == "flash_prefill":
+                e["drop_share_per_layer"] = model["prefill"]["drop_share"]
+            elif kn == "flash_decode":
+                e["dropped_picks_per_step"] = model["decode"]["dropped_per_step"]
+            entries.setdefault(kn, {})[cfg.name] = e
+        log(f"[phase 4d] {cfg.name}: peak {model['peak_gib']:.2f} GiB; "
+            f"{time.perf_counter() - t:.1f}s")
     return entries
 
 
@@ -3981,11 +4438,15 @@ def main() -> int:
     log(f"[phase 4] gemma2-2b {time.perf_counter() - t:.1f}s")
     t = time.perf_counter()
     models = phase4_lm(args.seed, cuda)
+    log(f"[phase 4c] {time.perf_counter() - t:.1f}s")
+    t = time.perf_counter()
+    for kn, e in phase4_moe(args.seed, cuda).items():
+        models[kn].update(e)
+    log(f"[phase 4d] {time.perf_counter() - t:.1f}s")
     for r in lm:
         src, tpu = SOURCES[r["name"]]
         r.update(route="cuda", source=src, replaces=tpu, models=models[r["name"]])
         rec.append(r)
-    log(f"[phase 4c] {time.perf_counter() - t:.1f}s")
     log(f"total {time.perf_counter() - t_all:.1f}s")
     print(json.dumps({"kernels": rec}))
     print(card_line())

@@ -34,7 +34,8 @@ class ArchSpec:
 
 
 ARCHS: dict[str, ArchSpec] = {}
-_ARCH_MODULES = ["gemma2_2b", "gemma3_12b", "internlm2_1_8b"]
+_ARCH_MODULES = ["gemma2_2b", "gemma3_12b", "internlm2_1_8b", "kimi_k2_1t_a32b",
+                 "llama4_maverick_400b_a17b"]
 _LOADED = False
 
 

@@ -58,19 +58,27 @@ def tiering_from_numpy(clauses, clause_vocab_bits: np.ndarray,
         vocab_size=int(vocab_size))
 
 
-def transformer_params_from_numpy(tree: dict, cfg, device=None) -> dict:
-    """The port's transformer parameters from the reference's
-    `init_params` tree as numpy arrays (the same nesting and stacked [L]
-    leaves), in `cfg.param_dtype` on `device`. A bfloat16 leaf (numpy's
-    ml_dtypes) is carried through float32, which holds it exactly."""
+def tensors_from_numpy(tree: dict, dtype: torch.dtype = torch.float32,
+                       device=None) -> dict:
+    """A nested dict of numpy arrays as tensors of `dtype` on `device`, the
+    nesting kept. A bfloat16 leaf (numpy's ml_dtypes) is carried through
+    float32, which holds it exactly."""
     dev = resolve_device(device)
 
     def leaf(a):
         a = np.asarray(a)
         if a.dtype.name == "bfloat16":
             a = a.astype(np.float32)
-        return torch.tensor(a, device=dev).to(cfg.pdtype)
+        return torch.tensor(a, device=dev).to(dtype)
 
     def walk(t):
         return {k: walk(v) for k, v in t.items()} if isinstance(t, dict) else leaf(t)
     return walk(tree)
+
+
+def transformer_params_from_numpy(tree: dict, cfg, device=None) -> dict:
+    """The port's transformer parameters from the reference's
+    `init_params` tree as numpy arrays (the same nesting and stacked [L]
+    leaves, an MoE layer's [L, E, D, F] experts among them), in
+    `cfg.param_dtype` on `device`."""
+    return tensors_from_numpy(tree, cfg.pdtype, device)

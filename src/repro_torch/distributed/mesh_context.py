@@ -5,7 +5,8 @@ fan out over several devices (the fleet's fused serve, owner-local
 partition gains) asks for the ambient mesh here instead of threading one
 through every call; the launcher, `chip_smoke.py` and the tests set it with
 `use_mesh`. With no mesh set, `current_mesh()` is a one-entry mesh with no
-`"shard"` axis, so every caller takes its direct path.
+`"shard"` or `"model"` axis, so every caller takes its direct path. The MoE
+FFN shards its experts over a `"model"` mesh (`model_axis_in`).
 
 A mesh is a small frozen value: one axis name and an ordered tuple of
 `torch.device`s. One process drives all of them, as the reference's one
@@ -46,6 +47,11 @@ def current_mesh() -> Mesh:
     """The mesh set by the innermost `use_mesh`, else a one-entry mesh on
     the `"data"` axis (no fusion: callers run on their operands' device)."""
     return _CURRENT[0] if _CURRENT[0] is not None else _DEFAULT
+
+
+def model_axis_in(mesh: Mesh) -> str | None:
+    """`"model"` when `mesh` is a model (expert-parallel) mesh, else None."""
+    return "model" if mesh.axis == "model" else None
 
 
 @contextlib.contextmanager

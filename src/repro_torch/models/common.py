@@ -7,8 +7,6 @@ on the TPU), here `ops.flash_attention`.
 """
 from __future__ import annotations
 
-import math
-
 import torch
 
 from repro_torch.kernels import ops
@@ -34,13 +32,6 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 10000.0) -> to
     x1, x2 = x[..., :half], x[..., half:]
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
-
-
-def dense_init(gen: torch.Generator, shape: tuple[int, ...], in_axis: int = -2) -> torch.Tensor:
-    """Normal / sqrt(fan_in), f32, on the generator's device."""
-    fan_in = shape[in_axis]
-    return torch.randn(shape, generator=gen, device=gen.device,
-                       dtype=torch.float32) / math.sqrt(fan_in)
 
 
 def softcap(x: torch.Tensor, cap: float | None) -> torch.Tensor:

@@ -1,7 +1,8 @@
-"""Decoder-only transformer LM, the dense serving path of
+"""Decoder-only transformer LM, the serving path of
 `repro.models.transformer`: prefill (`forward`) and the KV-cache decode step
 (`decode_step`), with GQA, RoPE, local/global attention alternation,
-attention and final logit softcaps and a tied or untied embedding.
+attention and final logit softcaps, a tied or untied embedding, and a dense
+SwiGLU or MoE FFN (`models.moe`).
 
 Parameters are the reference's tree: a dict whose per-layer leaves are
 stacked on a leading [L] axis. Each layer's attention runs on
@@ -12,9 +13,11 @@ passes `window=None`. The cache is updated in place.
 The reference's rounding order is kept: the embedding is cast to the
 activation dtype before the sqrt(d) scale, `rms_norm` and `rope` work in f32
 and cast back, and weights are cast to the activation dtype at each matmul
-(`serving_params` makes that cast once, with identical numbers). MoE FFNs
-are not ported and raise. `remat`, `unroll_layers` and `attn_unroll` are
-training and dry-run knobs of the reference that serving ignores.
+(`serving_params` makes that cast once, with identical numbers). An MoE
+layer runs on all of the call's tokens, so a decode step's expert capacity
+comes from its B tokens and a forward's from B*S, as in the reference.
+`remat`, `unroll_layers` and `attn_unroll` are training and dry-run knobs of
+the reference that serving ignores.
 """
 from __future__ import annotations
 
@@ -24,7 +27,7 @@ import math
 import torch
 
 from repro_torch.device import resolve_device
-from repro_torch.models import common
+from repro_torch.models import common, moe as moe_lib
 
 
 @dataclasses.dataclass(frozen=True)
@@ -37,7 +40,7 @@ class TransformerConfig:
     d_head: int
     d_ff: int
     vocab_size: int
-    moe: object | None = None
+    moe: moe_lib.MoEConfig | None = None
     rope_theta: float = 10000.0
     local_window: int | None = None     # sliding window for local layers
     global_every: int = 0               # 0: all-global; n: every n-th layer global
@@ -87,41 +90,76 @@ class TransformerConfig:
             per_layer += 3 * self.d_model * self.d_ff
         return p + self.n_layers * per_layer + self.d_model
 
-
-def _dense_only(cfg: TransformerConfig) -> None:
-    if cfg.moe is not None:
-        raise NotImplementedError(f"{cfg.name}: MoE layers are not ported yet")
+    def active_param_count(self) -> int:
+        """Active params per token (MoE counts top_k experts only)."""
+        if self.moe is None:
+            return self.param_count()
+        per_expert = self.n_layers * 3 * self.d_model * self.moe.d_expert
+        return self.param_count() - (self.moe.n_experts - self.moe.top_k) * per_expert
 
 
 # -----------------------------------------------------------------------------
 # params
 # -----------------------------------------------------------------------------
 
+_CHUNK = 1 << 28      # f32 elements drawn at a time for a narrower dtype (1 GiB)
+
+
+def _normal(gen: torch.Generator, shape: tuple[int, ...], std: float,
+            dtype: torch.dtype) -> torch.Tensor:
+    """N(0, std^2) in `dtype`, drawn in f32 and cast. A narrower dtype is
+    filled in chunks of at most 2^28 f32 elements (whole rows of the last
+    axis, in order), so a bf16 leaf never has an f32 copy of its size: one
+    kimi-k2 layer's experts are 33.8 GB in bf16 and would be 67.6 GB in
+    f32."""
+    if dtype == torch.float32:
+        return torch.randn(shape, generator=gen, device=gen.device) * std
+    out = torch.empty(shape, dtype=dtype, device=gen.device)
+    rows = out.view(-1, shape[-1])
+    step = max(1, _CHUNK // shape[-1])
+    for i in range(0, rows.shape[0], step):
+        n = min(step, rows.shape[0] - i)
+        rows[i:i + n] = (torch.randn((n, shape[-1]), generator=gen, device=gen.device)
+                         * std).to(dtype)
+    return out
+
+
 def init_params(gen: torch.Generator, cfg: TransformerConfig) -> dict:
-    """Random parameters on `gen`'s device, with the reference's
-    distributions and scales (not its numbers: the generators differ)."""
-    _dense_only(cfg)
+    """Random parameters on `gen`'s device in `cfg.param_dtype`, with the
+    reference's distributions and scales (not its numbers: the generators
+    differ). Every matrix is normal / sqrt(fan_in) (`wo` and the dense `w2`
+    also / sqrt(2L)), the embedding normal * 0.01, the MoE leaves those of
+    `moe.init_moe_params` stacked on [L]; norm scales are zero."""
     d, h, kv, dh, l = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_head,
                        cfg.n_layers)
-    dev = gen.device
+    dev, pdt = gen.device, cfg.pdtype
 
     def zeros(*shape):
-        return torch.zeros(shape, dtype=torch.float32, device=dev)
+        return torch.zeros(shape, dtype=pdt, device=dev)
 
+    def dense(*shape, div=1.0):
+        return _normal(gen, shape, 1.0 / math.sqrt(shape[-2]) / div, pdt)
+
+    if cfg.moe is None:
+        ffn = {"w1": dense(l, d, cfg.d_ff),
+               "w3": dense(l, d, cfg.d_ff),
+               "w2": dense(l, cfg.d_ff, d, div=math.sqrt(2 * l))}
+    else:
+        e, f = cfg.moe.n_experts, cfg.moe.d_expert
+        ffn = {"gate": dense(l, d, e),
+               "w1": dense(l, e, d, f),
+               "w3": dense(l, e, d, f),
+               "w2": dense(l, e, f, d)}
     params = {
-        "embed": torch.randn((cfg.vocab_size, d), generator=gen, device=dev) * 0.01,
+        "embed": _normal(gen, (cfg.vocab_size, d), 0.01, pdt),
         "layers": {
             "attn": {
-                "wq": common.dense_init(gen, (l, d, h * dh)),
-                "wk": common.dense_init(gen, (l, d, kv * dh)),
-                "wv": common.dense_init(gen, (l, d, kv * dh)),
-                "wo": common.dense_init(gen, (l, h * dh, d)) / math.sqrt(2 * l),
+                "wq": dense(l, d, h * dh),
+                "wk": dense(l, d, kv * dh),
+                "wv": dense(l, d, kv * dh),
+                "wo": dense(l, h * dh, d, div=math.sqrt(2 * l)),
             },
-            "ffn": {
-                "w1": common.dense_init(gen, (l, d, cfg.d_ff)),
-                "w3": common.dense_init(gen, (l, d, cfg.d_ff)),
-                "w2": common.dense_init(gen, (l, cfg.d_ff, d)) / math.sqrt(2 * l),
-            },
+            "ffn": ffn,
             "ln1": zeros(l, d),
             "ln2": zeros(l, d),
         },
@@ -131,8 +169,8 @@ def init_params(gen: torch.Generator, cfg: TransformerConfig) -> dict:
         params["layers"]["qnorm"] = zeros(l, dh)
         params["layers"]["knorm"] = zeros(l, dh)
     if not cfg.tie_embeddings:
-        params["unembed"] = common.dense_init(gen, (d, cfg.vocab_size))
-    return tree_map(lambda p: p.to(cfg.pdtype), params)
+        params["unembed"] = dense(d, cfg.vocab_size)
+    return params
 
 
 _NORMS = ("ln1", "ln2", "qnorm", "knorm", "final_norm")
@@ -199,13 +237,19 @@ def _attention_block(cfg: TransformerConfig, lp: dict, h: torch.Tensor,
     return out @ lp["attn"]["wo"].to(out.dtype)
 
 
-def _ffn_block(cfg: TransformerConfig, lp: dict, h: torch.Tensor) -> torch.Tensor:
-    _dense_only(cfg)
+def _ffn_block(cfg: TransformerConfig, lp: dict, h: torch.Tensor
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(FFN output, the layer's MoE aux loss: f32, 0 on a dense layer)."""
+    b, s, d = h.shape
     m = common.rms_norm(h, lp["ln2"])
+    if cfg.moe is not None:
+        y, aux = moe_lib.moe_apply(lp["ffn"], m.reshape(b * s, d), cfg.moe)
+        return y.reshape(b, s, d), aux
     w = lp["ffn"]
     g = m @ w["w1"].to(m.dtype)
     hh = g * torch.sigmoid(g) * (m @ w["w3"].to(m.dtype))     # jax.nn.silu
-    return hh @ w["w2"].to(m.dtype)
+    return (hh @ w["w2"].to(m.dtype),
+            torch.zeros((), dtype=torch.float32, device=h.device))
 
 
 def _window_of(cfg: TransformerConfig, is_global: bool) -> int | None:
@@ -224,17 +268,20 @@ def _embed(params: dict, tokens: torch.Tensor, cfg: TransformerConfig) -> torch.
 
 def forward(params: dict, tokens: torch.Tensor, cfg: TransformerConfig
             ) -> tuple[torch.Tensor, torch.Tensor]:
-    """tokens [B, S] -> (hidden [B, S, D], aux_loss)."""
-    _dense_only(cfg)
+    """tokens [B, S] -> (hidden [B, S, D], aux_loss: the f32 sum of the
+    layers' MoE load-balance losses, 0 for a dense model)."""
     s = tokens.shape[1]
     h = _embed(params, tokens, cfg)
     positions = torch.arange(s, device=h.device)
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
     for i, flag in enumerate(cfg.is_global_layer()):
         lp = layer_params(params, i)
         h = h + _attention_block(cfg, lp, h, _window_of(cfg, flag), positions=positions)
-        h = h + _ffn_block(cfg, lp, h)
+        ffn, layer_aux = _ffn_block(cfg, lp, h)
+        h = h + ffn
+        aux = aux + layer_aux
     h = common.rms_norm(h, params["final_norm"])
-    return h, torch.zeros((), dtype=torch.float32, device=h.device)
+    return h, aux
 
 
 def unembed_matrix(params: dict, cfg: TransformerConfig) -> torch.Tensor:
@@ -258,7 +305,6 @@ def decode_step(params: dict, cache: dict, tokens: torch.Tensor,
                 cur_len: int, cfg: TransformerConfig):
     """One serving step: tokens [B, 1] given a cache filled to cur_len.
     Returns (next-token logits [B, V] f32, the cache updated in place)."""
-    _dense_only(cfg)
     cur_len = int(cur_len)
     h = _embed(params, tokens, cfg)
     positions = torch.full((1,), cur_len, dtype=torch.int32, device=h.device)
@@ -268,7 +314,7 @@ def decode_step(params: dict, cache: dict, tokens: torch.Tensor,
                                  positions=positions, pos0=cur_len,
                                  kv_len=cur_len + 1,
                                  cache_kv=(cache["k"][i], cache["v"][i]))
-        h = h + _ffn_block(cfg, lp, h)
+        h = h + _ffn_block(cfg, lp, h)[0]
     h = common.rms_norm(h, params["final_norm"])
     logits = h[:, 0, :] @ unembed_matrix(params, cfg).to(h.dtype)
     logits = common.softcap(logits.float(), cfg.final_softcap)

@@ -25,7 +25,10 @@ from repro_torch.kernels.flash_prefill import flash_prefill, kernel_window, take
 BF16_TOL = 2e-2        # the reference's bf16 tolerance (test_flash_dtypes)
 
 # D 64, 128 and 256 (the kernel's), G 1, 2 and 4, windows and softcaps,
-# causal or not, a q_offset, lengths that cut a 64-key tile
+# causal or not, a q_offset, lengths that cut a 64-key tile; then the MoE
+# models' head groups at D 128: G 5 (llama4, Hq 40 / Hkv 8) and G 8
+# (kimi-k2, Hq 64 / Hkv 8), with Sq not a multiple of 64 / G, so one
+# position's heads straddle the kernel's 64-row halves and 128-row tiles
 CASES = [
     # b, sq, skv, hq, hkv, d, causal, window, cap, q_offset
     (1, 16, 16, 2, 1, 64, True, None, None, 0),
@@ -38,6 +41,10 @@ CASES = [
     (1, 70, 130, 4, 1, 128, True, None, 30.0, 60),
     (1, 48, 48, 8, 2, 256, True, 16, 50.0, 0),
     (2, 40, 100, 4, 2, 256, False, 30, None, 20),
+    (1, 45, 45, 40, 8, 128, True, None, None, 0),
+    (1, 29, 93, 10, 2, 128, True, None, None, 64),
+    (1, 37, 37, 64, 8, 128, True, None, None, 0),
+    (2, 19, 50, 16, 2, 128, True, None, None, 31),
 ]
 
 
