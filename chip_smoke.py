@@ -5,7 +5,7 @@
 Phases (each prints its seconds; any failure is an uncaught exception and
 a non-zero exit):
   0. environment: card name and power limit, torch/CUDA versions, and the
-     build of the nine CUDA kernels from `src/repro_torch/kernels/csrc`
+     build of the ten CUDA kernels from `src/repro_torch/kernels/csrc`
      (ptxas registers and spills of each).
   1. each kernel against its plain PyTorch version on ragged small shapes
      (exact for the integer kernels, allclose for bit_matvec), every tile
@@ -32,7 +32,7 @@ a non-zero exit):
         agnostic (§5.1), isk1/isk2 (Alg. 3; 3 outer iterations of at most
         64), stochastic (§3.2, m = 2048), flow-popularity, flow-max and
         flow-sgd (§2.3), lazy under the 4-shard traffic caps, and
-        `build_multitier` at 3 budgets (§6), each cut to 128 selections,
+        `build_multitier` at 3 budgets (§6), each cut to 64 selections,
         each path's launches counted from 0; lazy == greedy's prefix up to
         an f32 tie (globally and under the caps) with fewer exact
         evaluations, greedy >= agnostic, ISK within B, the multi-tier
@@ -205,7 +205,7 @@ a non-zero exit):
            every fused batch == a host-path twin fleet's == serve_reference,
            stats, BatchTraces and replicas equal to the twin's, tables
            dropped with their generation and corpus version; a 4-shard
-           traffic-split partitioned solve (128 selections) under the mesh
+           traffic-split partitioned solve (64 selections) under the mesh
            == the direct one (order, g_part); card == CPU on all of it;
            then, on the card only, a mixed mesh (card, CPU, card, CPU):
            4 shards x 2 replicas == the host twin == the all-card mesh, the
@@ -221,6 +221,34 @@ a non-zero exit):
            phase 1's timings) == the direct call, timed beside it;
         c. `python -m repro_torch.launch.cluster --scale small --mesh
            --verify` as a fourth launcher subprocess beside 5d's.
+  6. LM training (after phase 4d), on the hand-written attention backward
+     `flash_backward` (csrc/flash_backward.cu):
+     a. flash_backward against its plain version `ref.flash_attention_bwd`
+        on ragged cases (B 1-3, S 2-1000, G 1-8, every head dim, f32 and
+        bf16, windows 8 and 100, softcap 50), then at one layer of each
+        production setting in bf16: internlm2-1.8b B 4 x 4096 (Hq 16, Hkv
+        8, D 128), gemma2-2b global and local (window 4096) B 1 x 8192 (Hq
+        8, Hkv 4, D 256, softcap 50), kimi-k2 B 1 x 4096 (G 8, D 128); f32
+        outputs within rtol 1e-4 and atol 1e-4 x max|plain|;
+     b. each production setting timed (median of CUDA events) beside its
+        bound (10 D FLOPs per visible pair and query head at 989 TFLOP/s)
+        and CUDA-core floor (67 TFLOP/s), the plain version, and the
+        backward of SDPA (flash backend, K/V repeated to Hq) or of a
+        compiled flex_attention (softcap or window);
+     c. `loss_fn` and every gradient leaf, card against CPU (the CPU half in
+        a worker process started with phase 6), f32: internlm2-1.8b and
+        gemma2-2b at full width, 2 layers, 256 positions; kimi-k2's SMOKE
+        config (loss, aux, gradients);
+     d. internlm2-1.8b at full width and depth through `make_train_step`:
+        AdamW with bf16 states, remat, bf16 activations, f32 parameters,
+        8 x 4096 tokens as 2 microbatches, one batch of the reference's
+        token stream; 1 warm-up and 4 timed steps (launches counted from 0:
+        48 flash_backward and 96 flash_prefill a step), then one profiled
+        step for the device's busy shares; the loss finite and falling;
+     e. checkpoint/restart at 2 layers, full width, through
+        `TrainingDriver`: a run that fails at step 3, a resumed run to step
+        5 and an uninterrupted run: losses and every state leaf equal bit
+        for bit.
 The last lines are the kernels' JSON record, the card line, and the
 contract line {"ok": true, "device": {...}}.
 
@@ -273,7 +301,7 @@ REDUCED = {
     "sparse_round": "the phase-3 clauses with |m(c)| <= 4096 (the rest get "
                     "an all -1 list and start selected)",
     "isk": "3 outer iterations of at most 128 inner selections (medium: "
-           "at most 64, every other medium solver its first 128 selections)",
+           "at most 64, every other medium solver its first 64 selections)",
     "lazy": "stops at 30 s of wall clock (max_steps=128)",
     "stream": "phase 5b: 6 rotate windows of 4096 queries, refits of at most "
               "128 selections, 3 windows apart; 5a (medium): 8 windows of "
@@ -778,10 +806,12 @@ def compare_partitioned(gpu: dict, cpu: dict) -> None:
         f"(dense {cs['dense_s']:.2f}s)")
 
 
-# the paper's other solvers and options at `medium`, cut to the first 128
+# the paper's other solvers and options at `medium`, cut to the first 64
 # selections (ISK: 3 outer iterations of at most 64); both devices run the
-# same cuts, which keep the CPU half of phase 2c near two minutes
-MEDIUM_STEPS = 128
+# same cuts, which keep the CPU half of phase 2c near 1.5 minutes (128 until
+# PR 25: phase 2's CPU half is the script's longest path, and phase 6 made
+# the script run past its budget)
+MEDIUM_STEPS = 64
 MEDIUM_SOLVERS = (("lazy", {}), ("agnostic", {}),
                   ("isk1", {"max_outer": 3, "max_inner": 64}),
                   ("isk2", {"max_outer": 3, "max_inner": 64}),
@@ -4348,6 +4378,549 @@ def lm_record(kern: dict, model: dict, small: dict, cfg, fa_small: dict) -> list
     return recs
 
 
+# -- phase 6: LM training on flash_backward -----------------------------------
+
+# ragged cases of flash_backward against its plain version: B 1-3, S 2 to
+# 1000, G 1, 2, 4, 5 and 8, every head dim, f32 and bf16, windows 8 and
+# 100 and softcap 50 alone and together
+BWD_CASES = [
+    # b, s, hq, hkv, d, bf16, window, cap
+    (1, 2, 2, 2, 16, False, None, None),
+    (2, 17, 4, 2, 64, True, 8, None),
+    (3, 64, 5, 1, 128, False, None, 50.0),
+    (1, 255, 8, 1, 256, True, 100, 50.0),
+    (2, 1000, 16, 2, 128, True, None, None),
+    (1, 1000, 10, 2, 64, False, 100, None),
+    (3, 255, 2, 1, 16, True, 8, 50.0),
+    (1, 64, 8, 8, 256, False, 8, None),
+    (2, 2, 8, 1, 128, True, None, 50.0),
+    (1, 17, 4, 4, 8, False, None, None),
+    (2, 255, 4, 2, 32, True, 100, None),
+    (1, 1000, 8, 4, 256, False, None, 50.0),
+    (3, 1000, 2, 2, 64, True, 8, 50.0),
+    (2, 64, 10, 2, 16, False, 100, 50.0),
+    (1, 1000, 4, 1, 32, True, None, None),
+    (2, 17, 8, 2, 8, True, 8, 50.0),
+]
+# one layer of each production setting: (b, s, hq, hkv, d, window, cap,
+# library yardstick, the arch and its layers of this kind a train_4k step
+# runs, n_micro of its cell)
+BWD_SETTINGS = {
+    "internlm2_1_8b": (4, 4096, 16, 8, 128, None, None, "sdpa"),
+    "gemma2_2b_global": (1, 8192, 8, 4, 256, None, 50.0, "flex"),
+    "gemma2_2b_local": (1, 8192, 8, 4, 256, 4096, 50.0, "flex"),
+    "kimi_k2_1t_a32b": (1, 4096, 64, 8, 128, None, None, "sdpa"),
+}
+BWD_RTOL = 1e-4                # and atol 1e-4 x max|plain| per output
+TRAIN_GRAD_TOL = 1e-3          # 6c: |card - CPU| <= this x max|g_cpu| per leaf (+1e-6)
+TRAIN_LOSS_RTOL = 1e-5         # 6c: loss and aux, card against CPU
+TRAIN_B, TRAIN_S, TRAIN_MICRO = 8, 4096, 2     # 6d: 8 x 4096 as 2 microbatches of 4
+TRAIN_STEPS = 5                                 # 6d: 1 warm-up + 4 timed
+TRAIN_OPT = dict(name="adamw", lr=1e-3, warmup_steps=1, decay_steps=100,
+                 state_dtype="bfloat16", scan_update_axis0=True)
+RESTART_B, RESTART_S, RESTART_STEPS, RESTART_FAIL = 2, 1024, 5, 3   # 6e
+TRAIN_REDUCED = {
+    "batch": f"{TRAIN_B} x {TRAIN_S} as {TRAIN_MICRO} microbatches (train_4k has "
+             "256 x 4096), the same batch every step",
+    "steps": f"1 warm-up + {TRAIN_STEPS - 1} timed, 1 profiled",
+    "weights": "random from --seed (init_params' distributions)",
+}
+
+
+def bwd_pairs(s: int, window: int | None) -> int:
+    return attention_pairs(s, 0, s, True, window)
+
+
+def bwd_bound(b, s, hq, hkv, d, window, nbytes_in: int) -> dict:
+    """flash_backward's least time: 10*D FLOPs per visible pair and query
+    head over the bf16 tensor-core peak, or its bytes (q, k, v, o, dO read
+    once, f32 dQ, dK, dV written once) over HBM; and the same FLOPs over
+    the CUDA cores' f32 peak, the floor of this kernel's design."""
+    flops = 10.0 * d * bwd_pairs(s, window) * hq * b
+    nbytes = nbytes_in + 4 * (b * s * hq * d + 2 * b * s * hkv * d)
+    t_f, t_b = flops / BF16_TC_FLOPS, nbytes / HBM_BYTES_PER_S
+    return dict(bound_ms=max(t_f, t_b) * 1e3,
+                bound_by="operations" if t_f >= t_b else "bytes",
+                cuda_core_floor_ms=flops / FP32_FLOPS * 1e3, flops=flops)
+
+
+def bwd_inputs(gen, b, s, hq, hkv, d, dtype, window, cap):
+    """q, k, v and dO drawn on the card, o from the port's forward."""
+    from repro_torch.kernels import ops
+    dev = gen.device
+
+    def draw(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+    q, k, v = draw(b, s, hq, d), draw(b, s, hkv, d), draw(b, s, hkv, d)
+    do = draw(b, s, hq, d)
+    o = ops.flash_attention(q, k, v, window=window, softcap=cap)
+    return q, k, v, o, do
+
+
+def bwd_agree(got, want, what: str) -> tuple[float, float]:
+    """(worst error over its limit, max abs error) of flash_backward's
+    f32 (dq, dk, dv) against the plain version's: each element within
+    BWD_RTOL of itself plus BWD_RTOL x the output's max."""
+    ratio, err = 0.0, 0.0
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        check(bool(torch.isfinite(g).all()), f"flash_backward {what}: {name} not finite")
+        e = (g - w).abs()
+        lim = BWD_RTOL * w.abs() + BWD_RTOL * float(w.abs().max()) + 1e-30
+        r = float((e / lim).max())
+        check(r <= 1.0, f"flash_backward != plain, {what} {name}: max err "
+              f"{float(e.max()):.3g} is {r:.3f} of the limit")
+        ratio, err = max(ratio, r), max(err, float(e.max()))
+    return ratio, err
+
+
+def phase6_kernel_small(dev) -> dict:
+    """6a: flash_backward against ref.flash_attention_bwd on BWD_CASES,
+    one launch each; returns the worst error ratio by dtype and the max
+    abs error."""
+    from repro_torch.kernels import _build, flash_backward, ref
+    gen = torch.Generator(dev).manual_seed(6)
+    worst = {"f32": 0.0, "bf16": 0.0, "abs": 0.0}
+    for b, s, hq, hkv, d, bf16, window, cap in BWD_CASES:
+        dt = torch.bfloat16 if bf16 else torch.float32
+        q, k, v, o, do = bwd_inputs(gen, b, s, hq, hkv, d, dt, window, cap)
+        n0 = _build.LAUNCHES["flash_backward"]
+        got = flash_backward.flash_backward(q, k, v, o, do, window=window, softcap=cap)
+        torch.cuda.synchronize()
+        check(_build.LAUNCHES["flash_backward"] == n0 + 1, "flash_backward did not launch")
+        want = ref.flash_attention_bwd(q, k, v, o, do, window=window, softcap=cap)
+        key = "bf16" if bf16 else "f32"
+        r, e = bwd_agree(got, want, f"b{b} s{s} hq{hq} hkv{hkv} d{d} {key} "
+                         f"window={window} cap={cap}")
+        worst[key] = max(worst[key], r)
+        worst["abs"] = max(worst["abs"], e)
+    log(f"[phase 6a] flash_backward == plain on {len(BWD_CASES)} ragged cases: worst "
+        f"{worst['f32']:.3f} (f32) / {worst['bf16']:.3f} (bf16) of the limit (rtol "
+        f"{BWD_RTOL}, atol {BWD_RTOL} x max), max abs err {worst['abs']:.3g}")
+    return worst
+
+
+def sdpa_bwd(q, k, v, do, reps: int) -> dict:
+    """SDPA's backward time on the flash backend (forward + backward minus
+    forward), on [B, H, S, D] copies with K and V repeated to Hq (made here,
+    not timed), causal, no softcap: the yardstick, never on the port's
+    path. Its dK, dV are summed back over each group for the error."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    g = q.shape[2] // k.shape[2]
+    qt = q.transpose(1, 2).contiguous().requires_grad_()
+    kt, vt = (x.repeat_interleave(g, dim=2).transpose(1, 2).contiguous().requires_grad_()
+              for x in (k, v))
+    dot = do.transpose(1, 2).contiguous()
+
+    def fwd():
+        with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
+            return torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+
+    def fwd_bwd():
+        return torch.autograd.grad(fwd(), (qt, kt, vt), dot)
+    grads = fwd_bwd()
+    f_ms, fb_ms = time_ms(fwd, reps), time_ms(fwd_bwd, reps)
+    b, s, hkv, d = k.shape
+    dq = grads[0].transpose(1, 2)
+    dk, dv = (x.transpose(1, 2).reshape(b, s, hkv, g, d).sum(3) for x in grads[1:])
+    return dict(library_ms=fb_ms - f_ms, library_fwd_bwd_ms=fb_ms, library_fwd_ms=f_ms,
+                library_call="scaled_dot_product_attention, FLASH_ATTENTION, K/V "
+                             "repeated to Hq: forward + backward minus forward",
+                library_grads=(dq, dk, dv))
+
+
+def flex_bwd(q, k, v, do, window, cap, reps: int) -> dict:
+    """A compiled flex_attention's backward time (forward + backward minus
+    forward) with the softcap as its score_mod and causal + window as its
+    block mask: the yardstick where SDPA does not compute the function."""
+    from torch.nn.attention.flex_attention import create_block_mask, flex_attention
+    if "fn" not in _FLEX:
+        for name in ("cache_size_limit", "recompile_limit"):
+            if hasattr(torch._dynamo.config, name):
+                setattr(torch._dynamo.config, name, 64)
+        _FLEX["fn"] = torch.compile(flex_attention, dynamic=False)
+    qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_() for x in (q, k, v))
+    dot = do.transpose(1, 2).contiguous()
+
+    def mask_mod(b, h, qi, ki):
+        keep = qi >= ki
+        return keep & (qi - ki < window) if window is not None else keep
+
+    def score_mod(score, b, h, qi, ki):
+        return cap * torch.tanh(score / cap)
+
+    mask = create_block_mask(mask_mod, None, None, q.shape[1], k.shape[1], device=q.device)
+
+    def fwd():
+        return _FLEX["fn"](qt, kt, vt, score_mod=score_mod if cap else None,
+                           block_mask=mask, enable_gqa=True)
+
+    def fwd_bwd():
+        return torch.autograd.grad(fwd(), (qt, kt, vt), dot)
+    t = time.perf_counter()
+    grads = fwd_bwd()
+    torch.cuda.synchronize()
+    compile_s = time.perf_counter() - t
+    f_ms, fb_ms = time_ms(fwd, reps), time_ms(fwd_bwd, reps)
+    return dict(library_ms=fb_ms - f_ms, library_fwd_bwd_ms=fb_ms, library_fwd_ms=f_ms,
+                library_compile_s=compile_s,
+                library_call="flex_attention (torch.compile; softcap score_mod, causal"
+                             "+window block mask): forward + backward minus forward",
+                library_grads=tuple(x.transpose(1, 2) for x in grads))
+
+
+def phase6_kernel_model(seed: int, dev) -> dict:
+    """6a at the production settings (BWD_SETTINGS, one layer each, bf16)
+    and 6b: each one's kernel time (median of CUDA events), its bound and
+    CUDA-core floor, the plain version's time and the library backward's,
+    whose gradients are logged beside the kernel's (not held: its
+    arithmetic differs)."""
+    from repro_torch.kernels import flash_backward, ref
+    gen = torch.Generator(dev).manual_seed(seed + 6)
+    out = {}
+    for name, (b, s, hq, hkv, d, window, cap, lib) in BWD_SETTINGS.items():
+        t = time.perf_counter()
+        q, k, v, o, do = bwd_inputs(gen, b, s, hq, hkv, d, torch.bfloat16, window, cap)
+        kw = dict(window=window, softcap=cap)
+        got = flash_backward.flash_backward(q, k, v, o, do, **kw)
+        want = ref.flash_attention_bwd(q, k, v, o, do, **kw)
+        ratio, err = bwd_agree(got, want, name)
+        del want
+        nbytes_in = 2 * (3 * q.numel() + 2 * k.numel())
+        rec = dict(bwd_bound(b, s, hq, hkv, d, window, nbytes_in),
+                   shape=[b, s, hq, hkv, d], window=window, softcap=cap,
+                   err_over_limit=ratio, max_abs_err=err,
+                   ms=time_ms(lambda: flash_backward.flash_backward(q, k, v, o, do, **kw), 5),
+                   plain_ms=time_ms(lambda: ref.flash_attention_bwd(q, k, v, o, do, **kw),
+                                    1, warmup=0))
+        try:
+            librec = (sdpa_bwd(q, k, v, do, 5) if lib == "sdpa"
+                      else flex_bwd(q, k, v, do, window, cap, 5))
+        except (RuntimeError, torch._dynamo.exc.BackendCompilerFailed) as e:   # noqa: PERF203
+            log(f"[phase 6b] {name}: the {lib} backward refused: "
+                f"{str(e).splitlines()[0][:200]}; library time not measured")
+            librec = dict(library_ms=None, library_call=f"{lib} (refused)")
+        lg = librec.pop("library_grads", None)
+        if lg is not None:
+            librec["library_err_over_max"] = max(
+                float((x.float() - y).abs().max() / y.abs().max()) for x, y in zip(lg, got))
+        rec.update(librec)
+        out[name] = rec
+        lib_s = (f"{lib} backward {rec['library_ms']:.3f} ms "
+                 f"({rec['ms'] / rec['library_ms']:.2f}x), its grads within "
+                 f"{rec['library_err_over_max']:.2g} of max"
+                 if rec["library_ms"] else f"{lib} not measured")
+        log(f"[phase 6b] {name} {rec['shape']} window={window} cap={cap}: "
+            f"{rec['ms']:.3f} ms (bound {rec['bound_ms']:.3f} ms by {rec['bound_by']}, "
+            f"CUDA-core floor {rec['cuda_core_floor_ms']:.3f} ms; plain "
+            f"{rec['plain_ms']:.1f} ms); {lib_s}; worst {ratio:.3f} of the limit; "
+            f"{time.perf_counter() - t:.1f}s")
+        del q, k, v, o, do, got, lg
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+# 6c: (config module, layers, positions, SMOKE) at f32
+TRAIN_CARD_CPU = (("internlm2_1_8b", 2, 256, False), ("gemma2_2b", 2, 256, False),
+                  ("kimi_k2_1t_a32b", 2, 32, True))
+
+
+def train_grads(mod: str, n_layers: int, s: int, smoke: bool, seed: int,
+                device: str) -> dict:
+    """loss, aux and every gradient leaf of `loss_fn` for a config at f32
+    activations, parameters drawn on the CPU from `seed` (both devices get
+    the same numbers) and moved to `device`; tokens from numpy, labels =
+    tokens with the first 8 ignored."""
+    import importlib
+    from repro_torch.models import transformer as T
+    from repro_torch.train import tree
+    m = importlib.import_module(f"repro_torch.configs.{mod}")
+    cfg = dataclasses.replace(m.SMOKE if smoke else m.CONFIG, dtype="float32",
+                              n_layers=n_layers)
+    params = T.tree_map(lambda a: a.to(device),
+                        T.init_params(torch.Generator("cpu").manual_seed(seed), cfg))
+    toks = np.random.default_rng(seed).integers(0, cfg.vocab_size, (2 if smoke else 1, s))
+    labels = toks.copy()
+    labels[:, :8] = -100
+    batch = {"tokens": torch.tensor(toks, dtype=torch.int32, device=device),
+             "labels": torch.tensor(labels, dtype=torch.int32, device=device)}
+    leaves = tree.leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    loss, met = T.loss_fn(params, batch, cfg)
+    grads = torch.autograd.grad(loss, leaves)
+    return dict(loss=float(loss.detach()), aux=float(met["aux"].detach()),
+                grads={path: g.detach().cpu()
+                       for (path, _), g in zip(tree.leaves_with_paths(params), grads)})
+
+
+def train_cpu_half(seed: int) -> dict:
+    """6c's CPU half (in a worker process): `train_grads` on the CPU. Its
+    gradients come back as tensors, which torch's pickler hands over in
+    shared memory (4.5 GB through the result pipe took about a minute)."""
+    torch.set_num_threads(HOST_THREADS)
+    return {mod: train_grads(mod, n, s, smoke, seed, "cpu")
+            for mod, n, s, smoke in TRAIN_CARD_CPU}
+
+
+def phase6_card_vs_cpu(seed: int, host, dev) -> dict:
+    """6c: loss_fn and every gradient leaf on the card against the CPU's
+    (the plain versions), f32, at full width and 2 layers over 256
+    positions (internlm2-1.8b, gemma2-2b) and at kimi-k2's SMOKE config."""
+    from repro_torch.kernels import _build
+    card = {}
+    for mod, n, s, smoke in TRAIN_CARD_CPU:
+        n0 = _build.LAUNCHES["flash_backward"]
+        card[mod] = train_grads(mod, n, s, smoke, seed, dev)
+        check(_build.LAUNCHES["flash_backward"] >= n0 + n,
+              f"{mod}: the card's gradient did not launch flash_backward")
+    cpu = host.get(timeout=900)
+    out = {}
+    for mod, *_ in TRAIN_CARD_CPU:
+        g, c = card[mod], cpu[mod]
+        for key in ("loss", "aux"):
+            check(abs(g[key] - c[key]) <= TRAIN_LOSS_RTOL * max(1.0, abs(c[key])),
+                  f"{mod} {key}: card {g[key]} != CPU {c[key]}")
+        worst, where = 0.0, ""
+        check(g["grads"].keys() == c["grads"].keys(), f"{mod}: gradient leaves differ")
+        for path, gc_ in c["grads"].items():
+            lim = TRAIN_GRAD_TOL * float(gc_.abs().max()) + 1e-6
+            r = float((g["grads"][path] - gc_).abs().max()) / lim
+            if r > worst:
+                worst, where = r, path
+        check(worst <= 1.0, f"{mod}: card gradient != CPU at {where}: {worst:.3f} of the limit")
+        out[mod] = dict(loss=g["loss"], loss_cpu=c["loss"], aux=g["aux"],
+                        grad_worst_over_limit=worst, worst_leaf=where,
+                        leaves=len(c["grads"]))
+        log(f"[phase 6c] {mod}: loss card {g['loss']:.6f} / CPU {c['loss']:.6f}, aux "
+            f"{g['aux']:.6f} / {c['aux']:.6f}; {len(c['grads'])} gradient leaves within "
+            f"{worst:.3f} of the limit ({TRAIN_GRAD_TOL} x max|g| + 1e-6; worst {where})")
+    return out
+
+
+@contextlib.contextmanager
+def annotated_optimizer():
+    """Every optimizer update of a train step made inside the block runs
+    under a profiler range named "optimizer" (the trainer builds its
+    optimizer through `trainer.make_optimizer`)."""
+    from repro_torch.train import optimizer as optim, trainer
+    inner = trainer.make_optimizer
+
+    def make(cfg):
+        o = inner(cfg)
+
+        def update(*args):
+            with torch.profiler.record_function("optimizer"):
+                return o.update(*args)
+        return optim.Optimizer(init=o.init, update=update)
+    trainer.make_optimizer = make
+    try:
+        yield
+    finally:
+        trainer.make_optimizer = inner
+
+
+MATMUL_KEYS = ("gemm", "cutlass", "nvjet", "xmma", "sm90_", "sm80_")
+
+
+def step_profile(step_fn) -> dict | None:
+    """Device shares of one train step from a torch.profiler trace: the
+    busy time (every kernel's own time), flash_backward's, flash_prefill's,
+    the matmuls' and the optimizer range's kernels, and the idle share of
+    the step's wall time."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        step_fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t) * 1e3
+    rows = prof.key_averages()
+    kernels = [e for e in rows if e.device_type == torch.autograd.DeviceType.CUDA
+               and not e.is_user_annotation]
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3
+    if busy <= 0:
+        log("[phase 6d] the profiler saw no device time: shares not measured")
+        return None
+    part = {k: sum(e.self_device_time_total for e in kernels if k in e.key) / 1e3
+            for k in ("flash_backward", "flash_prefill")}
+    part["matmul"] = sum(e.self_device_time_total for e in kernels
+                         if any(m in e.key.lower() for m in MATMUL_KEYS)) / 1e3
+    part["optimizer"] = sum(e.device_time_total for e in rows if e.key == "optimizer") / 1e3
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
+    return dict(wall_ms=wall, busy_ms=busy, idle_share=1 - busy / wall,
+                shares={k: v / busy for k, v in part.items()}, ms=part,
+                top_kernels=[(e.key[:80], e.self_device_time_total / 1e3) for e in top])
+
+
+def phase6_trainer(seed: int, dev) -> dict:
+    """6d: internlm2-1.8b at full width and depth through `make_train_step`
+    (AdamW, bf16 states, remat, bf16 activations, f32 parameters), global
+    batch TRAIN_B x TRAIN_S as TRAIN_MICRO microbatches; the launches of
+    the TRAIN_STEPS steps counted from 0; then one profiled step."""
+    from repro_torch.configs import internlm2_1_8b
+    from repro_torch.configs import registry as R
+    from repro_torch.kernels import _build
+    from repro_torch.launch.train import synthetic_lm_batches
+    from repro_torch.models import transformer as T
+    from repro_torch.train import tree
+    from repro_torch.train.optimizer import OptimizerConfig
+    from repro_torch.train.trainer import make_train_step
+    cfg = internlm2_1_8b.CONFIG
+    t = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    params = T.init_params(torch.Generator(dev).manual_seed(seed), cfg)
+    n_params = cfg.param_count()
+    check(sum(x.numel() for x in tree.leaves(params)) == n_params,
+          "internlm2's parameter tree against its parameter count")
+    with annotated_optimizer():
+        init_state, train_step = make_train_step(
+            R.lm_loss(cfg), OptimizerConfig(**TRAIN_OPT), n_micro=TRAIN_MICRO)
+    state = init_state(params)
+    # one batch of the reference's token stream for every step: the loss of
+    # a batch the model keeps seeing must fall (on fresh random tokens the
+    # copy task moves it by less than the batches' own spread in 5 steps)
+    bt = {k: torch.from_numpy(v).reshape(TRAIN_MICRO, TRAIN_B // TRAIN_MICRO, TRAIN_S).to(dev)
+          for k, v in next(synthetic_lm_batches(cfg, TRAIN_B, TRAIN_S, seed)).items()}
+    init_s = time.perf_counter() - t
+    losses, step_s = [], []
+    _build.reset_launches()
+    for i in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        state, met = train_step(state, bt)
+        losses.append(float(met["loss"]))
+        step_s.append(time.perf_counter() - t)
+        log(f"[phase 6d] step {i + 1}: loss {losses[-1]:.4f} (xent {float(met['xent']):.4f}), "
+            f"grad norm {float(met['grad_norm']):.3f}, lr {float(met['lr']):.2e}, "
+            f"{step_s[-1]:.3f}s")
+    launches = {k: v for k, v in _build.LAUNCHES.items() if v}
+    check(all(math.isfinite(x) for x in losses), f"a loss is not finite: {losses}")
+    check(losses[-1] < losses[0], f"the loss did not fall: {losses}")
+    want = TRAIN_STEPS * TRAIN_MICRO * cfg.n_layers
+    check(launches.get("flash_backward") == want
+          and launches.get("flash_prefill") == 2 * want and len(launches) == 2,
+          f"a training step's attention launches: {launches} (want {want} flash_backward, "
+          f"{2 * want} flash_prefill: the forward and remat's recompute)")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    prof = step_profile(lambda: train_step(state, bt))
+    timed = statistics.median(step_s[1:])
+    tokens = TRAIN_B * TRAIN_S
+    attn_flops = 12.0 * cfg.d_head * bwd_pairs(TRAIN_S, None) * cfg.n_heads * TRAIN_B \
+        * cfg.n_layers
+    share = (6.0 * n_params * tokens + attn_flops) / (timed * BF16_TC_FLOPS)
+    res = dict(losses=losses, step_s=step_s, ms_per_step=timed * 1e3,
+               tokens_per_s=tokens / timed, peak_gib=peak, init_s=init_s,
+               share_of_peak=share, launches=launches, launches_per_step=want // TRAIN_STEPS,
+               profile=prof, params=n_params, reduced=TRAIN_REDUCED)
+    log(f"[phase 6d] internlm2-1.8b ({n_params} params, {cfg.n_layers} layers) trainer: median "
+        f"{timed * 1e3:.1f} ms a step of {tokens} tokens ({tokens / timed:.1f} tokens/s), "
+        f"{share:.1%} of the bf16 peak ((6NT + attention FLOPs) / (t x 989 TFLOP/s)); "
+        f"peak {peak:.2f} GiB; loss {' -> '.join(f'{x:.4f}' for x in losses)}; launches "
+        f"{launches}")
+    if prof:
+        log(f"[phase 6d] profiled step: wall {prof['wall_ms']:.1f} ms, device busy "
+            f"{prof['busy_ms']:.1f} ms (idle {prof['idle_share']:.1%}); shares of busy: "
+            + ", ".join(f"{k} {v:.1%} ({prof['ms'][k]:.1f} ms)"
+                        for k, v in prof["shares"].items())
+            + f"; top kernels {prof['top_kernels']}")
+    del state, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase6_restart(seed: int, dev) -> dict:
+    """6e: internlm2-1.8b at 2 layers, full width, through `TrainingDriver`:
+    a run that fails at step RESTART_FAIL (checkpoint at it), a resumed run
+    to RESTART_STEPS, and an uninterrupted run; the resumed loss history,
+    parameters and optimizer state equal the uninterrupted run's bit for
+    bit."""
+    import shutil
+    from repro_torch.configs import internlm2_1_8b
+    from repro_torch.configs import registry as R
+    from repro_torch.launch.train import synthetic_lm_batches
+    from repro_torch.models import transformer as T
+    from repro_torch.train import tree
+    from repro_torch.train.optimizer import OptimizerConfig
+    from repro_torch.train.trainer import DriverConfig, TrainingDriver, make_train_step
+    cfg = dataclasses.replace(internlm2_1_8b.CONFIG, n_layers=2)
+    root = Path(__file__).resolve().parent / "build" / "phase6_ckpt"
+    shutil.rmtree(root, ignore_errors=True)
+    stream = synthetic_lm_batches(cfg, RESTART_B, RESTART_S, seed)
+    batches = [next(stream) for _ in range(RESTART_STEPS)]
+    init_state, train_step = make_train_step(R.lm_loss(cfg), OptimizerConfig(**TRAIN_OPT))
+
+    def params_init():
+        return T.init_params(torch.Generator(dev).manual_seed(seed), cfg)
+
+    def run(name, start, **kw):
+        d = DriverConfig(ckpt_dir=str(root / name), max_steps=RESTART_STEPS,
+                         keep_last=1, **kw)
+        t = time.perf_counter()
+        state, hist = TrainingDriver(init_state, train_step, d).run(
+            params_init, iter(batches[start:]))
+        return state, hist, time.perf_counter() - t
+
+    t = time.perf_counter()
+    try:
+        run("resumed", 0, ckpt_every=RESTART_FAIL, fail_at_step=RESTART_FAIL)
+        raise AssertionError("the injected failure did not fire")
+    except RuntimeError as e:
+        check("injected failure" in str(e), f"6e: {e}")
+    fail_s = time.perf_counter() - t
+    resumed, hist_r, resume_s = run("resumed", RESTART_FAIL, ckpt_every=RESTART_FAIL)
+    whole, hist_w, whole_s = run("whole", 0, ckpt_every=RESTART_STEPS)
+    check(len(hist_r) == RESTART_STEPS - RESTART_FAIL, f"6e: resumed ran {len(hist_r)} steps")
+    check([h["loss"] for h in hist_r] == [h["loss"] for h in hist_w[RESTART_FAIL:]],
+          f"6e: resumed losses {hist_r} != uninterrupted {hist_w[RESTART_FAIL:]}")
+    diff = [p for (p, a), b in zip(tree.leaves_with_paths(resumed), tree.leaves(whole))
+            if not torch.equal(a, b)]
+    check(not diff, f"6e: the resumed state differs from the uninterrupted one at {diff[:5]}")
+    nbytes = sum(x.numel() * x.element_size() for x in tree.leaves(whole))
+    shutil.rmtree(root, ignore_errors=True)
+    res = dict(losses=[h["loss"] for h in hist_w], state_gb=nbytes / 1e9,
+               fail_run_s=fail_s, resume_run_s=resume_s, whole_run_s=whole_s,
+               leaves=len(tree.leaves(whole)))
+    log(f"[phase 6e] internlm2-1.8b, 2 layers: failed at step {RESTART_FAIL}, resumed to "
+        f"{RESTART_STEPS}: losses and all {res['leaves']} state leaves "
+        f"({res['state_gb']:.2f} GB) equal the uninterrupted run's bit for bit; losses "
+        f"{res['losses']}; runs {fail_s:.1f} / {resume_s:.1f} / {whole_s:.1f} s")
+    return res
+
+
+def phase6(seed: int, host, dev=torch.device("cuda")) -> dict:
+    """Phase 6 a-e; returns flash_backward's entry of the kernels line.
+    `host` is 6c's CPU half, started in a worker before phase 6."""
+    t = time.perf_counter()
+    small = phase6_kernel_small(dev)
+    model = phase6_kernel_model(seed, dev)
+    log(f"[phase 6a-b] {time.perf_counter() - t:.1f}s")
+    # 6c before 6d: its CPU half (8 host threads' worth of work) must not
+    # share the host with the trainer's launches
+    t = time.perf_counter()
+    card_cpu = phase6_card_vs_cpu(seed, host, dev)
+    log(f"[phase 6c] {time.perf_counter() - t:.1f}s")
+    t = time.perf_counter()
+    train = phase6_trainer(seed, dev)
+    log(f"[phase 6d] {time.perf_counter() - t:.1f}s")
+    t = time.perf_counter()
+    restart = phase6_restart(seed, dev)
+    log(f"[phase 6e] {time.perf_counter() - t:.1f}s")
+    head = dict(model["internlm2_1_8b"])
+    head.pop("flops")
+    head.update(name="flash_backward",
+                max_abs_err=max(small["abs"], *(m["max_abs_err"] for m in model.values())),
+                err_over_limit={"f32": small["f32"], "bf16": small["bf16"],
+                                **{k: m["err_over_limit"] for k, m in model.items()}},
+                settings={k: m for k, m in model.items() if k != "internlm2_1_8b"},
+                launches=train["launches"].get("flash_backward", 0),
+                launches_path=f"6d: {TRAIN_STEPS} train steps of internlm2-1.8b, "
+                              f"{train['launches_per_step']} a step",
+                lm_train=dict(train, card_vs_cpu=card_cpu, restart=restart))
+    return head
+
+
 SOURCES = {
     "coverage_gain": ("src/repro_torch/kernels/csrc/coverage_gain.cu",
                       "src/repro/kernels/coverage_gain.py:33"),
@@ -4367,10 +4940,15 @@ SOURCES = {
                      "src/repro/kernels/flash_attention.py:93"),
     "flash_prefill": ("src/repro_torch/kernels/csrc/flash_prefill.cu",
                       "src/repro/kernels/flash_attention.py:93"),
+    # no Pallas backward exists: the gradient of that kernel's function
+    "flash_backward": ("src/repro_torch/kernels/csrc/flash_backward.cu",
+                       "src/repro/kernels/flash_attention.py:93"),
 }
-# the kernels of the tiering paths (phases 1-3); the LM phase checks its own
+# the kernels of the tiering paths (phases 1-3); the LM phases check their own:
+# serving's three attention kernels (phase 4) and training's backward (phase 6)
 LM_KERNELS = ("flash_attention", "flash_decode", "flash_prefill")
-TIERING_KERNELS = tuple(k for k in SOURCES if k not in LM_KERNELS)
+TRAIN_KERNELS = ("flash_backward",)
+TIERING_KERNELS = tuple(k for k in SOURCES if k not in LM_KERNELS + TRAIN_KERNELS)
 
 
 def ptxas_lines(build_log: str) -> list[str]:
@@ -4447,6 +5025,22 @@ def main() -> int:
         src, tpu = SOURCES[r["name"]]
         r.update(route="cuda", source=src, replaces=tpu, models=models[r["name"]])
         rec.append(r)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    pool = multiprocessing.get_context("spawn").Pool(1)
+    try:
+        host = pool.apply_async(train_cpu_half, (args.seed,))
+        bwd = phase6(args.seed, host)
+    finally:
+        pool.terminate()
+        pool.join()
+    src, tpu = SOURCES["flash_backward"]
+    bwd.update(route="cuda", source=src, replaces=tpu,
+               replaces_note="the reference has no Pallas backward; this is the gradient "
+                             "of that kernel's function (jax.grad of chunked_attention)")
+    rec.append(bwd)
+    log(f"[phase 6] {time.perf_counter() - t:.1f}s")
     log(f"total {time.perf_counter() - t_all:.1f}s")
     print(json.dumps({"kernels": rec}))
     print(card_line())
@@ -4466,7 +5060,7 @@ def production_phases(seed: int):
     p3["shards"] = phase3_shards(p3, counts)
     p3["sparse"] = phase3_sparse(p3, counts)
     check(all(counts[k] > 0 for k in TIERING_KERNELS) and len(counts) == len(SOURCES)
-          and all(counts[k] == 0 for k in LM_KERNELS),
+          and all(counts[k] == 0 for k in LM_KERNELS + TRAIN_KERNELS),
           f"a kernel never launched in phase 3, or an LM kernel did: {counts}")
     log(f"[phase 3] launches {dict(counts)}; {time.perf_counter() - t:.1f}s")
     t = time.perf_counter()

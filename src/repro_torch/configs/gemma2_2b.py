@@ -24,4 +24,4 @@ SMOKE = TransformerConfig(
     tie_embeddings=True, embed_scale=True, pure_full_attention=False,
 )
 
-register_lm("gemma2-2b", CONFIG, smoke_cfg=SMOKE)
+register_lm("gemma2-2b", CONFIG, n_micro=1, smoke_cfg=SMOKE)

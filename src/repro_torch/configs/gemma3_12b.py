@@ -26,4 +26,4 @@ SMOKE = TransformerConfig(
     tie_embeddings=True, embed_scale=True, pure_full_attention=False,
 )
 
-register_lm("gemma3-12b", CONFIG, smoke_cfg=SMOKE)
+register_lm("gemma3-12b", CONFIG, n_micro=2, smoke_cfg=SMOKE)

@@ -22,4 +22,4 @@ SMOKE = TransformerConfig(
     pure_full_attention=True,
 )
 
-register_lm("internlm2-1.8b", CONFIG, smoke_cfg=SMOKE)
+register_lm("internlm2-1.8b", CONFIG, n_micro=1, smoke_cfg=SMOKE)

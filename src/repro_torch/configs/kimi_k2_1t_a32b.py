@@ -2,7 +2,9 @@
 vocab=163840, MoE 384e top-8 — trillion-param MoE [arXiv:2501.kimi2].
 
 Pure full attention -> long_500k skipped per spec. Untied unembedding, no
-softcap; parameters stored in bf16 (2084 GB at 61 layers).
+softcap; parameters stored in bf16 (2084 GB at 61 layers). Optimizer:
+Adafactor (bf16 Adam states for 1T params would not fit); train_4k uses
+8-way grad accumulation in bf16.
 """
 from repro_torch.configs.registry import register_lm
 from repro_torch.models.moe import MoEConfig
@@ -27,4 +29,5 @@ SMOKE = TransformerConfig(
     tie_embeddings=False, pure_full_attention=True,
 )
 
-register_lm("kimi-k2-1t-a32b", CONFIG, smoke_cfg=SMOKE)
+register_lm("kimi-k2-1t-a32b", CONFIG, n_micro=8, optimizer="adafactor",
+            grad_accum_dtype="bfloat16", smoke_cfg=SMOKE)

@@ -29,4 +29,5 @@ SMOKE = TransformerConfig(
     tie_embeddings=False, pure_full_attention=True,
 )
 
-register_lm("llama4-maverick-400b-a17b", CONFIG, smoke_cfg=SMOKE)
+register_lm("llama4-maverick-400b-a17b", CONFIG, n_micro=4,
+            optimizer="adamw", grad_accum_dtype="bfloat16", smoke_cfg=SMOKE)

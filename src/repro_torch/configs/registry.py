@@ -1,9 +1,10 @@
-"""Architecture registry, the LM serving part of `repro.configs.registry`.
+"""Architecture registry, the LM part of `repro.configs.registry`.
 
-Each registered arch names its config, its cells and its serving
-functions. A cell's dimensions are plain numbers: the port runs on one
-device, so there are no PartitionSpecs. Only the LM family's serving cells
-(`prefill_32k`, `decode_32k`, `long_500k`) are ported; training cells and
+Each registered arch names its config, its cells, its serving functions and
+its training setup (loss, optimizer, microbatches, gradient accumulation
+dtype, and the `smoke` batch). A cell's dimensions are plain numbers: the
+port runs on one device, so there are no PartitionSpecs. The LM family's
+cells (`train_4k`, `prefill_32k`, `decode_32k`, `long_500k`) are ported;
 the other families are not yet.
 """
 from __future__ import annotations
@@ -12,12 +13,15 @@ import dataclasses
 import importlib
 from typing import Any, Callable
 
+import numpy as np
+import torch
+
 LM_SHAPES = ("train_4k", "prefill_32k", "decode_32k", "long_500k")
 
 
 @dataclasses.dataclass
 class Cell:
-    kind: str                       # prefill | decode
+    kind: str                       # train | prefill | decode
     dims: dict[str, Any]            # name -> int or shape tuple
 
 
@@ -30,6 +34,11 @@ class ArchSpec:
     config_for: Callable[[str], Any]
     cell_for: Callable[[str], Cell]
     serve_fn: Callable              # (cfg, shape) -> fn(params, batch)
+    loss_fn: Callable | None = None     # (cfg) -> fn(params, batch)
+    optimizer: str = "adamw"
+    grad_accum_dtype: str = "float32"
+    n_micro: int = 1                # train_4k microbatches
+    smoke: Callable | None = None   # () -> (cfg, batch, kind)
     smoke_cfg: Any = None
 
 
@@ -62,8 +71,11 @@ def get_arch(name: str) -> ArchSpec:
 # LM family glue
 # =============================================================================
 
-def lm_cell(cfg, shape: str) -> Cell:
-    """The registry's batch, length and cache shape of an LM serving cell."""
+def lm_cell(cfg, shape: str, n_micro: int = 1) -> Cell:
+    """The registry's batch, length (and cache shape, or microbatches) of an
+    LM cell."""
+    if shape == "train_4k":
+        return Cell("train", {"batch": 256, "seq_len": 4096, "n_micro": n_micro})
     if shape == "prefill_32k":
         return Cell("prefill", {"batch": 32, "seq_len": 32768})
     if shape in ("decode_32k", "long_500k"):
@@ -71,9 +83,12 @@ def lm_cell(cfg, shape: str) -> Cell:
         return Cell("decode", {
             "batch": b, "seq_len": s,
             "cache": (cfg.n_layers, b, s, cfg.n_kv_heads, cfg.d_head)})
-    if shape == "train_4k":
-        raise NotImplementedError("training cells are not ported yet")
     raise KeyError(shape)
+
+
+def lm_loss(cfg):
+    from repro_torch.models import transformer as T
+    return lambda params, batch: T.loss_fn(params, batch, cfg)
 
 
 def lm_serve(cfg, shape: str):
@@ -93,14 +108,25 @@ def lm_serve(cfg, shape: str):
     return decode
 
 
-def register_lm(name: str, cfg, *, smoke_cfg=None) -> ArchSpec:
+def register_lm(name: str, cfg, *, n_micro: int = 1, optimizer: str = "adamw",
+                grad_accum_dtype: str = "float32", smoke_cfg=None) -> ArchSpec:
     skips = {}
     if cfg.pure_full_attention:
         skips["long_500k"] = ("pure full attention: 500k-token context is "
                               "quadratic at prefill; spec says skip "
                               "(DESIGN.md §Arch-applicability)")
+
+    def smoke():
+        """(the SMOKE config, a [2, 32] batch of the reference's numpy
+        tokens as CPU int32 tensors with labels = tokens, "train")."""
+        rng = np.random.default_rng(0)
+        toks = torch.from_numpy(rng.integers(0, smoke_cfg.vocab_size, (2, 32)).astype(np.int32))
+        return smoke_cfg, {"tokens": toks, "labels": toks.clone()}, "train"
+
     return register(ArchSpec(
         name=name, family="lm", shapes=LM_SHAPES, skips=skips,
         config_for=lambda shape: cfg,
-        cell_for=lambda shape: lm_cell(cfg, shape),
-        serve_fn=lm_serve, smoke_cfg=smoke_cfg))
+        cell_for=lambda shape: lm_cell(cfg, shape, n_micro),
+        serve_fn=lm_serve, loss_fn=lm_loss, optimizer=optimizer,
+        grad_accum_dtype=grad_accum_dtype, n_micro=n_micro, smoke=smoke,
+        smoke_cfg=smoke_cfg))

@@ -58,22 +58,25 @@ def tiering_from_numpy(clauses, clause_vocab_bits: np.ndarray,
         vocab_size=int(vocab_size))
 
 
+def _tensor_leaf(a, device) -> torch.Tensor:
+    """A numpy leaf as a tensor of the same dtype (bfloat16, numpy's
+    ml_dtypes, carried through float32, which holds it exactly)."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.tensor(a.astype(np.float32), device=device).to(torch.bfloat16)
+    return torch.tensor(a, device=device)
+
+
+def _walk(tree, fn):
+    return {k: _walk(v, fn) for k, v in tree.items()} if isinstance(tree, dict) else fn(tree)
+
+
 def tensors_from_numpy(tree: dict, dtype: torch.dtype = torch.float32,
                        device=None) -> dict:
     """A nested dict of numpy arrays as tensors of `dtype` on `device`, the
-    nesting kept. A bfloat16 leaf (numpy's ml_dtypes) is carried through
-    float32, which holds it exactly."""
+    nesting kept."""
     dev = resolve_device(device)
-
-    def leaf(a):
-        a = np.asarray(a)
-        if a.dtype.name == "bfloat16":
-            a = a.astype(np.float32)
-        return torch.tensor(a, device=dev).to(dtype)
-
-    def walk(t):
-        return {k: walk(v) for k, v in t.items()} if isinstance(t, dict) else leaf(t)
-    return walk(tree)
+    return _walk(tree, lambda a: _tensor_leaf(a, dev).to(dtype))
 
 
 def transformer_params_from_numpy(tree: dict, cfg, device=None) -> dict:
@@ -82,3 +85,15 @@ def transformer_params_from_numpy(tree: dict, cfg, device=None) -> dict:
     leaves, an MoE layer's [L, E, D, F] experts among them), in
     `cfg.param_dtype` on `device`."""
     return tensors_from_numpy(tree, cfg.pdtype, device)
+
+
+def train_state_from_numpy(state: dict, device=None) -> dict:
+    """The port's train state {params, opt, ef, step} from a reference train
+    state as numpy (`jax.tree.map(np.asarray, state)`): AdamW's m and v,
+    Adafactor's vr / vc / v, the error-feedback residual and the step, each
+    leaf in its own dtype (bf16 parameters or states stay bf16) on
+    `device`."""
+    dev = resolve_device(device)
+    out = _walk(state, lambda a: _tensor_leaf(a, dev))
+    out["step"] = out["step"].to(torch.int32)
+    return out

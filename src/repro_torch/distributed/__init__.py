@@ -9,8 +9,11 @@
     `shard_mesh` builds a mesh over the visible devices; `mesh_fused` is
     the gate `ops.partition_gain` goes through.
 
-The reference's training side (`sharding`, `compression`, the other
-model-axis helpers) is not part of this package yet.
+  * `compression` — the trainer's gradient compression (int8 or top-k
+    with error feedback).
+
+The rest of the reference's training side (`sharding`, `quantized_psum`,
+the other model-axis helpers) is not part of this package yet.
 """
 from repro_torch.distributed.mesh_context import (      # noqa: F401
     Mesh, current_mesh, model_axis_in, use_mesh)

@@ -14,6 +14,15 @@ arithmetic) in the tiles `tile_plan` gives. All read q, k and v in their
 [B, S, H, D] layout through their strides, so a decode step passes one
 layer's slice of the KV cache as it lies, with `kv_len` = the filled
 length.
+
+When autograd wants a gradient of q, k or v, the call goes through
+`Attention`, a `torch.autograd.Function` whose forward is the routed
+forward above and whose backward is `flash_backward` (the hand-written
+`csrc/flash_backward.cu` on the card, `ref.flash_attention_bwd` on the
+CPU). Its contract is the training forward's: causal, q_offset 0, every
+key valid and Sq = Skv, with or without a window and a softcap; a gradient
+asked for outside it (a decode step, kv_len < Skv, causal=False) raises
+NotImplementedError.
 """
 from __future__ import annotations
 
@@ -21,7 +30,7 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch.kernels import _build, flash_decode, flash_prefill, ref
+from repro_torch.kernels import _build, flash_backward, flash_decode, flash_prefill, ref
 
 HEAD_DIMS = (8, 16, 32, 64, 128, 256)   # the kernel's instantiations
 DTYPES = (torch.float32, torch.bfloat16)
@@ -90,6 +99,36 @@ def _require(t: torch.Tensor, name: str, q: torch.Tensor) -> None:
         raise ValueError(f"{name} is not aligned to 4 elements")
 
 
+class Attention(torch.autograd.Function):
+    """`flash_attention` with a gradient: the routed forward, and
+    `flash_backward` from the saved q, k, v and output."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, softcap, q_offset, kv_len):
+        out = _forward(q, k, v, causal=causal, window=window, softcap=softcap,
+                       q_offset=q_offset, kv_len=kv_len)
+        ctx.save_for_backward(q, k, v, out)
+        ctx.args = (causal, window, softcap, q_offset, kv_len)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out = ctx.saved_tensors
+        causal, window, softcap, q_offset, kv_len = ctx.args
+        skv = k.shape[1]
+        if not causal or q_offset != 0 or (kv_len is not None and kv_len != skv) \
+                or q.shape[1] != skv:
+            raise NotImplementedError(
+                "flash_attention's gradient is the training forward's: causal, "
+                f"q_offset 0, kv_len = Skv = Sq; got causal={causal}, "
+                f"q_offset={q_offset}, kv_len={kv_len}, Sq={q.shape[1]}, Skv={skv}")
+        if dout.stride(-1) != 1:
+            dout = dout.contiguous()
+        dq, dk, dv = flash_backward.flash_backward(q, k, v, out, dout, causal=True,
+                                                   window=window, softcap=softcap)
+        return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None, None, None, None, None
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int | None = None,
                     softcap: float | None = None, q_offset: int = 0,
@@ -97,7 +136,18 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """q [B, Sq, Hq, D], k/v [B, Skv, Hkv, D] -> [B, Sq, Hq, D] in q's dtype.
 
     `q_offset` is the absolute position of q[:, 0]; keys at or past `kv_len`
-    (default Skv) do not exist. `window` None is global attention."""
+    (default Skv) do not exist. `window` None is global attention. Through
+    `Attention` when autograd wants a gradient of q, k or v."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return Attention.apply(q, k, v, causal, window, softcap, q_offset, kv_len)
+    return _forward(q, k, v, causal=causal, window=window, softcap=softcap,
+                    q_offset=q_offset, kv_len=kv_len)
+
+
+def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+             causal: bool, window: int | None, softcap: float | None,
+             q_offset: int, kv_len: int | None) -> torch.Tensor:
+    """The routed forward: the plain version on the CPU, else a kernel."""
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError(f"expected q [B, Sq, Hq, D] and k, v [B, Skv, Hkv, D], "
                          f"got {tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")

@@ -213,6 +213,57 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out
 
 
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        o: torch.Tensor, do: torch.Tensor, *, causal: bool = True,
+                        window: int | None = None, softcap: float | None = None
+                        ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The gradient of `flash_attention` (q_offset 0, every key valid) with
+    respect to q, k and v, given its output `o` and the output's gradient
+    `do`; the plain version of `csrc/flash_backward.cu`. q/o/do [B, S, Hq,
+    D], k/v [B, Skv, Hkv, D] -> (dq, dk, dv) in f32, f32 math: scores
+    masked to -1e30 as the reference's `chunked_attention` masks them, p
+    their softmax, dp = do.v, ds = p * (dp - rowsum(do * o)), zero where a
+    key is not visible, times 1 - (s / cap)^2 under a softcap; dk and dv
+    summed over each KV head's G query heads. Works through blocks of query
+    positions, dk and dv accumulated across them."""
+    b, sq, hq, d = q.shape
+    _, skv, hkv, _ = k.shape
+    g = hq // hkv
+    scale = 1.0 / math.sqrt(d)
+    kf, vf = k.float(), v.float()
+    k_pos = torch.arange(skv, device=q.device)
+    dq = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    dk = torch.zeros(k.shape, dtype=torch.float32, device=q.device)
+    dv = torch.zeros(v.shape, dtype=torch.float32, device=q.device)
+    rows = max(1, CHUNK_BYTES // max(1, b * hq * skv * 4 * 6))
+    for r0 in range(0, sq, rows):
+        n = min(rows, sq - r0)
+        qc = q[:, r0:r0 + n].float().reshape(b, n, hkv, g, d)
+        dc = do[:, r0:r0 + n].float().reshape(b, n, hkv, g, d)
+        delta = (dc * o[:, r0:r0 + n].float().reshape(b, n, hkv, g, d)).sum(-1)
+        s = torch.einsum("bqhgd,bkhd->bhgqk", qc, kf) * scale
+        if softcap is not None:
+            t = torch.tanh(s / softcap)
+            s = softcap * t
+        q_pos = torch.arange(r0, r0 + n, device=q.device)
+        mask = torch.ones((n, skv), dtype=torch.bool, device=q.device)
+        if causal:
+            mask &= q_pos[:, None] >= k_pos[None, :]
+        if window is not None:
+            mask &= q_pos[:, None] - k_pos[None, :] < window
+        p = torch.softmax(torch.where(mask, s, torch.tensor(NEG, device=q.device)), dim=-1)
+        dp = torch.einsum("bqhgd,bkhd->bhgqk", dc, vf)
+        ds = torch.where(mask, p * (dp - delta.permute(0, 2, 3, 1)[..., None]),
+                         torch.tensor(0.0, device=q.device))
+        if softcap is not None:
+            ds = ds * (1.0 - t * t)
+        dv += torch.einsum("bhgqk,bqhgd->bkhd", p, dc)
+        dk += torch.einsum("bhgqk,bqhgd->bkhd", ds, qc) * scale
+        dq[:, r0:r0 + n] = (torch.einsum("bhgqk,bkhd->bqhgd", ds, kf) * scale
+                            ).reshape(b, n, hq, d)
+    return dq, dk, dv
+
+
 def decode_keys(kv_len: int, q_offset: int, causal: bool = True,
                 window: int | None = None) -> tuple[int, int]:
     """The keys [lo, hi) that one query at `q_offset` sees: every key inside

@@ -18,6 +18,11 @@ the first entry in rank order, the reference's `psum` over `model`. One
 process drives every entry, as the fleet's shard mesh does. Routing runs
 once, outside the expert shards, so the parallel path and the dense oracle
 route identically. A mesh without a `"model"` axis takes the direct path.
+
+Under autograd (`transformer.loss_fn`) the dispatch needs no change:
+autograd follows the writes into the slot buffer, and the overflow row,
+written by every dropped pair and never read, gets a zero gradient, as the
+reference's `.at[].set` does.
 """
 from __future__ import annotations
 

@@ -1,6 +1,7 @@
-"""Decoder-only transformer LM, the serving path of
-`repro.models.transformer`: prefill (`forward`) and the KV-cache decode step
-(`decode_step`), with GQA, RoPE, local/global attention alternation,
+"""Decoder-only transformer LM, the counterpart of
+`repro.models.transformer`: prefill (`forward`), the KV-cache decode step
+(`decode_step`) and the training loss (`loss_fn`), with GQA, RoPE,
+local/global attention alternation,
 attention and final logit softcaps, a tied or untied embedding, and a dense
 SwiGLU or MoE FFN (`models.moe`).
 
@@ -16,8 +17,13 @@ and cast back, and weights are cast to the activation dtype at each matmul
 (`serving_params` makes that cast once, with identical numbers). An MoE
 layer runs on all of the call's tokens, so a decode step's expert capacity
 comes from its B tokens and a forward's from B*S, as in the reference.
-`remat`, `unroll_layers` and `attn_unroll` are training and dry-run knobs of
-the reference that serving ignores.
+When autograd wants a gradient of the parameters (training), `forward`
+checkpoints each layer if `cfg.remat`, as the reference wraps its layer in
+`jax.checkpoint`: the backward recomputes a layer's activations from its
+input, with the same kernels on the same inputs, so the numbers do not
+change. Serving (parameters that need no gradient, or `torch.no_grad`)
+runs the plain loop. `unroll_layers` and `attn_unroll` are dry-run knobs
+of the reference that the port ignores.
 """
 from __future__ import annotations
 
@@ -25,6 +31,7 @@ import dataclasses
 import math
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.models import common, moe as moe_lib
@@ -196,9 +203,24 @@ def _map_path(fn, tree, path=()):
     return fn(path, tree)
 
 
+def _leaves(tree) -> list:
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in _leaves(v)]
+    return [tree]
+
+
 def layer_params(params: dict, i: int) -> dict:
     """Layer `i`'s slice of the stacked per-layer tree (views, no copy)."""
     return tree_map(lambda a: a[i], params["layers"])
+
+
+def _all_layer_params(params: dict, n_layers: int) -> list[dict]:
+    """Every layer's slice of the stacked tree (views), by one `unbind` a
+    leaf: under autograd its backward stacks the L slices' gradients once,
+    where a slice a[i] per layer would add L leaf-sized tensors (24 x 1.6
+    GB for internlm2-1.8b's w1 alone)."""
+    cols = tree_map(lambda a: a.unbind(0), params["layers"])
+    return [tree_map(lambda c, i=i: c[i], cols) for i in range(n_layers)]
 
 
 # -----------------------------------------------------------------------------
@@ -258,7 +280,11 @@ def _window_of(cfg: TransformerConfig, is_global: bool) -> int | None:
 
 
 def _embed(params: dict, tokens: torch.Tensor, cfg: TransformerConfig) -> torch.Tensor:
-    h = params["embed"][tokens.long()].to(cfg.adtype)
+    # F.embedding, not an index: an index's CUDA gradient (index_put with
+    # accumulate) is deterministic only in PyTorch's deterministic mode;
+    # phase 6e of chip_smoke.py holds a resumed training run to the bits of
+    # an uninterrupted one
+    h = torch.nn.functional.embedding(tokens.long(), params["embed"]).to(cfg.adtype)
     if cfg.embed_scale:
         # the reference's python-float scale is weakly typed: it is rounded
         # to the activation dtype first
@@ -274,18 +300,39 @@ def forward(params: dict, tokens: torch.Tensor, cfg: TransformerConfig
     h = _embed(params, tokens, cfg)
     positions = torch.arange(s, device=h.device)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
-    for i, flag in enumerate(cfg.is_global_layer()):
-        lp = layer_params(params, i)
-        h = h + _attention_block(cfg, lp, h, _window_of(cfg, flag), positions=positions)
-        ffn, layer_aux = _ffn_block(cfg, lp, h)
-        h = h + ffn
+    remat = cfg.remat and torch.is_grad_enabled() and any(
+        p.requires_grad for p in _leaves(params))
+    for lp, flag in zip(_all_layer_params(params, cfg.n_layers), cfg.is_global_layer()):
+        args = (cfg, lp, h, _window_of(cfg, flag), positions)
+        h, layer_aux = (checkpoint(_layer, *args, use_reentrant=False,
+                                   preserve_rng_state=False)
+                        if remat else _layer(*args))
         aux = aux + layer_aux
     h = common.rms_norm(h, params["final_norm"])
     return h, aux
 
 
+def _layer(cfg: TransformerConfig, lp: dict, h: torch.Tensor, window: int | None,
+           positions: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """One layer of `forward`: (the residual stream after it, its aux loss)."""
+    h = h + _attention_block(cfg, lp, h, window, positions=positions)
+    ffn, aux = _ffn_block(cfg, lp, h)
+    return h + ffn, aux
+
+
 def unembed_matrix(params: dict, cfg: TransformerConfig) -> torch.Tensor:
     return params["embed"].T if cfg.tie_embeddings else params["unembed"]
+
+
+def loss_fn(params: dict, batch: dict, cfg: TransformerConfig):
+    """batch: tokens [B, S] int32, labels [B, S] int32 (-100 ignored) ->
+    (loss = xent + 0.01 * aux, {"xent", "aux"})."""
+    hidden, aux = forward(params, batch["tokens"], cfg)
+    xent = common.chunked_cross_entropy(
+        hidden, unembed_matrix(params, cfg), batch["labels"],
+        cap=cfg.final_softcap, chunk=min(cfg.xent_chunk, hidden.shape[1]))
+    loss = xent + 0.01 * aux
+    return loss, {"xent": xent, "aux": aux}
 
 
 # -----------------------------------------------------------------------------

@@ -23,7 +23,7 @@ for n in names:
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "repro" or m.startswith("repro."))
 print(len(names), bad)
-sys.exit(1 if bad or len(names) < 25 else 0)
+sys.exit(1 if bad or len(names) < 100 else 0)
 """
 
 

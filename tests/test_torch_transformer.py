@@ -298,8 +298,10 @@ def test_registry_cells_match_reference(arch):
         assert cell.kind == ref.kind == "decode"
         assert cell.dims["cache"] == ref.inputs["cache"]["k"].shape
         assert (cell.dims["batch"], 1) == ref.inputs["tokens"].shape
-    with pytest.raises(NotImplementedError):
-        tarch.cell_for("train_4k")
+    train = jregistry.lm_cell(ARCHS[arch][0].CONFIG, "train_4k", mesh, jarch.cell_for(
+        "train_4k", mesh).n_micro)
+    assert tarch.cell_for("train_4k").kind == train.kind == "train"
+    assert tarch.cell_for("train_4k").dims["seq_len"] == train.inputs["tokens"].shape[-1]
 
 
 @pytest.mark.parametrize("arch", MOES)
