@@ -221,34 +221,46 @@ a non-zero exit):
            phase 1's timings) == the direct call, timed beside it;
         c. `python -m repro_torch.launch.cluster --scale small --mesh
            --verify` as a fourth launcher subprocess beside 5d's.
-  6. LM training (after phase 4d), on the hand-written attention backward
-     `flash_backward` (csrc/flash_backward.cu):
+  6. LM training (after phase 4d), on the hand-written attention backward,
+     routed by `flash_backward.route`: `flash_backward_tc`
+     (csrc/flash_backward_tc.cu, bf16 wgmma from flash_prefill's lse) and
+     the CUDA-core `flash_backward` (csrc/flash_backward.cu: f32, D 8-32,
+     D 256, no lse):
      a. flash_backward against its plain version `ref.flash_attention_bwd`
         on ragged cases (B 1-3, S 2-1000, G 1-8, every head dim, f32 and
-        bf16, windows 8 and 100, softcap 50), then at one layer of each
+        bf16, windows 8 and 100, softcap 50; f32 outputs within rtol 1e-4
+        and atol 1e-4 x max|plain|); flash_backward_tc on its own ragged
+        cases (bf16, D 64/128, G 1-8, each forward's lse from
+        flash_prefill, checked against ref.flash_prefill's and the output
+        bit-equal without it) against `ref.flash_backward_tc` (BWD_TC_TOL)
+        and the f32 plain version (BWD_BF16_TOL); then at one layer of each
         production setting in bf16: internlm2-1.8b B 4 x 4096 (Hq 16, Hkv
-        8, D 128), gemma2-2b global and local (window 4096) B 1 x 8192 (Hq
-        8, Hkv 4, D 256, softcap 50), kimi-k2 B 1 x 4096 (G 8, D 128); f32
-        outputs within rtol 1e-4 and atol 1e-4 x max|plain|;
+        8, D 128) and kimi-k2 B 1 x 4096 (G 8, D 128) on flash_backward_tc,
+        gemma2-2b global and local (window 4096) B 1 x 8192 (Hq 8, Hkv 4,
+        D 256, softcap 50) on flash_backward;
      b. each production setting timed (median of CUDA events) beside its
-        bound (10 D FLOPs per visible pair and query head at 989 TFLOP/s)
-        and CUDA-core floor (67 TFLOP/s), the plain version, and the
-        backward of SDPA (flash backend, K/V repeated to Hq) or of a
-        compiled flex_attention (softcap or window);
+        bound (10 D FLOPs per visible pair and query head at 989 TFLOP/s),
+        the CUDA-core floor (67 TFLOP/s) or the pair's own 14 D floor, the
+        plain version, the CUDA-core kernel on the same inputs (the pair's
+        settings), and the backward of SDPA (flash backend, K/V repeated to
+        Hq) or of a compiled flex_attention (softcap or window); at the
+        SDPA settings the pair's error over max is at most BWD_LIB_FACTOR x
+        SDPA's, both against the f32 plain version;
      c. `loss_fn` and every gradient leaf, card against CPU (the CPU half in
-        a worker process started with phase 6), f32: internlm2-1.8b and
-        gemma2-2b at full width, 2 layers, 256 positions; kimi-k2's SMOKE
-        config (loss, aux, gradients);
+        a worker process started with phase 6), f32 (the CUDA-core kernel):
+        internlm2-1.8b and gemma2-2b at full width, 2 layers, 256
+        positions; kimi-k2's SMOKE config (loss, aux, gradients);
      d. internlm2-1.8b at full width and depth through `make_train_step`:
         AdamW with bf16 states, remat, bf16 activations, f32 parameters,
         8 x 4096 tokens as 2 microbatches, one batch of the reference's
         token stream; 1 warm-up and 4 timed steps (launches counted from 0:
-        48 flash_backward and 96 flash_prefill a step), then one profiled
-        step for the device's busy shares; the loss finite and falling;
+        48 flash_backward_tc, 96 flash_prefill and no flash_backward a
+        step), then one profiled step for the device's busy shares; the
+        loss finite and falling;
      e. checkpoint/restart at 2 layers, full width, through
         `TrainingDriver`: a run that fails at step 3, a resumed run to step
         5 and an uninterrupted run: losses and every state leaf equal bit
-        for bit.
+        for bit, on flash_backward_tc.
 The last lines are the kernels' JSON record, the card line, and the
 contract line {"ok": true, "device": {...}}.
 
@@ -4378,11 +4390,12 @@ def lm_record(kern: dict, model: dict, small: dict, cfg, fa_small: dict) -> list
     return recs
 
 
-# -- phase 6: LM training on flash_backward -----------------------------------
+# -- phase 6: LM training on flash_backward_tc and flash_backward -------------
 
-# ragged cases of flash_backward against its plain version: B 1-3, S 2 to
-# 1000, G 1, 2, 4, 5 and 8, every head dim, f32 and bf16, windows 8 and
-# 100 and softcap 50 alone and together
+# ragged cases of the CUDA-core flash_backward (called without the
+# forward's lse) against its plain version: B 1-3, S 2 to 1000, G 1, 2, 4,
+# 5 and 8, every head dim, f32 and bf16, windows 8 and 100 and softcap 50
+# alone and together
 BWD_CASES = [
     # b, s, hq, hkv, d, bf16, window, cap
     (1, 2, 2, 2, 16, False, None, None),
@@ -4402,9 +4415,27 @@ BWD_CASES = [
     (1, 1000, 4, 1, 32, True, None, None),
     (2, 17, 8, 2, 8, True, 8, 50.0),
 ]
+# ragged cases of flash_backward_tc (bf16, D 64 and 128, each forward's lse
+# from flash_prefill): B 1-3, S 2 to 1000, G 1, 2, 5 and 8, windows 8 and
+# 100 and softcap 50 alone and together
+BWD_TC_CASES = [
+    # b, s, hq, hkv, d, window, cap
+    (1, 2, 2, 2, 64, None, None),
+    (2, 17, 4, 2, 128, 8, None),
+    (1, 255, 5, 1, 64, 100, 50.0),
+    (2, 1000, 16, 2, 128, None, None),
+    (1, 1000, 8, 1, 64, 8, 50.0),
+    (3, 255, 2, 1, 128, None, 50.0),
+    (1, 17, 10, 2, 64, None, 50.0),
+    (2, 2, 8, 1, 128, 100, None),
+    (1, 1000, 10, 2, 128, 100, 50.0),
+    (2, 255, 8, 8, 64, 8, None),
+    (1, 17, 16, 2, 64, 100, None),
+    (3, 2, 5, 1, 128, 8, 50.0),
+]
 # one layer of each production setting: (b, s, hq, hkv, d, window, cap,
-# library yardstick, the arch and its layers of this kind a train_4k step
-# runs, n_micro of its cell)
+# library yardstick); internlm2-1.8b's and kimi-k2's take flash_backward_tc,
+# gemma2-2b's (D 256) the CUDA-core kernel
 BWD_SETTINGS = {
     "internlm2_1_8b": (4, 4096, 16, 8, 128, None, None, "sdpa"),
     "gemma2_2b_global": (1, 8192, 8, 4, 256, None, 50.0, "flex"),
@@ -4412,6 +4443,17 @@ BWD_SETTINGS = {
     "kimi_k2_1t_a32b": (1, 4096, 64, 8, 128, None, None, "sdpa"),
 }
 BWD_RTOL = 1e-4                # and atol 1e-4 x max|plain| per output
+# flash_backward_tc against its own plain version ref.flash_backward_tc,
+# which rounds P and dS to bf16 where the kernel does: only the order of
+# the f32 sums, ex2.approx and a bf16 rounding of p or ds that lands the
+# other side of a tie differ; tight enough to catch a wrong mask or index
+BWD_TC_TOL = 2e-3              # rtol, and atol this x max|plain| per output
+# flash_backward_tc against the f32 plain version ref.flash_attention_bwd:
+# P and dS enter the tensor cores as bf16 (SDPA's flash backward rounds
+# them too), and Attention rounds the gradients to bf16 afterwards anyway
+BWD_BF16_TOL = 2e-2            # rtol, and atol this x max|plain| per output
+BWD_LIB_FACTOR = 2.0           # its error / max <= this x SDPA's backward's (7q, 7t)
+LSE_ATOL = 1e-4                # flash_prefill's lse (base 2) against ref.flash_prefill's
 TRAIN_GRAD_TOL = 1e-3          # 6c: |card - CPU| <= this x max|g_cpu| per leaf (+1e-6)
 TRAIN_LOSS_RTOL = 1e-5         # 6c: loss and aux, card against CPU
 TRAIN_B, TRAIN_S, TRAIN_MICRO = 8, 4096, 2     # 6d: 8 x 4096 as 2 microbatches of 4
@@ -4432,10 +4474,10 @@ def bwd_pairs(s: int, window: int | None) -> int:
 
 
 def bwd_bound(b, s, hq, hkv, d, window, nbytes_in: int) -> dict:
-    """flash_backward's least time: 10*D FLOPs per visible pair and query
+    """The backward's least time: 10*D FLOPs per visible pair and query
     head over the bf16 tensor-core peak, or its bytes (q, k, v, o, dO read
-    once, f32 dQ, dK, dV written once) over HBM; and the same FLOPs over
-    the CUDA cores' f32 peak, the floor of this kernel's design."""
+    once, f32 dQ, dK, dV written once) over HBM; and the same FLOPs over the
+    CUDA cores' f32 peak, the floor of flash_backward.cu's design."""
     flops = 10.0 * d * bwd_pairs(s, window) * hq * b
     nbytes = nbytes_in + 4 * (b * s * hq * d + 2 * b * s * hkv * d)
     t_f, t_b = flops / BF16_TC_FLOPS, nbytes / HBM_BYTES_PER_S
@@ -4444,33 +4486,51 @@ def bwd_bound(b, s, hq, hkv, d, window, nbytes_in: int) -> dict:
                 cuda_core_floor_ms=flops / FP32_FLOPS * 1e3, flops=flops)
 
 
-def bwd_inputs(gen, b, s, hq, hkv, d, dtype, window, cap):
-    """q, k, v and dO drawn on the card, o from the port's forward."""
-    from repro_torch.kernels import ops
+def bwd_inputs(gen, b, s, hq, hkv, d, dtype, window, cap, lse: bool = False):
+    """q, k, v and dO drawn on the card, o from the port's forward; with
+    `lse`, the forward is flash_prefill's with each row's lse, whose output
+    must equal the call's without lse_out and whose lse must agree with
+    ref.flash_prefill's (LSE_ATOL) -> (q, k, v, o, do, lse or None)."""
+    from repro_torch.kernels import flash_prefill, ops, ref
     dev = gen.device
 
     def draw(*shape):
         return torch.randn(shape, generator=gen, device=dev).to(dtype)
     q, k, v = draw(b, s, hq, d), draw(b, s, hkv, d), draw(b, s, hkv, d)
     do = draw(b, s, hq, d)
-    o = ops.flash_attention(q, k, v, window=window, softcap=cap)
-    return q, k, v, o, do
+    if not lse:
+        return q, k, v, ops.flash_attention(q, k, v, window=window, softcap=cap), do, None
+    row_lse = torch.empty((b, hq, s), dtype=torch.float32, device=dev)
+    o = flash_prefill.flash_prefill(q, k, v, window=window, softcap=cap, lse_out=row_lse)
+    check(torch.equal(o, flash_prefill.flash_prefill(q, k, v, window=window, softcap=cap)),
+          f"flash_prefill's output changed with lse_out ({b}, {s}, {hq}, {hkv}, {d})")
+    want = torch.empty_like(row_lse)
+    ref.flash_prefill(q, k, v, window=window, softcap=cap, lse_out=want)
+    err = float((row_lse - want).abs().max())
+    check(err <= LSE_ATOL, f"flash_prefill's lse != ref.flash_prefill's by {err:.3g}")
+    return q, k, v, o, do, row_lse
 
 
-def bwd_agree(got, want, what: str) -> tuple[float, float]:
-    """(worst error over its limit, max abs error) of flash_backward's
-    f32 (dq, dk, dv) against the plain version's: each element within
-    BWD_RTOL of itself plus BWD_RTOL x the output's max."""
+def bwd_agree(got, want, what: str, tol: float = BWD_RTOL,
+              kernel: str = "flash_backward") -> tuple[float, float]:
+    """(worst error over its limit, max abs error) of a backward kernel's
+    f32 (dq, dk, dv) against a plain version's: each element within `tol`
+    of itself plus `tol` x the output's max."""
     ratio, err = 0.0, 0.0
     for name, g, w in zip(("dq", "dk", "dv"), got, want):
-        check(bool(torch.isfinite(g).all()), f"flash_backward {what}: {name} not finite")
+        check(bool(torch.isfinite(g).all()), f"{kernel} {what}: {name} not finite")
         e = (g - w).abs()
-        lim = BWD_RTOL * w.abs() + BWD_RTOL * float(w.abs().max()) + 1e-30
+        lim = tol * w.abs() + tol * float(w.abs().max()) + 1e-30
         r = float((e / lim).max())
-        check(r <= 1.0, f"flash_backward != plain, {what} {name}: max err "
-              f"{float(e.max()):.3g} is {r:.3f} of the limit")
+        check(r <= 1.0, f"{kernel} != plain, {what} {name}: max err "
+              f"{float(e.max()):.3g} is {r:.3f} of the limit ({tol})")
         ratio, err = max(ratio, r), max(err, float(e.max()))
     return ratio, err
+
+
+def err_over_max(got, want) -> float:
+    """max over (dq, dk, dv) of max|got - want| / max|want|."""
+    return max(float((g.float() - w).abs().max() / w.abs().max()) for g, w in zip(got, want))
 
 
 def phase6_kernel_small(dev) -> dict:
@@ -4482,11 +4542,13 @@ def phase6_kernel_small(dev) -> dict:
     worst = {"f32": 0.0, "bf16": 0.0, "abs": 0.0}
     for b, s, hq, hkv, d, bf16, window, cap in BWD_CASES:
         dt = torch.bfloat16 if bf16 else torch.float32
-        q, k, v, o, do = bwd_inputs(gen, b, s, hq, hkv, d, dt, window, cap)
-        n0 = _build.LAUNCHES["flash_backward"]
+        q, k, v, o, do, _ = bwd_inputs(gen, b, s, hq, hkv, d, dt, window, cap)
+        n0 = dict(_build.LAUNCHES)
         got = flash_backward.flash_backward(q, k, v, o, do, window=window, softcap=cap)
         torch.cuda.synchronize()
-        check(_build.LAUNCHES["flash_backward"] == n0 + 1, "flash_backward did not launch")
+        check(_build.LAUNCHES["flash_backward"] == n0["flash_backward"] + 1
+              and _build.LAUNCHES["flash_backward_tc"] == n0["flash_backward_tc"],
+              "flash_backward did not launch, or flash_backward_tc did")
         want = ref.flash_attention_bwd(q, k, v, o, do, window=window, softcap=cap)
         key = "bf16" if bf16 else "f32"
         r, e = bwd_agree(got, want, f"b{b} s{s} hq{hq} hkv{hkv} d{d} {key} "
@@ -4499,11 +4561,49 @@ def phase6_kernel_small(dev) -> dict:
     return worst
 
 
+def phase6_tc_small(dev) -> dict:
+    """6a, the tensor-core route: flash_backward_tc on BWD_TC_CASES, each
+    forward's lse from flash_prefill, against its plain version
+    ref.flash_backward_tc at BWD_TC_TOL and the f32 plain version
+    ref.flash_attention_bwd at BWD_BF16_TOL; one launch each and none of
+    the CUDA-core kernel. Returns the worst ratios and the max abs error."""
+    from repro_torch.kernels import _build, flash_backward, ref
+    gen = torch.Generator(dev).manual_seed(7)
+    worst = {"own": 0.0, "f32": 0.0, "abs": 0.0, "err_over_max": 0.0}
+    for b, s, hq, hkv, d, window, cap in BWD_TC_CASES:
+        what = f"b{b} s{s} hq{hq} hkv{hkv} d{d} window={window} cap={cap}"
+        q, k, v, o, do, lse = bwd_inputs(gen, b, s, hq, hkv, d, torch.bfloat16, window, cap,
+                                         lse=True)
+        check(flash_backward.route(q, k, v, lse) == "flash_backward_tc",
+              f"{what}: not routed to flash_backward_tc")
+        n0 = dict(_build.LAUNCHES)
+        kw = dict(window=window, softcap=cap)
+        got = flash_backward.flash_backward(q, k, v, o, do, lse=lse, **kw)
+        torch.cuda.synchronize()
+        check(_build.LAUNCHES["flash_backward_tc"] == n0["flash_backward_tc"] + 1
+              and _build.LAUNCHES["flash_backward"] == n0["flash_backward"],
+              f"{what}: flash_backward_tc did not launch, or flash_backward did")
+        r_own, e = bwd_agree(got, ref.flash_backward_tc(q, k, v, o, do, lse, **kw),
+                             f"{what} (own plain)", BWD_TC_TOL, "flash_backward_tc")
+        f32 = ref.flash_attention_bwd(q, k, v, o, do, **kw)
+        r_f32, _ = bwd_agree(got, f32, f"{what} (f32 plain)", BWD_BF16_TOL, "flash_backward_tc")
+        worst.update(own=max(worst["own"], r_own), f32=max(worst["f32"], r_f32),
+                     abs=max(worst["abs"], e),
+                     err_over_max=max(worst["err_over_max"], err_over_max(got, f32)))
+    log(f"[phase 6a] flash_backward_tc on {len(BWD_TC_CASES)} ragged cases: worst "
+        f"{worst['own']:.3f} of the limit against ref.flash_backward_tc (rtol and atol "
+        f"{BWD_TC_TOL} x max), {worst['f32']:.3f} against the f32 plain version ("
+        f"{BWD_BF16_TOL}; error {worst['err_over_max']:.3g} of max), max abs err "
+        f"{worst['abs']:.3g}; each lse within {LSE_ATOL} of ref.flash_prefill's, each "
+        f"forward bit-equal without lse_out")
+    return worst
+
+
 def sdpa_bwd(q, k, v, do, reps: int) -> dict:
     """SDPA's backward time on the flash backend (forward + backward minus
     forward), on [B, H, S, D] copies with K and V repeated to Hq (made here,
     not timed), causal, no softcap: the yardstick, never on the port's
-    path. Its dK, dV are summed back over each group for the error."""
+    path. Its dK, dV are summed back over each group in f32 for the error."""
     from torch.nn.attention import SDPBackend, sdpa_kernel
     g = q.shape[2] // k.shape[2]
     qt = q.transpose(1, 2).contiguous().requires_grad_()
@@ -4521,7 +4621,7 @@ def sdpa_bwd(q, k, v, do, reps: int) -> dict:
     f_ms, fb_ms = time_ms(fwd, reps), time_ms(fwd_bwd, reps)
     b, s, hkv, d = k.shape
     dq = grads[0].transpose(1, 2)
-    dk, dv = (x.transpose(1, 2).reshape(b, s, hkv, g, d).sum(3) for x in grads[1:])
+    dk, dv = (x.transpose(1, 2).float().reshape(b, s, hkv, g, d).sum(3) for x in grads[1:])
     return dict(library_ms=fb_ms - f_ms, library_fwd_bwd_ms=fb_ms, library_fwd_ms=f_ms,
                 library_call="scaled_dot_product_attention, FLASH_ATTENTION, K/V "
                              "repeated to Hq: forward + backward minus forward",
@@ -4569,29 +4669,47 @@ def flex_bwd(q, k, v, do, window, cap, reps: int) -> dict:
 
 
 def phase6_kernel_model(seed: int, dev) -> dict:
-    """6a at the production settings (BWD_SETTINGS, one layer each, bf16)
-    and 6b: each one's kernel time (median of CUDA events), its bound and
-    CUDA-core floor, the plain version's time and the library backward's,
-    whose gradients are logged beside the kernel's (not held: its
-    arithmetic differs)."""
+    """6a at the production settings (BWD_SETTINGS, one layer each, bf16,
+    the forward's lse from flash_prefill) and 6b: each one's routed kernel
+    time (median of CUDA events), its bound, CUDA-core floor and own floor,
+    the plain version's time and the library backward's. On the
+    flash_backward_tc settings the kernel is held to its plain version at
+    BWD_TC_TOL, to the f32 plain version at BWD_BF16_TOL, and its error
+    over max to BWD_LIB_FACTOR x the library's (both against the f32 plain
+    version); the CUDA-core kernel is timed again on the same inputs (its
+    earlier route). On the others the CUDA-core kernel is held to the f32
+    plain version at BWD_RTOL."""
     from repro_torch.kernels import flash_backward, ref
     gen = torch.Generator(dev).manual_seed(seed + 6)
     out = {}
     for name, (b, s, hq, hkv, d, window, cap, lib) in BWD_SETTINGS.items():
         t = time.perf_counter()
-        q, k, v, o, do = bwd_inputs(gen, b, s, hq, hkv, d, torch.bfloat16, window, cap)
+        q, k, v, o, do, lse = bwd_inputs(gen, b, s, hq, hkv, d, torch.bfloat16, window, cap,
+                                         lse=True)
         kw = dict(window=window, softcap=cap)
-        got = flash_backward.flash_backward(q, k, v, o, do, **kw)
-        want = ref.flash_attention_bwd(q, k, v, o, do, **kw)
-        ratio, err = bwd_agree(got, want, name)
-        del want
+        kernel = flash_backward.route(q, k, v, lse)
+        got = flash_backward.flash_backward(q, k, v, o, do, lse=lse, **kw)
+        f32 = ref.flash_attention_bwd(q, k, v, o, do, **kw)
         nbytes_in = 2 * (3 * q.numel() + 2 * k.numel())
-        rec = dict(bwd_bound(b, s, hq, hkv, d, window, nbytes_in),
+        rec = dict(bwd_bound(b, s, hq, hkv, d, window, nbytes_in), kernel=kernel,
                    shape=[b, s, hq, hkv, d], window=window, softcap=cap,
-                   err_over_limit=ratio, max_abs_err=err,
-                   ms=time_ms(lambda: flash_backward.flash_backward(q, k, v, o, do, **kw), 5),
-                   plain_ms=time_ms(lambda: ref.flash_attention_bwd(q, k, v, o, do, **kw),
-                                    1, warmup=0))
+                   err_over_max=err_over_max(got, f32))
+        if kernel == "flash_backward_tc":
+            rec["err_over_limit"], rec["max_abs_err"] = bwd_agree(
+                got, ref.flash_backward_tc(q, k, v, o, do, lse, **kw), name, BWD_TC_TOL,
+                kernel)
+            rec["f32_err_over_limit"], _ = bwd_agree(got, f32, name, BWD_BF16_TOL, kernel)
+            plain = lambda: ref.flash_backward_tc(q, k, v, o, do, lse, **kw)  # noqa: E731
+            # its own floor: 14*D FLOPs a pair, the dq kernel recomputing S and dP
+            rec["own_floor_ms"] = 1.4 * rec["flops"] / BF16_TC_FLOPS * 1e3
+            rec["cuda_core_ms"] = time_ms(
+                lambda: flash_backward.flash_backward(q, k, v, o, do, **kw), 3)
+        else:
+            rec["err_over_limit"], rec["max_abs_err"] = bwd_agree(got, f32, name)
+            plain = lambda: ref.flash_attention_bwd(q, k, v, o, do, **kw)  # noqa: E731
+        rec["ms"] = time_ms(lambda: flash_backward.flash_backward(q, k, v, o, do, lse=lse,
+                                                                  **kw), 5)
+        rec["plain_ms"] = time_ms(plain, 1, warmup=0)
         try:
             librec = (sdpa_bwd(q, k, v, do, 5) if lib == "sdpa"
                       else flex_bwd(q, k, v, do, window, cap, 5))
@@ -4601,20 +4719,28 @@ def phase6_kernel_model(seed: int, dev) -> dict:
             librec = dict(library_ms=None, library_call=f"{lib} (refused)")
         lg = librec.pop("library_grads", None)
         if lg is not None:
-            librec["library_err_over_max"] = max(
-                float((x.float() - y).abs().max() / y.abs().max()) for x, y in zip(lg, got))
+            librec["library_err_over_max"] = err_over_max(lg, f32)
+            if kernel == "flash_backward_tc":
+                check(rec["err_over_max"] <= BWD_LIB_FACTOR * librec["library_err_over_max"],
+                      f"{name}: flash_backward_tc's error {rec['err_over_max']:.3g} of max "
+                      f"> {BWD_LIB_FACTOR} x the {lib} backward's "
+                      f"{librec['library_err_over_max']:.3g}")
         rec.update(librec)
         out[name] = rec
         lib_s = (f"{lib} backward {rec['library_ms']:.3f} ms "
                  f"({rec['ms'] / rec['library_ms']:.2f}x), its grads within "
-                 f"{rec['library_err_over_max']:.2g} of max"
+                 f"{rec['library_err_over_max']:.3g} of max of the f32 plain version's"
                  if rec["library_ms"] else f"{lib} not measured")
-        log(f"[phase 6b] {name} {rec['shape']} window={window} cap={cap}: "
+        extra = (f"own floor {rec['own_floor_ms']:.3f} ms, the CUDA-core kernel "
+                 f"{rec['cuda_core_ms']:.3f} ms; {rec['f32_err_over_limit']:.3f} of the f32 "
+                 f"limit" if kernel == "flash_backward_tc"
+                 else f"CUDA-core floor {rec['cuda_core_floor_ms']:.3f} ms")
+        log(f"[phase 6b] {name} {rec['shape']} window={window} cap={cap} on {kernel}: "
             f"{rec['ms']:.3f} ms (bound {rec['bound_ms']:.3f} ms by {rec['bound_by']}, "
-            f"CUDA-core floor {rec['cuda_core_floor_ms']:.3f} ms; plain "
-            f"{rec['plain_ms']:.1f} ms); {lib_s}; worst {ratio:.3f} of the limit; "
-            f"{time.perf_counter() - t:.1f}s")
-        del q, k, v, o, do, got, lg
+            f"{extra}; plain {rec['plain_ms']:.1f} ms); {lib_s}; kernel within "
+            f"{rec['err_over_max']:.3g} of max of the f32 plain version's; worst "
+            f"{rec['err_over_limit']:.3f} of the limit; {time.perf_counter() - t:.1f}s")
+        del q, k, v, o, do, lse, got, f32, lg
         gc.collect()
         torch.cuda.empty_cache()
     return out
@@ -4669,11 +4795,15 @@ def phase6_card_vs_cpu(seed: int, host, dev) -> dict:
     positions (internlm2-1.8b, gemma2-2b) and at kimi-k2's SMOKE config."""
     from repro_torch.kernels import _build
     card = {}
+    _build.reset_launches()
     for mod, n, s, smoke in TRAIN_CARD_CPU:
         n0 = _build.LAUNCHES["flash_backward"]
         card[mod] = train_grads(mod, n, s, smoke, seed, dev)
         check(_build.LAUNCHES["flash_backward"] >= n0 + n,
               f"{mod}: the card's gradient did not launch flash_backward")
+    launches = {k: v for k, v in _build.LAUNCHES.items() if v}
+    check(launches.get("flash_backward_tc", 0) == 0,
+          f"6c's f32 gradients launched flash_backward_tc: {launches}")
     cpu = host.get(timeout=900)
     out = {}
     for mod, *_ in TRAIN_CARD_CPU:
@@ -4695,6 +4825,8 @@ def phase6_card_vs_cpu(seed: int, host, dev) -> dict:
         log(f"[phase 6c] {mod}: loss card {g['loss']:.6f} / CPU {c['loss']:.6f}, aux "
             f"{g['aux']:.6f} / {c['aux']:.6f}; {len(c['grads'])} gradient leaves within "
             f"{worst:.3f} of the limit ({TRAIN_GRAD_TOL} x max|g| + 1e-6; worst {where})")
+    log(f"[phase 6c] launches {launches}")
+    out["launches"] = launches
     return out
 
 
@@ -4725,9 +4857,9 @@ MATMUL_KEYS = ("gemm", "cutlass", "nvjet", "xmma", "sm90_", "sm80_")
 
 def step_profile(step_fn) -> dict | None:
     """Device shares of one train step from a torch.profiler trace: the
-    busy time (every kernel's own time), flash_backward's, flash_prefill's,
-    the matmuls' and the optimizer range's kernels, and the idle share of
-    the step's wall time."""
+    busy time (every kernel's own time), the attention backward's (either
+    route's kernels), flash_prefill's, the matmuls' and the optimizer
+    range's kernels, and the idle share of the step's wall time."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
@@ -4798,10 +4930,11 @@ def phase6_trainer(seed: int, dev) -> dict:
     check(all(math.isfinite(x) for x in losses), f"a loss is not finite: {losses}")
     check(losses[-1] < losses[0], f"the loss did not fall: {losses}")
     want = TRAIN_STEPS * TRAIN_MICRO * cfg.n_layers
-    check(launches.get("flash_backward") == want
+    check(launches.get("flash_backward_tc") == want
           and launches.get("flash_prefill") == 2 * want and len(launches) == 2,
-          f"a training step's attention launches: {launches} (want {want} flash_backward, "
-          f"{2 * want} flash_prefill: the forward and remat's recompute)")
+          f"a training step's attention launches: {launches} (want {want} "
+          f"flash_backward_tc, {2 * want} flash_prefill: the forward and remat's "
+          f"recompute, and no flash_backward)")
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     prof = step_profile(lambda: train_step(state, bt))
     timed = statistics.median(step_s[1:])
@@ -4862,6 +4995,8 @@ def phase6_restart(seed: int, dev) -> dict:
             params_init, iter(batches[start:]))
         return state, hist, time.perf_counter() - t
 
+    from repro_torch.kernels import _build
+    _build.reset_launches()
     t = time.perf_counter()
     try:
         run("resumed", 0, ckpt_every=RESTART_FAIL, fail_at_step=RESTART_FAIL)
@@ -4877,23 +5012,30 @@ def phase6_restart(seed: int, dev) -> dict:
     diff = [p for (p, a), b in zip(tree.leaves_with_paths(resumed), tree.leaves(whole))
             if not torch.equal(a, b)]
     check(not diff, f"6e: the resumed state differs from the uninterrupted one at {diff[:5]}")
+    launches = {k: v for k, v in _build.LAUNCHES.items() if v}
+    check(launches.get("flash_backward_tc", 0) > 0 and "flash_backward" not in launches,
+          f"6e's steps did not take flash_backward_tc: {launches}")
     nbytes = sum(x.numel() * x.element_size() for x in tree.leaves(whole))
     shutil.rmtree(root, ignore_errors=True)
     res = dict(losses=[h["loss"] for h in hist_w], state_gb=nbytes / 1e9,
                fail_run_s=fail_s, resume_run_s=resume_s, whole_run_s=whole_s,
-               leaves=len(tree.leaves(whole)))
+               leaves=len(tree.leaves(whole)), launches=launches)
     log(f"[phase 6e] internlm2-1.8b, 2 layers: failed at step {RESTART_FAIL}, resumed to "
         f"{RESTART_STEPS}: losses and all {res['leaves']} state leaves "
         f"({res['state_gb']:.2f} GB) equal the uninterrupted run's bit for bit; losses "
-        f"{res['losses']}; runs {fail_s:.1f} / {resume_s:.1f} / {whole_s:.1f} s")
+        f"{res['losses']}; runs {fail_s:.1f} / {resume_s:.1f} / {whole_s:.1f} s; launches "
+        f"{launches}")
     return res
 
 
-def phase6(seed: int, host, dev=torch.device("cuda")) -> dict:
-    """Phase 6 a-e; returns flash_backward's entry of the kernels line.
-    `host` is 6c's CPU half, started in a worker before phase 6."""
+def phase6(seed: int, host, dev=torch.device("cuda")) -> list[dict]:
+    """Phase 6 a-e; returns the entries of flash_backward_tc (the bf16
+    training path, 6d) and of flash_backward (the f32 path, 6c) for the
+    kernels line. `host` is 6c's CPU half, started in a worker before
+    phase 6."""
     t = time.perf_counter()
     small = phase6_kernel_small(dev)
+    tc_small = phase6_tc_small(dev)
     model = phase6_kernel_model(seed, dev)
     log(f"[phase 6a-b] {time.perf_counter() - t:.1f}s")
     # 6c before 6d: its CPU half (8 host threads' worth of work) must not
@@ -4907,18 +5049,39 @@ def phase6(seed: int, host, dev=torch.device("cuda")) -> dict:
     t = time.perf_counter()
     restart = phase6_restart(seed, dev)
     log(f"[phase 6e] {time.perf_counter() - t:.1f}s")
-    head = dict(model["internlm2_1_8b"])
-    head.pop("flops")
-    head.update(name="flash_backward",
-                max_abs_err=max(small["abs"], *(m["max_abs_err"] for m in model.values())),
-                err_over_limit={"f32": small["f32"], "bf16": small["bf16"],
-                                **{k: m["err_over_limit"] for k, m in model.items()}},
-                settings={k: m for k, m in model.items() if k != "internlm2_1_8b"},
-                launches=train["launches"].get("flash_backward", 0),
-                launches_path=f"6d: {TRAIN_STEPS} train steps of internlm2-1.8b, "
-                              f"{train['launches_per_step']} a step",
-                lm_train=dict(train, card_vs_cpu=card_cpu, restart=restart))
-    return head
+    by_kernel = {kn: {k: m for k, m in model.items() if m["kernel"] == kn}
+                 for kn in ("flash_backward_tc", "flash_backward")}
+    tc = dict(model["internlm2_1_8b"])
+    tc.pop("flops")
+    tc.update(name="flash_backward_tc",
+              max_abs_err=max(tc_small["abs"],
+                              *(m["max_abs_err"] for m in by_kernel["flash_backward_tc"].values())),
+              err_over_limit={"ragged": tc_small["own"], "ragged_f32": tc_small["f32"],
+                              **{k: m["err_over_limit"]
+                                 for k, m in by_kernel["flash_backward_tc"].items()}},
+              settings={k: m for k, m in by_kernel["flash_backward_tc"].items()
+                        if k != "internlm2_1_8b"},
+              launches=train["launches"].get("flash_backward_tc", 0),
+              launches_path=f"6d: {TRAIN_STEPS} train steps of internlm2-1.8b, "
+                            f"{train['launches_per_step']} a step",
+              lm_train=dict(train, restart=restart))
+    cc = dict(model["gemma2_2b_global"])
+    cc.pop("flops")
+    cc.update(name="flash_backward",
+              max_abs_err=max(small["abs"],
+                              *(m["max_abs_err"] for m in by_kernel["flash_backward"].values())),
+              err_over_limit={"f32": small["f32"], "bf16": small["bf16"],
+                              **{k: m["err_over_limit"]
+                                 for k, m in by_kernel["flash_backward"].items()}},
+              settings={k: m for k, m in by_kernel["flash_backward"].items()
+                        if k != "gemma2_2b_global"},
+              earlier_route_ms={k: m["cuda_core_ms"]
+                                for k, m in by_kernel["flash_backward_tc"].items()},
+              launches=card_cpu["launches"].get("flash_backward", 0),
+              launches_path="6c: loss_fn's f32 gradients of internlm2-1.8b, gemma2-2b "
+                            "(2 layers, 256 positions) and kimi-k2's SMOKE config",
+              card_vs_cpu=card_cpu)
+    return [tc, cc]
 
 
 SOURCES = {
@@ -4943,11 +5106,13 @@ SOURCES = {
     # no Pallas backward exists: the gradient of that kernel's function
     "flash_backward": ("src/repro_torch/kernels/csrc/flash_backward.cu",
                        "src/repro/kernels/flash_attention.py:93"),
+    "flash_backward_tc": ("src/repro_torch/kernels/csrc/flash_backward_tc.cu",
+                          "src/repro/kernels/flash_attention.py:93"),
 }
 # the kernels of the tiering paths (phases 1-3); the LM phases check their own:
 # serving's three attention kernels (phase 4) and training's backward (phase 6)
 LM_KERNELS = ("flash_attention", "flash_decode", "flash_prefill")
-TRAIN_KERNELS = ("flash_backward",)
+TRAIN_KERNELS = ("flash_backward", "flash_backward_tc")
 TIERING_KERNELS = tuple(k for k in SOURCES if k not in LM_KERNELS + TRAIN_KERNELS)
 
 
@@ -5035,11 +5200,12 @@ def main() -> int:
     finally:
         pool.terminate()
         pool.join()
-    src, tpu = SOURCES["flash_backward"]
-    bwd.update(route="cuda", source=src, replaces=tpu,
-               replaces_note="the reference has no Pallas backward; this is the gradient "
-                             "of that kernel's function (jax.grad of chunked_attention)")
-    rec.append(bwd)
+    for r in bwd:
+        src, tpu = SOURCES[r["name"]]
+        r.update(route="cuda", source=src, replaces=tpu,
+                 replaces_note="the reference has no Pallas backward; this is the gradient "
+                               "of that kernel's function (jax.grad of chunked_attention)")
+        rec.append(r)
     log(f"[phase 6] {time.perf_counter() - t:.1f}s")
     log(f"total {time.perf_counter() - t_all:.1f}s")
     print(json.dumps({"kernels": rec}))

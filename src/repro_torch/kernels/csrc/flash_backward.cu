@@ -10,15 +10,20 @@
 //
 // Replaces no Pallas kernel: the reference has no Pallas backward (its
 // training forward runs the pure-JAX chunked_attention, which jax.grad
-// differentiates). It is the gradient of the port's forward kernels
-// (flash_prefill.cu, flash_attention.cu) for the trainer. Its plain
-// version is ref.flash_attention_bwd.
+// differentiates). It is the gradient of the port's forward kernels for
+// the calls that flash_backward_tc.cu does not take (flash_backward.route):
+// f32 operands (the tile kernel's forward), D in {8, 16, 32} and D = 256
+// (gemma2-2b, gemma3-12b: a 64-key warpgroup of the tensor-core pair would
+// hold 256 f32 of dK and dV a thread), and a forward that saved no lse.
+// Its plain version is ref.flash_attention_bwd, in f32 throughout.
 //
 // Bound on an H100: 10*D FLOPs per visible (query, key) pair and query
 // head (S = QK^T, dP = dO V^T, dV += P^T dO, dK += dS^T Q, dQ = dS K),
 // over the 989 TFLOP/s bf16 tensor-core peak; this kernel runs on the
 // CUDA cores in f32 (67 TFLOP/s) and does 16*D: the row statistics
-// recompute S once more and the dQ pass recomputes S and dP.
+// recompute S once more and the dQ pass recomputes S and dP. It keeps f32
+// arithmetic (phase 6c holds the f32 gradients to the CPU's at 1e-3 of max),
+// which bf16 tensor cores would not give.
 //
 // Arithmetic, all f32 (the plain version's rule):
 //   s = (q.k) / sqrt(D); with a softcap, s = cap * tanh(s / cap);

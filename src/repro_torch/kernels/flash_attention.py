@@ -17,12 +17,16 @@ length.
 
 When autograd wants a gradient of q, k or v, the call goes through
 `Attention`, a `torch.autograd.Function` whose forward is the routed
-forward above and whose backward is `flash_backward` (the hand-written
-`csrc/flash_backward.cu` on the card, `ref.flash_attention_bwd` on the
-CPU). Its contract is the training forward's: causal, q_offset 0, every
-key valid and Sq = Skv, with or without a window and a softcap; a gradient
-asked for outside it (a decode step, kv_len < Skv, causal=False) raises
-NotImplementedError.
+forward above and whose backward is `flash_backward`, itself routed by
+`flash_backward.route`: on the card, a forward that takes `flash_prefill`
+with D in (64, 128) also writes each row's log-sum-exp (`saves_lse`), and
+its gradient takes the bf16 tensor-core pair `csrc/flash_backward_tc.cu`;
+every other gradient (f32, D in (8, 16, 32, 256)) takes the CUDA-core
+`csrc/flash_backward.cu`. On the CPU the forward is the plain one and
+saves no lse, so the gradient is `ref.flash_attention_bwd`. The contract is
+the training forward's: causal, q_offset 0, every key valid and Sq = Skv,
+with or without a window and a softcap; a gradient asked for outside it (a
+decode step, kv_len < Skv, causal=False) raises NotImplementedError.
 """
 from __future__ import annotations
 
@@ -99,21 +103,31 @@ def _require(t: torch.Tensor, name: str, q: torch.Tensor) -> None:
         raise ValueError(f"{name} is not aligned to 4 elements")
 
 
+def saves_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> bool:
+    """Whether `Attention` asks its forward for each row's log-sum-exp: a
+    call off the CPU's plain path whose gradient the tensor-core pair takes
+    (`flash_backward.takes`), so its forward routes to `flash_prefill`."""
+    return not _build.on_cpu(q, k, v) and flash_backward.takes(q, k, v)
+
+
 class Attention(torch.autograd.Function):
     """`flash_attention` with a gradient: the routed forward, and
-    `flash_backward` from the saved q, k, v and output."""
+    `flash_backward` from the saved q, k, v, output and, where the forward
+    wrote it (`saves_lse`), each row's log-sum-exp."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, softcap, q_offset, kv_len):
+        lse = (torch.empty((q.shape[0], q.shape[2], q.shape[1]), dtype=torch.float32,
+                           device=q.device) if saves_lse(q, k, v) else None)
         out = _forward(q, k, v, causal=causal, window=window, softcap=softcap,
-                       q_offset=q_offset, kv_len=kv_len)
-        ctx.save_for_backward(q, k, v, out)
+                       q_offset=q_offset, kv_len=kv_len, lse_out=lse)
+        ctx.save_for_backward(q, k, v, out, lse)
         ctx.args = (causal, window, softcap, q_offset, kv_len)
         return out
 
     @staticmethod
     def backward(ctx, dout):
-        q, k, v, out = ctx.saved_tensors
+        q, k, v, out, lse = ctx.saved_tensors
         causal, window, softcap, q_offset, kv_len = ctx.args
         skv = k.shape[1]
         if not causal or q_offset != 0 or (kv_len is not None and kv_len != skv) \
@@ -122,10 +136,11 @@ class Attention(torch.autograd.Function):
                 "flash_attention's gradient is the training forward's: causal, "
                 f"q_offset 0, kv_len = Skv = Sq; got causal={causal}, "
                 f"q_offset={q_offset}, kv_len={kv_len}, Sq={q.shape[1]}, Skv={skv}")
-        if dout.stride(-1) != 1:
-            dout = dout.contiguous()
+        if not flash_prefill.aligned(dout):   # a fresh copy is aligned
+            dout = dout.clone(memory_format=torch.contiguous_format)
         dq, dk, dv = flash_backward.flash_backward(q, k, v, out, dout, causal=True,
-                                                   window=window, softcap=softcap)
+                                                   window=window, softcap=softcap,
+                                                   lse=lse)
         return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None, None, None, None, None
 
 
@@ -146,8 +161,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
              causal: bool, window: int | None, softcap: float | None,
-             q_offset: int, kv_len: int | None) -> torch.Tensor:
-    """The routed forward: the plain version on the CPU, else a kernel."""
+             q_offset: int, kv_len: int | None,
+             lse_out: torch.Tensor | None = None) -> torch.Tensor:
+    """The routed forward: the plain version on the CPU, else a kernel.
+    `lse_out` (only where `saves_lse`) goes to `flash_prefill`."""
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError(f"expected q [B, Sq, Hq, D] and k, v [B, Skv, Hkv, D], "
                          f"got {tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
@@ -176,10 +193,13 @@ def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     kw = dict(causal=causal, window=window, softcap=softcap, q_offset=q_offset,
               kv_len=kv_len)
     kernel = route(q, k, v)
+    if lse_out is not None and kernel != "flash_prefill":
+        raise ValueError(f"lse_out is written by flash_prefill only; this call "
+                         f"routes to {kernel}")
     if kernel == "flash_decode":
         return flash_decode.flash_decode(q, k, v, **kw)
     if kernel == "flash_prefill":
-        return flash_prefill.flash_prefill(q, k, v, **kw)
+        return flash_prefill.flash_prefill(q, k, v, lse_out=lse_out, **kw)
     out = torch.empty((b, sq, hq, d), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out

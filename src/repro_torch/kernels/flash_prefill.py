@@ -7,6 +7,8 @@ prefill): wgmma products with f32 accumulation, K/V tiles by TMA, P·V as
 two bf16 terms. CPU tensors take its plain version `ref.flash_prefill`;
 CUDA tensors launch the kernel or raise. `flash_attention` routes a CUDA
 call here when `takes` holds, decided from the operands before any launch.
+Given `lse_out`, the kernel also writes each row's log-sum-exp in base 2,
+which `flash_backward_tc` takes; the output is the same bits either way.
 """
 from __future__ import annotations
 
@@ -44,14 +46,23 @@ def kernel_window(window: int | None, q_offset: int, sq: int) -> int:
 def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                   causal: bool = True, window: int | None = None,
                   softcap: float | None = None, q_offset: int = 0,
-                  kv_len: int | None = None) -> torch.Tensor:
+                  kv_len: int | None = None,
+                  lse_out: torch.Tensor | None = None) -> torch.Tensor:
     """q [B, Sq, Hq, D], k/v [B, Skv, Hkv, D] bf16 -> [B, Sq, Hq, D] bf16;
-    the operands as `flash_attention` checks them."""
+    the operands as `flash_attention` checks them. `lse_out`, an f32
+    [B, Hq, Sq] contiguous tensor, receives each row's lse2 = m + log2(l)."""
+    b, sq, hq, d = q.shape
+    if lse_out is not None and (lse_out.dtype != torch.float32
+                                or lse_out.shape != (b, hq, sq)
+                                or not lse_out.is_contiguous()
+                                or lse_out.device != q.device):
+        raise ValueError(f"lse_out must be a contiguous float32 {(b, hq, sq)} tensor on "
+                         f"{q.device}, got {lse_out.dtype} {tuple(lse_out.shape)} on "
+                         f"{lse_out.device}")
     if _build.on_cpu(q, k, v):
         return ref.flash_prefill(q, k, v, causal=causal, window=window,
                                  softcap=softcap, q_offset=q_offset,
-                                 kv_len=kv_len)
-    b, sq, hq, d = q.shape
+                                 kv_len=kv_len, lse_out=lse_out)
     skv, hkv = k.shape[1], k.shape[2]
     kv_len = skv if kv_len is None else int(kv_len)
     if not takes(q, k, v):
@@ -65,6 +76,7 @@ def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     _build.launch("flash_prefill", q.device, lambda lib, stream:
                   lib.flash_prefill_launch(
                       q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                      None if lse_out is None else lse_out.data_ptr(),
                       b, sq, hq, hkv, d, *q.stride()[:3], *k.stride()[:3],
                       *v.stride()[:3], kv_len, int(q_offset),
                       kernel_window(window, int(q_offset), sq),

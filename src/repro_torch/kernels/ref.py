@@ -365,7 +365,8 @@ def prefill_keys(p_lo: int, p_hi: int, kv_len: int, causal: bool,
 def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                   causal: bool = True, window: int | None = None,
                   softcap: float | None = None, q_offset: int = 0,
-                  kv_len: int | None = None) -> torch.Tensor:
+                  kv_len: int | None = None,
+                  lse_out: torch.Tensor | None = None) -> torch.Tensor:
     """`flash_attention` computed as the bf16 prefill kernel computes it:
     per block of query positions, the keys `prefill_keys` gives in tiles of
     PREFILL_KEYS by online softmax; scores q·k in f32, times 1/sqrt(D) after
@@ -373,7 +374,9 @@ def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     (log2 e folded in); P·V as hi·V + lo·V (`split_bf16`); one division by
     max(l, 1e-30) and one rounding to q's dtype. A row that sees no key
     scores NEG on every valid key: the uniform mean of v[:kv_len]. Keys at
-    or past kv_len, which the kernel reads as zeros with p = 0, are left out."""
+    or past kv_len, which the kernel reads as zeros with p = 0, are left out.
+    `lse_out` [B, Hq, Sq] f32, when given, receives each row's log-sum-exp
+    in base 2 from the same m and l: lse2 = m + log2(l)."""
     b, sq, hq, d = q.shape
     skv, hkv = k.shape[1], k.shape[2]
     kv_len = skv if kv_len is None else int(kv_len)
@@ -417,7 +420,68 @@ def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             m = m_new
         o = acc / l.clamp(min=1e-30)[..., None]
         out[:, p0:p0 + nn] = o.permute(0, 3, 1, 2, 4).reshape(b, nn, hq, d).to(q.dtype)
+        if lse_out is not None:
+            lse_out[:, :, p0:p0 + nn] = (m + torch.log2(l)).reshape(b, hq, nn)
     return out
+
+
+def flash_backward_tc(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      o: torch.Tensor, do: torch.Tensor, lse: torch.Tensor, *,
+                      causal: bool = True, window: int | None = None,
+                      softcap: float | None = None
+                      ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The gradient of `flash_attention` (q_offset 0, every key valid) as
+    `csrc/flash_backward_tc.cu` computes it, from the forward's output `o`,
+    its gradient `do` and each row's log-sum-exp `lse` [B, Hq, S] in base 2
+    (`flash_prefill`'s `lse_out`): scores q·k in f32 times 1/sqrt(D) after
+    the product, `tanh_accurate` softcap t, p = 2^(s log2 e - lse) where
+    visible (0 elsewhere), dp = do·v, delta = rowsum(do * o) in f32,
+    ds = p * (1 - t^2) * (dp - delta) (without a softcap p * (dp -
+    delta)); then P and dS
+    rounded to bf16 where the kernel feeds them to the tensor cores:
+    dv = sum bf16(p)·do, dk = (sum bf16(ds)·q) / sqrt(D), dq = (sum
+    bf16(ds)·k) / sqrt(D), f32 sums, dk and dv over each KV head's G query
+    heads. -> (dq, dk, dv) in f32. Works through blocks of query
+    positions, dk and dv accumulated across them."""
+    b, sq, hq, d = q.shape
+    _, skv, hkv, _ = k.shape
+    g = hq // hkv
+    scale = torch.tensor(1.0 / math.sqrt(d), dtype=torch.float32)
+    inv_cap = None if softcap is None else torch.tensor(1.0 / softcap,
+                                                        dtype=torch.float32)
+    kf, vf = k.float(), v.float()
+    k_pos = torch.arange(skv, device=q.device)
+    dq = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    dk = torch.zeros(k.shape, dtype=torch.float32, device=q.device)
+    dv = torch.zeros(v.shape, dtype=torch.float32, device=q.device)
+    rows = max(1, CHUNK_BYTES // max(1, b * hq * skv * 4 * 6))
+    for r0 in range(0, sq, rows):
+        n = min(rows, sq - r0)
+        qc = q[:, r0:r0 + n].float().reshape(b, n, hkv, g, d)
+        dc = do[:, r0:r0 + n].float().reshape(b, n, hkv, g, d)
+        delta = (dc * o[:, r0:r0 + n].float().reshape(b, n, hkv, g, d)).sum(-1)
+        s = torch.einsum("bqhgd,bkhd->bhgqk", qc, kf) * scale
+        if softcap is not None:
+            t = tanh_accurate(s * inv_cap)
+            s = softcap * t
+        q_pos = torch.arange(r0, r0 + n, device=q.device)
+        mask = torch.ones((n, skv), dtype=torch.bool, device=q.device)
+        if causal:
+            mask &= q_pos[:, None] >= k_pos[None, :]
+        if window is not None:
+            mask &= q_pos[:, None] - k_pos[None, :] < window
+        lse_c = lse[:, :, r0:r0 + n].float().reshape(b, hkv, g, n, 1)
+        p = torch.where(mask, torch.exp2(s * LOG2E - lse_c),
+                        torch.tensor(0.0, device=q.device))
+        dp = torch.einsum("bqhgd,bkhd->bhgqk", dc, vf)
+        pdc = p * (1.0 - t * t) if softcap is not None else p
+        ds = pdc * (dp - delta.permute(0, 2, 3, 1)[..., None])
+        pb, dsb = p.to(torch.bfloat16).float(), ds.to(torch.bfloat16).float()
+        dv += torch.einsum("bhgqk,bqhgd->bkhd", pb, dc)
+        dk += torch.einsum("bhgqk,bqhgd->bkhd", dsb, qc)
+        dq[:, r0:r0 + n] = (torch.einsum("bhgqk,bkhd->bqhgd", dsb, kf) * scale
+                            ).reshape(b, n, hq, d)
+    return dq, dk * scale, dv
 
 
 TILE_ROWS = 64         # (position, group head) rows per CTA of the tile kernel
