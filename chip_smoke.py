@@ -27,12 +27,12 @@ a non-zero exit):
      b. per-shard budgets: greedy/optpes with budget_split="traffic" over 4
         shards, a partitioned sweep, a warm refit onto the test weights;
         then the sparse greedy round over padded doc-id lists against the
-        dense greedy step on the same problem.
+        dense greedy step on the same problem (32 selections).
      c. the paper's other solvers through `pipe.solve`: lazy (Alg. 1),
         agnostic (§5.1), isk1/isk2 (Alg. 3; 3 outer iterations of at most
-        64), stochastic (§3.2, m = 2048), flow-popularity, flow-max and
+        32), stochastic (§3.2, m = 2048), flow-popularity, flow-max and
         flow-sgd (§2.3), lazy under the 4-shard traffic caps, and
-        `build_multitier` at 3 budgets (§6), each cut to 64 selections,
+        `build_multitier` at 3 budgets (§6), each cut to 32 selections,
         each path's launches counted from 0; lazy == greedy's prefix up to
         an f32 tie (globally and under the caps) with fewer exact
         evaluations, greedy >= agnostic, ISK within B, the multi-tier
@@ -223,29 +223,31 @@ a non-zero exit):
            --verify` as a fourth launcher subprocess beside 5d's.
   6. LM training (after phase 4d), on the hand-written attention backward,
      routed by `flash_backward.route`: `flash_backward_tc`
-     (csrc/flash_backward_tc.cu, bf16 wgmma from flash_prefill's lse) and
-     the CUDA-core `flash_backward` (csrc/flash_backward.cu: f32, D 8-32,
-     D 256, no lse):
+     (csrc/flash_backward_tc.cu, bf16 wgmma from flash_prefill's lse, D
+     64/128/256) and the CUDA-core `flash_backward` (csrc/flash_backward.cu:
+     f32, D 8-32, no lse):
      a. flash_backward against its plain version `ref.flash_attention_bwd`
         on ragged cases (B 1-3, S 2-1000, G 1-8, every head dim, f32 and
         bf16, windows 8 and 100, softcap 50; f32 outputs within rtol 1e-4
         and atol 1e-4 x max|plain|); flash_backward_tc on its own ragged
-        cases (bf16, D 64/128, G 1-8, each forward's lse from
+        cases (bf16, D 64/128/256, G 1-8, each forward's lse from
         flash_prefill, checked against ref.flash_prefill's and the output
         bit-equal without it) against `ref.flash_backward_tc` (BWD_TC_TOL)
         and the f32 plain version (BWD_BF16_TOL); then at one layer of each
-        production setting in bf16: internlm2-1.8b B 4 x 4096 (Hq 16, Hkv
-        8, D 128) and kimi-k2 B 1 x 4096 (G 8, D 128) on flash_backward_tc,
+        production setting in bf16, all on flash_backward_tc: internlm2-1.8b
+        B 4 x 4096 (Hq 16, Hkv 8, D 128), kimi-k2 B 1 x 4096 (G 8, D 128),
         gemma2-2b global and local (window 4096) B 1 x 8192 (Hq 8, Hkv 4,
-        D 256, softcap 50) on flash_backward;
+        D 256, softcap 50), gemma3-12b global and local (window 1024) B 1 x
+        8192 (Hq 16, Hkv 8, D 256); the CUDA-core kernel on the same inputs
+        against the f32 plain version;
      b. each production setting timed (median of CUDA events) beside its
         bound (10 D FLOPs per visible pair and query head at 989 TFLOP/s),
         the CUDA-core floor (67 TFLOP/s) or the pair's own 14 D floor, the
-        plain version, the CUDA-core kernel on the same inputs (the pair's
-        settings), and the backward of SDPA (flash backend, K/V repeated to
-        Hq) or of a compiled flex_attention (softcap or window); at the
-        SDPA settings the pair's error over max is at most BWD_LIB_FACTOR x
-        SDPA's, both against the f32 plain version;
+        plain version, the CUDA-core kernel on the same inputs, and the
+        backward of SDPA (flash backend, or the first that takes the call,
+        K/V repeated to Hq) or of a compiled flex_attention (softcap or
+        window); the pair's error over max is at most BWD_LIB_FACTOR x the
+        library's, both against the f32 plain version;
      c. `loss_fn` and every gradient leaf, card against CPU (the CPU half in
         a worker process started with phase 6), f32 (the CUDA-core kernel):
         internlm2-1.8b and gemma2-2b at full width, 2 layers, 256
@@ -260,7 +262,13 @@ a non-zero exit):
      e. checkpoint/restart at 2 layers, full width, through
         `TrainingDriver`: a run that fails at step 3, a resumed run to step
         5 and an uninterrupted run: losses and every state leaf equal bit
-        for bit, on flash_backward_tc.
+        for bit, on flash_backward_tc;
+     f. gemma2-2b at full width and depth (26 layers, D 256, softcaps 50
+        and 30, tied 256000 x 2304 embedding) as in d, at the reference
+        launcher's lr 3e-4 with 10 warm-up steps; 1 warm-up and 2 timed
+        steps (52 flash_backward_tc, 104 flash_prefill and no
+        flash_backward a step), one profiled. At 4096 positions its window
+        of 4096 reaches key 0, so every layer runs causal-global.
 The last lines are the kernels' JSON record, the card line, and the
 contract line {"ok": true, "device": {...}}.
 
@@ -305,6 +313,12 @@ XL_FOLD_DOCS = 2 ** 24         # the folded run's reach: a 2 MiB slice of the ma
 MAIN_KERNELS = ("coverage_gain", "bit_matvec", "clause_match", "tier_match")
 HOST_THREADS = 6               # torch threads of phase 2's CPU half (a worker
                                # beside the card's phases, on 8 cores)
+# phase 5's solves and refits at `medium`: at most 64 selections
+MEDIUM_STEPS = 64
+# the paper's other solvers and options at `medium` (phase 2c) and 2b's
+# sparse round, cut to their first 32 selections (ISK: 3 outer iterations of
+# at most 32); both devices run the same cuts (REDUCED["medium_solvers"])
+MEDIUM_SOLVER_STEPS = 32
 REDUCED = {
     "clauses": "2^16 token singletons and pairs (solve_dense_m has 2^17)",
     "docs": "2^20 (solve_dense_m 2^23, serve_route 2^22; 2^20 is the low "
@@ -313,7 +327,14 @@ REDUCED = {
     "sparse_round": "the phase-3 clauses with |m(c)| <= 4096 (the rest get "
                     "an all -1 list and start selected)",
     "isk": "3 outer iterations of at most 128 inner selections (medium: "
-           "at most 64, every other medium solver its first 64 selections)",
+           "at most 32, every other medium solver its first 32 selections)",
+    "medium_solvers": "phase 2c's other solvers and 2b's sparse round at "
+                      "medium: 32 selections (2c 128 until the LM training "
+                      "phase came, then 64; 2b 128). Phase 2's CPU half is "
+                      "the script's longest path (the card waited 258.2 s for "
+                      "it), and these step-bound runs were ~101 s of it; "
+                      "halved, they pay for phase 6f (35.0 s) and 6b's D-256 "
+                      "rows",
     "lazy": "stops at 30 s of wall clock (max_steps=128)",
     "stream": "phase 5b: 6 rotate windows of 4096 queries, refits of at most "
               "128 selections, 3 windows apart; 5a (medium): 8 windows of "
@@ -729,7 +750,7 @@ def sparse_round(problem, ids, state, budget: float, steps: int) -> dict:
                 sparse_s=t_sparse, dense_s=t_dense)
 
 
-def run_partitioned(pipe, n_shards: int = 4, steps: int = 128) -> dict:
+def run_partitioned(pipe, n_shards: int = 4, steps: int = MEDIUM_SOLVER_STEPS) -> dict:
     """Per-shard budgets through the pipeline (traffic split over
     `n_shards`), a partitioned sweep, a warm refit onto the test weights,
     then the sparse greedy round on the same problem."""
@@ -818,15 +839,9 @@ def compare_partitioned(gpu: dict, cpu: dict) -> None:
         f"(dense {cs['dense_s']:.2f}s)")
 
 
-# the paper's other solvers and options at `medium`, cut to the first 64
-# selections (ISK: 3 outer iterations of at most 64); both devices run the
-# same cuts, which keep the CPU half of phase 2c near 1.5 minutes (128 until
-# PR 25: phase 2's CPU half is the script's longest path, and phase 6 made
-# the script run past its budget)
-MEDIUM_STEPS = 64
 MEDIUM_SOLVERS = (("lazy", {}), ("agnostic", {}),
-                  ("isk1", {"max_outer": 3, "max_inner": 64}),
-                  ("isk2", {"max_outer": 3, "max_inner": 64}),
+                  ("isk1", {"max_outer": 3, "max_inner": MEDIUM_SOLVER_STEPS}),
+                  ("isk2", {"max_outer": 3, "max_inner": MEDIUM_SOLVER_STEPS}),
                   ("stochastic", {"batch_queries": 2048}),
                   ("flow-popularity", {}), ("flow-max", {}), ("flow-sgd", {}))
 SGD_RTOL, SGD_ATOL = 1e-3, 1e-4   # flow-sgd logits after 300 float32 steps
@@ -849,14 +864,14 @@ def run_solvers(pipe, n_shards: int = 4) -> dict:
 
     for name, opts in MEDIUM_SOLVERS:
         run(name, lambda: pipe.solve(name, budget_frac=0.5,
-                                     max_steps=MEDIUM_STEPS, **opts).result)
+                                     max_steps=MEDIUM_SOLVER_STEPS, **opts).result)
     run("lazy-caps", lambda: pipe.solve(
         "lazy", budget_frac=0.5, budget_split="traffic", n_shards=n_shards,
-        max_steps=MEDIUM_STEPS).result)
+        max_steps=MEDIUM_SOLVER_STEPS).result)
     n = pipe.corpus.n_docs
     run("multitier", lambda: multitier.build_multitier(
         pipe.data, [n // 32, n // 16, n // 8], solver="greedy",
-        device=pipe.device, max_steps=MEDIUM_STEPS))
+        device=pipe.device, max_steps=MEDIUM_SOLVER_STEPS))
     mt = out["multitier"]
     out["multitier_ok"] = multitier.verify_multitier(mt, pipe.data)
     out["routes"] = mt.route(pipe.data.log.query_bits)
@@ -4415,9 +4430,9 @@ BWD_CASES = [
     (1, 1000, 4, 1, 32, True, None, None),
     (2, 17, 8, 2, 8, True, 8, 50.0),
 ]
-# ragged cases of flash_backward_tc (bf16, D 64 and 128, each forward's lse
-# from flash_prefill): B 1-3, S 2 to 1000, G 1, 2, 5 and 8, windows 8 and
-# 100 and softcap 50 alone and together
+# ragged cases of flash_backward_tc (bf16, D 64, 128 and 256, each
+# forward's lse from flash_prefill): B 1-3, S 2 to 1000, G 1, 2, 4, 5 and 8,
+# windows 8 and 100 and softcap 50 alone and together
 BWD_TC_CASES = [
     # b, s, hq, hkv, d, window, cap
     (1, 2, 2, 2, 64, None, None),
@@ -4432,15 +4447,26 @@ BWD_TC_CASES = [
     (2, 255, 8, 8, 64, 8, None),
     (1, 17, 16, 2, 64, 100, None),
     (3, 2, 5, 1, 128, 8, 50.0),
+    (1, 2, 4, 4, 256, None, None),
+    (2, 17, 8, 4, 256, 8, None),
+    (1, 255, 8, 2, 256, 100, 50.0),
+    (1, 1000, 8, 1, 256, None, 50.0),
+    (3, 255, 16, 8, 256, 100, None),
+    (2, 1000, 4, 1, 256, 8, 50.0),
+    (1, 64, 8, 4, 256, None, 50.0),
+    (2, 17, 2, 1, 256, None, None),
 ]
 # one layer of each production setting: (b, s, hq, hkv, d, window, cap,
-# library yardstick); internlm2-1.8b's and kimi-k2's take flash_backward_tc,
-# gemma2-2b's (D 256) the CUDA-core kernel
+# library yardstick); each takes flash_backward_tc (gemma2-2b's and
+# gemma3-12b's at D 256 too), and the CUDA-core kernel is timed on the same
+# inputs beside it
 BWD_SETTINGS = {
     "internlm2_1_8b": (4, 4096, 16, 8, 128, None, None, "sdpa"),
     "gemma2_2b_global": (1, 8192, 8, 4, 256, None, 50.0, "flex"),
     "gemma2_2b_local": (1, 8192, 8, 4, 256, 4096, 50.0, "flex"),
     "kimi_k2_1t_a32b": (1, 4096, 64, 8, 128, None, None, "sdpa"),
+    "gemma3_12b_global": (1, 8192, 16, 8, 256, None, None, "sdpa"),
+    "gemma3_12b_local": (1, 8192, 16, 8, 256, 1024, None, "flex"),
 }
 BWD_RTOL = 1e-4                # and atol 1e-4 x max|plain| per output
 # flash_backward_tc against its own plain version ref.flash_backward_tc,
@@ -4452,20 +4478,31 @@ BWD_TC_TOL = 2e-3              # rtol, and atol this x max|plain| per output
 # P and dS enter the tensor cores as bf16 (SDPA's flash backward rounds
 # them too), and Attention rounds the gradients to bf16 afterwards anyway
 BWD_BF16_TOL = 2e-2            # rtol, and atol this x max|plain| per output
-BWD_LIB_FACTOR = 2.0           # its error / max <= this x SDPA's backward's (7q, 7t)
+BWD_LIB_FACTOR = 2.0           # its error / max <= this x the library backward's
 LSE_ATOL = 1e-4                # flash_prefill's lse (base 2) against ref.flash_prefill's
 TRAIN_GRAD_TOL = 1e-3          # 6c: |card - CPU| <= this x max|g_cpu| per leaf (+1e-6)
 TRAIN_LOSS_RTOL = 1e-5         # 6c: loss and aux, card against CPU
 TRAIN_B, TRAIN_S, TRAIN_MICRO = 8, 4096, 2     # 6d: 8 x 4096 as 2 microbatches of 4
 TRAIN_STEPS = 5                                 # 6d: 1 warm-up + 4 timed
+GEMMA_TRAIN_STEPS = 3                           # 6f: 1 warm-up + 2 timed
 TRAIN_OPT = dict(name="adamw", lr=1e-3, warmup_steps=1, decay_steps=100,
                  state_dtype="bfloat16", scan_update_axis0=True)
 RESTART_B, RESTART_S, RESTART_STEPS, RESTART_FAIL = 2, 1024, 5, 3   # 6e
+# 6f's schedule is the reference launcher's (src/repro/launch/train.py: lr
+# 3e-4, 10 warm-up steps): the copy batch's loss starts near 0 for a random
+# gemma2-2b (tied embeddings predict the input token), and at TRAIN_OPT's lr
+# 1e-3 after one warm-up step Adam's third step overshot (loss 0.0064 ->
+# 2.17, grad norm 0.025 -> 48.7)
+GEMMA_TRAIN_OPT = dict(TRAIN_OPT, lr=3e-4, warmup_steps=10)
 TRAIN_REDUCED = {
     "batch": f"{TRAIN_B} x {TRAIN_S} as {TRAIN_MICRO} microbatches (train_4k has "
              "256 x 4096), the same batch every step",
-    "steps": f"1 warm-up + {TRAIN_STEPS - 1} timed, 1 profiled",
+    "steps": f"6d: 1 warm-up + {TRAIN_STEPS - 1} timed, 1 profiled; 6f: 1 warm-up + "
+             f"{GEMMA_TRAIN_STEPS - 1} timed, 1 profiled",
     "weights": "random from --seed (init_params' distributions)",
+    "windows": f"6f: gemma2-2b's window of 4096 (every other layer) reaches key 0 from "
+               f"every query at S = {TRAIN_S}, so kernel_window makes it none and both "
+               "kinds of layer run causal-global",
 }
 
 
@@ -4599,33 +4636,49 @@ def phase6_tc_small(dev) -> dict:
     return worst
 
 
+SDPA_BACKENDS = ("FLASH_ATTENTION", "EFFICIENT_ATTENTION", "CUDNN_ATTENTION")
+
+
 def sdpa_bwd(q, k, v, do, reps: int) -> dict:
-    """SDPA's backward time on the flash backend (forward + backward minus
-    forward), on [B, H, S, D] copies with K and V repeated to Hq (made here,
-    not timed), causal, no softcap: the yardstick, never on the port's
-    path. Its dK, dV are summed back over each group in f32 for the error."""
+    """SDPA's backward time (forward + backward minus forward) on the flash
+    backend, or the first of SDPA_BACKENDS that takes the call (logged), on
+    [B, H, S, D] copies with K and V repeated to Hq (made here, not timed),
+    causal, no softcap: the yardstick, never on the port's path. Its dK, dV
+    are summed back over each group in f32 for the error."""
     from torch.nn.attention import SDPBackend, sdpa_kernel
     g = q.shape[2] // k.shape[2]
     qt = q.transpose(1, 2).contiguous().requires_grad_()
     kt, vt = (x.repeat_interleave(g, dim=2).transpose(1, 2).contiguous().requires_grad_()
               for x in (k, v))
     dot = do.transpose(1, 2).contiguous()
+    backend = None
 
     def fwd():
-        with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
+        with sdpa_kernel(getattr(SDPBackend, backend)):
             return torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
 
     def fwd_bwd():
         return torch.autograd.grad(fwd(), (qt, kt, vt), dot)
-    grads = fwd_bwd()
+    refused = []
+    for backend in SDPA_BACKENDS:   # fwd reads it
+        try:
+            grads = fwd_bwd()
+            torch.cuda.synchronize()
+            break
+        except RuntimeError as e:   # noqa: PERF203
+            refused.append(f"{backend}: {str(e).splitlines()[0][:120]}")
+    else:
+        raise RuntimeError("every SDPA backend refused: " + "; ".join(refused))
+    if refused:
+        log(f"[phase 6b] SDPA's backward on {backend}; refused: {'; '.join(refused)}")
     f_ms, fb_ms = time_ms(fwd, reps), time_ms(fwd_bwd, reps)
     b, s, hkv, d = k.shape
     dq = grads[0].transpose(1, 2)
     dk, dv = (x.transpose(1, 2).float().reshape(b, s, hkv, g, d).sum(3) for x in grads[1:])
     return dict(library_ms=fb_ms - f_ms, library_fwd_bwd_ms=fb_ms, library_fwd_ms=f_ms,
-                library_call="scaled_dot_product_attention, FLASH_ATTENTION, K/V "
+                library_call=f"scaled_dot_product_attention, {backend}, K/V "
                              "repeated to Hq: forward + backward minus forward",
-                library_grads=(dq, dk, dv))
+                library_backend=backend, library_grads=(dq, dk, dv))
 
 
 def flex_bwd(q, k, v, do, window, cap, reps: int) -> dict:
@@ -4676,8 +4729,9 @@ def phase6_kernel_model(seed: int, dev) -> dict:
     flash_backward_tc settings the kernel is held to its plain version at
     BWD_TC_TOL, to the f32 plain version at BWD_BF16_TOL, and its error
     over max to BWD_LIB_FACTOR x the library's (both against the f32 plain
-    version); the CUDA-core kernel is timed again on the same inputs (its
-    earlier route). On the others the CUDA-core kernel is held to the f32
+    version); the CUDA-core kernel (its earlier route) runs on the same
+    inputs, held to the f32 plain version at BWD_RTOL and timed
+    (`cuda_core`). On the others the CUDA-core kernel is held to the f32
     plain version at BWD_RTOL."""
     from repro_torch.kernels import flash_backward, ref
     gen = torch.Generator(dev).manual_seed(seed + 6)
@@ -4694,6 +4748,7 @@ def phase6_kernel_model(seed: int, dev) -> dict:
         rec = dict(bwd_bound(b, s, hq, hkv, d, window, nbytes_in), kernel=kernel,
                    shape=[b, s, hq, hkv, d], window=window, softcap=cap,
                    err_over_max=err_over_max(got, f32))
+        f32_plain = lambda: ref.flash_attention_bwd(q, k, v, o, do, **kw)  # noqa: E731
         if kernel == "flash_backward_tc":
             rec["err_over_limit"], rec["max_abs_err"] = bwd_agree(
                 got, ref.flash_backward_tc(q, k, v, o, do, lse, **kw), name, BWD_TC_TOL,
@@ -4702,11 +4757,13 @@ def phase6_kernel_model(seed: int, dev) -> dict:
             plain = lambda: ref.flash_backward_tc(q, k, v, o, do, lse, **kw)  # noqa: E731
             # its own floor: 14*D FLOPs a pair, the dq kernel recomputing S and dP
             rec["own_floor_ms"] = 1.4 * rec["flops"] / BF16_TC_FLOPS * 1e3
-            rec["cuda_core_ms"] = time_ms(
-                lambda: flash_backward.flash_backward(q, k, v, o, do, **kw), 3)
+            cc = lambda: flash_backward.flash_backward(q, k, v, o, do, **kw)  # noqa: E731
+            cc_ratio, cc_err = bwd_agree(cc(), f32, f"{name} (CUDA cores)")
+            rec["cuda_core"] = dict(ms=time_ms(cc, 3), err_over_limit=cc_ratio,
+                                    max_abs_err=cc_err, plain_ms=time_ms(f32_plain, 1, warmup=0))
         else:
             rec["err_over_limit"], rec["max_abs_err"] = bwd_agree(got, f32, name)
-            plain = lambda: ref.flash_attention_bwd(q, k, v, o, do, **kw)  # noqa: E731
+            plain = f32_plain
         rec["ms"] = time_ms(lambda: flash_backward.flash_backward(q, k, v, o, do, lse=lse,
                                                                   **kw), 5)
         rec["plain_ms"] = time_ms(plain, 1, warmup=0)
@@ -4731,9 +4788,11 @@ def phase6_kernel_model(seed: int, dev) -> dict:
                  f"({rec['ms'] / rec['library_ms']:.2f}x), its grads within "
                  f"{rec['library_err_over_max']:.3g} of max of the f32 plain version's"
                  if rec["library_ms"] else f"{lib} not measured")
-        extra = (f"own floor {rec['own_floor_ms']:.3f} ms, the CUDA-core kernel "
-                 f"{rec['cuda_core_ms']:.3f} ms; {rec['f32_err_over_limit']:.3f} of the f32 "
-                 f"limit" if kernel == "flash_backward_tc"
+        extra = (f"own floor {rec['own_floor_ms']:.3f} ms, the "
+                 f"CUDA-core kernel {rec['cuda_core']['ms']:.3f} ms ("
+                 f"{rec['cuda_core']['err_over_limit']:.3f} of its limit, plain f32 "
+                 f"{rec['cuda_core']['plain_ms']:.1f} ms); {rec['f32_err_over_limit']:.3f} "
+                 f"of the f32 limit" if kernel == "flash_backward_tc"
                  else f"CUDA-core floor {rec['cuda_core_floor_ms']:.3f} ms")
         log(f"[phase 6b] {name} {rec['shape']} window={window} cap={cap} on {kernel}: "
             f"{rec['ms']:.3f} ms (bound {rec['bound_ms']:.3f} ms by {rec['bound_by']}, "
@@ -4885,29 +4944,31 @@ def step_profile(step_fn) -> dict | None:
                 top_kernels=[(e.key[:80], e.self_device_time_total / 1e3) for e in top])
 
 
-def phase6_trainer(seed: int, dev) -> dict:
-    """6d: internlm2-1.8b at full width and depth through `make_train_step`
-    (AdamW, bf16 states, remat, bf16 activations, f32 parameters), global
-    batch TRAIN_B x TRAIN_S as TRAIN_MICRO microbatches; the launches of
-    the TRAIN_STEPS steps counted from 0; then one profiled step."""
-    from repro_torch.configs import internlm2_1_8b
+def phase6_trainer(seed: int, dev, cfg, steps: int, tag: str, opt: dict) -> dict:
+    """A trainer at full width and depth of `cfg` through `make_train_step`
+    (AdamW with `opt`, bf16 states, remat, bf16 activations, f32
+    parameters), global batch TRAIN_B x TRAIN_S as TRAIN_MICRO microbatches,
+    the same batch every step; the launches of the `steps` steps (1 warm-up,
+    the rest timed) counted from 0: each microbatch's layers launch
+    flash_backward_tc once and flash_prefill twice (the forward and remat's
+    recompute), and nothing else; then one profiled step."""
     from repro_torch.configs import registry as R
     from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_backward import kernel_window
     from repro_torch.launch.train import synthetic_lm_batches
     from repro_torch.models import transformer as T
     from repro_torch.train import tree
     from repro_torch.train.optimizer import OptimizerConfig
     from repro_torch.train.trainer import make_train_step
-    cfg = internlm2_1_8b.CONFIG
     t = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
     params = T.init_params(torch.Generator(dev).manual_seed(seed), cfg)
     n_params = cfg.param_count()
     check(sum(x.numel() for x in tree.leaves(params)) == n_params,
-          "internlm2's parameter tree against its parameter count")
+          f"{cfg.name}'s parameter tree against its parameter count")
     with annotated_optimizer():
         init_state, train_step = make_train_step(
-            R.lm_loss(cfg), OptimizerConfig(**TRAIN_OPT), n_micro=TRAIN_MICRO)
+            R.lm_loss(cfg), OptimizerConfig(**opt), n_micro=TRAIN_MICRO)
     state = init_state(params)
     # one batch of the reference's token stream for every step: the loss of
     # a batch the model keeps seeing must fall (on fresh random tokens the
@@ -4917,42 +4978,44 @@ def phase6_trainer(seed: int, dev) -> dict:
     init_s = time.perf_counter() - t
     losses, step_s = [], []
     _build.reset_launches()
-    for i in range(TRAIN_STEPS):
+    for i in range(steps):
         torch.cuda.synchronize()
         t = time.perf_counter()
         state, met = train_step(state, bt)
         losses.append(float(met["loss"]))
         step_s.append(time.perf_counter() - t)
-        log(f"[phase 6d] step {i + 1}: loss {losses[-1]:.4f} (xent {float(met['xent']):.4f}), "
+        log(f"{tag} step {i + 1}: loss {losses[-1]:.4f} (xent {float(met['xent']):.4f}), "
             f"grad norm {float(met['grad_norm']):.3f}, lr {float(met['lr']):.2e}, "
             f"{step_s[-1]:.3f}s")
     launches = {k: v for k, v in _build.LAUNCHES.items() if v}
-    check(all(math.isfinite(x) for x in losses), f"a loss is not finite: {losses}")
-    check(losses[-1] < losses[0], f"the loss did not fall: {losses}")
-    want = TRAIN_STEPS * TRAIN_MICRO * cfg.n_layers
+    check(all(math.isfinite(x) for x in losses), f"{tag} a loss is not finite: {losses}")
+    check(losses[-1] < losses[0], f"{tag} the loss did not fall: {losses}")
+    want = steps * TRAIN_MICRO * cfg.n_layers
     check(launches.get("flash_backward_tc") == want
           and launches.get("flash_prefill") == 2 * want and len(launches) == 2,
-          f"a training step's attention launches: {launches} (want {want} "
+          f"{tag} a training step's attention launches: {launches} (want {want} "
           f"flash_backward_tc, {2 * want} flash_prefill: the forward and remat's "
           f"recompute, and no flash_backward)")
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     prof = step_profile(lambda: train_step(state, bt))
     timed = statistics.median(step_s[1:])
     tokens = TRAIN_B * TRAIN_S
-    attn_flops = 12.0 * cfg.d_head * bwd_pairs(TRAIN_S, None) * cfg.n_heads * TRAIN_B \
-        * cfg.n_layers
+    # the layers' visible pairs: a window of at least S is none (kernel_window)
+    attn_flops = 12.0 * cfg.d_head * cfg.n_heads * TRAIN_B * sum(
+        bwd_pairs(TRAIN_S, None if g or kernel_window(cfg.local_window, TRAIN_S) < 0
+                  else cfg.local_window) for g in cfg.is_global_layer())
     share = (6.0 * n_params * tokens + attn_flops) / (timed * BF16_TC_FLOPS)
     res = dict(losses=losses, step_s=step_s, ms_per_step=timed * 1e3,
                tokens_per_s=tokens / timed, peak_gib=peak, init_s=init_s,
-               share_of_peak=share, launches=launches, launches_per_step=want // TRAIN_STEPS,
-               profile=prof, params=n_params, reduced=TRAIN_REDUCED)
-    log(f"[phase 6d] internlm2-1.8b ({n_params} params, {cfg.n_layers} layers) trainer: median "
+               share_of_peak=share, launches=launches, launches_per_step=want // steps,
+               profile=prof, params=n_params, optimizer=opt, reduced=TRAIN_REDUCED)
+    log(f"{tag} {cfg.name} ({n_params} params, {cfg.n_layers} layers) trainer: median "
         f"{timed * 1e3:.1f} ms a step of {tokens} tokens ({tokens / timed:.1f} tokens/s), "
         f"{share:.1%} of the bf16 peak ((6NT + attention FLOPs) / (t x 989 TFLOP/s)); "
         f"peak {peak:.2f} GiB; loss {' -> '.join(f'{x:.4f}' for x in losses)}; launches "
         f"{launches}")
     if prof:
-        log(f"[phase 6d] profiled step: wall {prof['wall_ms']:.1f} ms, device busy "
+        log(f"{tag} profiled step: wall {prof['wall_ms']:.1f} ms, device busy "
             f"{prof['busy_ms']:.1f} ms (idle {prof['idle_share']:.1%}); shares of busy: "
             + ", ".join(f"{k} {v:.1%} ({prof['ms'][k]:.1f} ms)"
                         for k, v in prof["shares"].items())
@@ -5029,10 +5092,14 @@ def phase6_restart(seed: int, dev) -> dict:
 
 
 def phase6(seed: int, host, dev=torch.device("cuda")) -> list[dict]:
-    """Phase 6 a-e; returns the entries of flash_backward_tc (the bf16
-    training path, 6d) and of flash_backward (the f32 path, 6c) for the
-    kernels line. `host` is 6c's CPU half, started in a worker before
-    phase 6."""
+    """Phase 6 a-f; returns the entries of flash_backward_tc (the bf16
+    training path, 6d and 6f) and of flash_backward (the f32 path, 6c) for
+    the kernels line. `host` is 6c's CPU half, started in a worker before
+    phase 6. 6f: gemma2-2b at full width and depth (26 layers, D 256,
+    softcaps 50 and 30, tied 256000 x 2304 embedding), as 6d; at S = 4096
+    its window of 4096 is none (TRAIN_REDUCED["windows"]), so every layer
+    is causal-global."""
+    from repro_torch.configs import gemma2_2b, internlm2_1_8b
     t = time.perf_counter()
     small = phase6_kernel_small(dev)
     tc_small = phase6_tc_small(dev)
@@ -5044,39 +5111,45 @@ def phase6(seed: int, host, dev=torch.device("cuda")) -> list[dict]:
     card_cpu = phase6_card_vs_cpu(seed, host, dev)
     log(f"[phase 6c] {time.perf_counter() - t:.1f}s")
     t = time.perf_counter()
-    train = phase6_trainer(seed, dev)
+    train = phase6_trainer(seed, dev, internlm2_1_8b.CONFIG, TRAIN_STEPS, "[phase 6d]",
+                           TRAIN_OPT)
     log(f"[phase 6d] {time.perf_counter() - t:.1f}s")
     t = time.perf_counter()
     restart = phase6_restart(seed, dev)
     log(f"[phase 6e] {time.perf_counter() - t:.1f}s")
-    by_kernel = {kn: {k: m for k, m in model.items() if m["kernel"] == kn}
-                 for kn in ("flash_backward_tc", "flash_backward")}
+    t = time.perf_counter()
+    gemma = phase6_trainer(seed, dev, gemma2_2b.CONFIG, GEMMA_TRAIN_STEPS, "[phase 6f]",
+                           GEMMA_TRAIN_OPT)
+    log(f"[phase 6f] {time.perf_counter() - t:.1f}s")
+    tc_model = {k: m for k, m in model.items() if m["kernel"] == "flash_backward_tc"}
+    check(len(tc_model) == len(BWD_SETTINGS), "a production setting left flash_backward_tc")
     tc = dict(model["internlm2_1_8b"])
     tc.pop("flops")
     tc.update(name="flash_backward_tc",
-              max_abs_err=max(tc_small["abs"],
-                              *(m["max_abs_err"] for m in by_kernel["flash_backward_tc"].values())),
+              max_abs_err=max(tc_small["abs"], *(m["max_abs_err"] for m in tc_model.values())),
               err_over_limit={"ragged": tc_small["own"], "ragged_f32": tc_small["f32"],
-                              **{k: m["err_over_limit"]
-                                 for k, m in by_kernel["flash_backward_tc"].items()}},
-              settings={k: m for k, m in by_kernel["flash_backward_tc"].items()
-                        if k != "internlm2_1_8b"},
+                              **{k: m["err_over_limit"] for k, m in tc_model.items()}},
+              settings={k: m for k, m in tc_model.items() if k != "internlm2_1_8b"},
               launches=train["launches"].get("flash_backward_tc", 0),
               launches_path=f"6d: {TRAIN_STEPS} train steps of internlm2-1.8b, "
                             f"{train['launches_per_step']} a step",
-              lm_train=dict(train, restart=restart))
-    cc = dict(model["gemma2_2b_global"])
-    cc.pop("flops")
-    cc.update(name="flash_backward",
-              max_abs_err=max(small["abs"],
-                              *(m["max_abs_err"] for m in by_kernel["flash_backward"].values())),
+              launches_gemma2_2b=gemma["launches"].get("flash_backward_tc", 0),
+              launches_gemma2_2b_path=f"6f: {GEMMA_TRAIN_STEPS} train steps of gemma2-2b, "
+                                      f"{gemma['launches_per_step']} a step",
+              lm_train=dict(train, restart=restart), gemma2_2b_train=gemma)
+    # the CUDA-core kernel at gemma2-2b's global layer: off the bf16 path,
+    # timed there beside flash_backward_tc on the same inputs
+    g2 = model["gemma2_2b_global"]
+    cc = {k: g2[k] for k in ("bound_ms", "bound_by", "cuda_core_floor_ms", "shape",
+                             "window", "softcap", "library_ms", "library_call")}
+    cc.update(name="flash_backward", ms=g2["cuda_core"]["ms"],
+              plain_ms=g2["cuda_core"]["plain_ms"],
+              max_abs_err=max(small["abs"], *(m["cuda_core"]["max_abs_err"]
+                                              for m in tc_model.values())),
               err_over_limit={"f32": small["f32"], "bf16": small["bf16"],
-                              **{k: m["err_over_limit"]
-                                 for k, m in by_kernel["flash_backward"].items()}},
-              settings={k: m for k, m in by_kernel["flash_backward"].items()
-                        if k != "gemma2_2b_global"},
-              earlier_route_ms={k: m["cuda_core_ms"]
-                                for k, m in by_kernel["flash_backward_tc"].items()},
+                              **{k: m["cuda_core"]["err_over_limit"]
+                                 for k, m in tc_model.items()}},
+              earlier_route_ms={k: m["cuda_core"]["ms"] for k, m in tc_model.items()},
               launches=card_cpu["launches"].get("flash_backward", 0),
               launches_path="6c: loss_fn's f32 gradients of internlm2-1.8b, gemma2-2b "
                             "(2 layers, 256 positions) and kimi-k2's SMOKE config",

@@ -1,7 +1,8 @@
 // Hopper building blocks shared by the wgmma kernels (flash_prefill.cu,
 // flash_backward_tc.cu): shared-memory descriptors for the 128-byte
-// swizzle, mbarriers, TMA and bulk loads, wgmma m64nNk16 on bf16 with f32
-// accumulators, and the tensor map of a [B, S, H, D] bf16 operand.
+// swizzle, mbarriers and named barriers, TMA and bulk loads, wgmma
+// m64nNk16 on bf16 with f32 accumulators, and the tensor map of a [B, S,
+// H, D] bf16 operand.
 //
 // Layout of a wgmma operand tile: rows of 64 bf16 (128 bytes) in boxes of
 // 64 rows (kBox bytes), the 16-byte chunk c of row r stored at c ^ (r % 8)
@@ -9,7 +10,8 @@
 // Read K-major (the reduction along the row) through
 // sw128_desc(base + box * kBox + k16 * 32, 16, 1024), or transposed (the
 // reduction down the rows, 16 rows a step) through
-// sw128_desc(base + k16 * 2048, kBox, 1024).
+// sw128_desc(base + k16 * 2048, kBox, 1024). A tile of 32-row boxes (4096
+// bytes each) is read the same way with 4096 in place of kBox.
 #pragma once
 
 #include <cstdint>
@@ -62,6 +64,11 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
         : "r"(bar), "r"(parity)
         : "memory");
   }
+}
+
+// named barrier `id` (1-15; 0 is __syncthreads') over `n` threads
+__device__ __forceinline__ void bar_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
 }
 
 __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map,
@@ -151,6 +158,27 @@ __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
         "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
         "+f"(d[31])
       : "l"(da), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t da,
+                                             uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),
+        "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d (+)= A.B with A and B K-major from shared memory, N = 32 or 64
+template <int N>
+__device__ __forceinline__ void wgmma_ss_nn(float (&d)[N / 2], uint64_t da, uint64_t db,
+                                            int scale_d) {
+  if constexpr (N == 32) wgmma_ss_n32(d, da, db, scale_d);
+  else wgmma_ss_n64(d, da, db, scale_d);
 }
 
 __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
@@ -244,6 +272,35 @@ __device__ __forceinline__ void wgmma_rs_n256(float (&d)[128],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// d += A.B, A [64 rows][16] K-major and B [16 rows][128] transposed
+// (N-major), both from shared memory: a product whose A another warpgroup
+// wrote into a swizzled tile
+__device__ __forceinline__ void wgmma_ss_n128_t(float (&d)[64], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, "
+      "%42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(1));
+}
+
 // d += A.B with B [16 rows][D] read transposed: N = D, the accumulator D / 2
 // floats a thread
 template <int D>
@@ -280,18 +337,18 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// the map of a bf16 [B, S, H, D] operand (strides in elements): 64 x 64
-// boxes of (position, D), positions cut at `extent` so that TMA fills the
-// rest with zeros
+// the map of a bf16 [B, S, H, D] operand (strides in elements): boxes of
+// `rows` positions x 64 of D (64 x 64 unless asked), positions cut at
+// `extent` so that TMA fills the rest with zeros
 bool tile_map(CUtensorMap* map, const void* ptr, int64_t B, int64_t extent, int64_t H,
-              int64_t D, int64_t sb, int64_t ss, int64_t sh) {
+              int64_t D, int64_t sb, int64_t ss, int64_t sh, int rows = 64) {
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return false;
   const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)(extent > 0 ? extent : 1),
                               (cuuint64_t)H, (cuuint64_t)B};
   const cuuint64_t strides[3] = {(cuuint64_t)ss * 2, (cuuint64_t)sh * 2,
                                  (cuuint64_t)sb * 2};
-  const cuuint32_t box[4] = {64, 64, 1, 1};
+  const cuuint32_t box[4] = {64, (cuuint32_t)rows, 1, 1};
   const cuuint32_t estr[4] = {1, 1, 1, 1};
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
                 strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,

@@ -3,13 +3,14 @@ and v — CUDA kernel wrappers and their routing rule.
 
 Two kernels, by `route`, decided from the operands before any launch:
 - `csrc/flash_backward_tc.cu` when the forward went through
-  `flash_prefill` (bf16, Sq > 1, 16-byte aligned) with D in (64, 128) and
+  `flash_prefill` (bf16, Sq > 1, 16-byte aligned, D in (64, 128, 256)) and
   saved each row's log-sum-exp (`lse`): bf16 wgmma, P and dS rounded to
   bf16 before the products that take them, a dq kernel and a dK/dV kernel
-  beside a pass that pairs lse with delta = rowsum(dO * o). Plain version
+  beside a pass that pairs lse with delta = rowsum(dO * o); at D = 256 a
+  dK/dV CTA owns 64 keys and each warpgroup half of D. Plain version
   `ref.flash_backward_tc`.
-- `csrc/flash_backward.cu` for everything else (f32, D in (8, 16, 32,
-  256), no saved lse): FlashAttention-2's backward on the CUDA cores in f32
+- `csrc/flash_backward.cu` for everything else (f32, D in (8, 16, 32),
+  no saved lse): FlashAttention-2's backward on the CUDA cores in f32
   (row statistics, dK/dV per key block, dQ per query block). Plain version
   `ref.flash_attention_bwd`.
 Neither uses float atomics, so a run repeats its bits. Neither replaces a
@@ -28,7 +29,7 @@ import torch
 from repro_torch.kernels import _build, flash_prefill, ref
 
 HEAD_DIMS = (8, 16, 32, 64, 128, 256)   # flash_backward.cu's instantiations
-TC_HEAD_DIMS = (64, 128)                # flash_backward_tc.cu's
+TC_HEAD_DIMS = (64, 128, 256)           # flash_backward_tc.cu's
 DTYPES = (torch.float32, torch.bfloat16)
 INT32_MAX = 2 ** 31 - 1
 
@@ -36,8 +37,8 @@ INT32_MAX = 2 ** 31 - 1
 def takes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> bool:
     """Whether the tensor-core pair takes these operands, given the
     forward's lse: the forward went through `flash_prefill` (its `takes`)
-    and D is in TC_HEAD_DIMS. D = 256 stays on the CUDA cores: a 64-key
-    warpgroup would hold 256 f32 of dK and dV a thread."""
+    and D is in TC_HEAD_DIMS, which holds every head dim `flash_prefill`
+    takes."""
     return q.shape[3] in TC_HEAD_DIMS and flash_prefill.takes(q, k, v)
 
 

@@ -27,8 +27,9 @@ LOG2E = 1.4426950408889634
 BWD_BF16_TOL = 2e-2
 LSE_TOL = 1e-5                 # rtol and atol of the lse, base 2
 
-# b, s, hq, hkv, d, window, cap: causal, G 1/2/8, D 64/128, S 1/17/255,
-# windows and softcaps alone and together
+# b, s, hq, hkv, d, window, cap: causal, G 1/2/4/8, D 64/128/256, S
+# 1/17/255, windows and softcaps alone and together; the last three at D 256
+# (gemma2-like: G 2, window and softcap 50; gemma3-like: G 2; G 4)
 CASES = [
     (1, 1, 2, 2, 64, None, None),
     (2, 17, 4, 2, 64, None, None),
@@ -38,7 +39,11 @@ CASES = [
     (1, 255, 8, 1, 64, 100, 50.0),
     (1, 255, 4, 2, 128, 8, None),
     (3, 17, 8, 8, 64, 3, 30.0),
+    (1, 255, 8, 4, 256, 100, 50.0),
+    (2, 17, 16, 8, 256, 5, None),
+    (1, 17, 4, 1, 256, None, None),
 ]
+D256 = CASES[-3:]
 
 
 def _ids(c):
@@ -176,13 +181,13 @@ def _meta(shape, dtype=torch.bfloat16):
 
 @pytest.mark.parametrize("dev", ["cpu", "meta"])
 def test_route(dev):
-    """flash_backward.route: bf16, D 64 or 128, 16-byte aligned, Sq > 1 and
-    the forward's lse -> flash_backward_tc; f32, D 32, D 256, an unaligned
+    """flash_backward.route: bf16, D 64, 128 or 256, 16-byte aligned, Sq > 1
+    and the forward's lse -> flash_backward_tc; f32, D 32, an unaligned
     view, one query position or no lse -> flash_backward."""
     def make(b, s, h, d, dtype=torch.bfloat16):
         return torch.empty((b, s, h, d), dtype=dtype, device=dev)
     lse = torch.empty((2, 8, 16), device=dev)
-    for d in (64, 128):
+    for d in (64, 128, 256):
         q, k = make(2, 16, 8, d), make(2, 16, 2, d)
         assert flash_backward.route(q, k, k, lse) == "flash_backward_tc"
         assert flash_backward.route(q, k, k, None) == "flash_backward"
@@ -190,9 +195,8 @@ def test_route(dev):
         assert flash_backward.route(qf, kf, kf, lse) == "flash_backward"
         q1, k1 = make(2, 1, 8, d), make(2, 1, 2, d)
         assert flash_backward.route(q1, k1, k1, lse) == "flash_backward"
-    for d in (32, 256):
-        q, k = make(2, 16, 8, d), make(2, 16, 2, d)
-        assert flash_backward.route(q, k, k, lse) == "flash_backward"
+    q, k = make(2, 16, 8, 32), make(2, 16, 2, 32)
+    assert flash_backward.route(q, k, k, lse) == "flash_backward"
     if dev == "cpu":
         big = torch.empty((2, 16, 8, 72), dtype=torch.bfloat16)
         q, k = big[..., 1:65], make(2, 16, 2, 64)
@@ -202,15 +206,14 @@ def test_route(dev):
 def test_saves_lse_only_on_the_prefill_route():
     """Attention asks for the lse exactly where its forward is a kernel
     call routed to flash_prefill and its gradient takes the tensor-core
-    pair: D 64 and 128 in bf16; not on the CPU's plain path, not in f32,
-    not at Sq = 1, not at D 256 (flash_prefill's too, but its gradient
-    stays on the CUDA cores and would not read the lse)."""
-    for d in (64, 128):
+    pair: D 64, 128 and 256 in bf16; not on the CPU's plain path, not in
+    f32, not at Sq = 1, not at D 32 (the tile kernel's forward)."""
+    for d in (64, 128, 256):
         q, k = _meta((1, 16, 4, d)), _meta((1, 16, 2, d))
         assert flash_attention.route(q, k, k) == "flash_prefill"
         assert flash_attention.saves_lse(q, k, k)
-    q, k = _meta((1, 16, 4, 256)), _meta((1, 16, 2, 256))
-    assert flash_attention.route(q, k, k) == "flash_prefill"
+    q, k = _meta((1, 16, 4, 32)), _meta((1, 16, 2, 32))
+    assert flash_attention.route(q, k, k) != "flash_prefill"
     assert not flash_attention.saves_lse(q, k, k)
     q, k = _meta((1, 16, 4, 128), torch.float32), _meta((1, 16, 2, 128), torch.float32)
     assert not flash_attention.saves_lse(q, k, k)
@@ -283,7 +286,7 @@ def test_attention_hands_its_lse_to_the_backward(monkeypatch, remat):
         assert torch.equal(leaf.grad, w.to(torch.bfloat16))
 
 
-@pytest.mark.parametrize("case", CASES[1:5], ids=_ids)
+@pytest.mark.parametrize("case", CASES[1:5] + D256, ids=_ids)
 def test_wrapper_takes_the_routed_plain_version_on_cpu(case):
     """flash_backward.flash_backward on CPU tensors takes the routed
     kernel's plain version: ref.flash_backward_tc with the lse (where

@@ -4,13 +4,17 @@ kernel, beside other versions of the kernel.
 
     python3 tools/backward_probe.py [--seed 0] [--baseline-cu FILE ...] [--reps 10]
 
-Needs one CUDA card. Settings: `chip_smoke.BWD_SETTINGS`' internlm2-1.8b
-(B 4, S 4096, Hq 16, Hkv 8, D 128) and kimi-k2 (B 1, S 4096, Hq 64, Hkv 8,
-D 128) layers in bf16, made from --seed, each forward's lse from
+Needs one CUDA card. Settings: `chip_smoke.BWD_SETTINGS`' layers in bf16 —
+internlm2-1.8b (B 4, S 4096, Hq 16, Hkv 8, D 128), kimi-k2 (B 1, S 4096,
+Hq 64, Hkv 8, D 128), gemma2-2b's global and local
+layers (B 1, S 8192, Hq 8, Hkv 4, D 256, softcap 50, window 4096 on the
+local one) and gemma3-12b's (B 1, S 8192, Hq 16, Hkv 8, D 256, window 1024
+on the local one) — made from --seed, each forward's lse from
 `flash_prefill`. Times are medians of --reps calls by CUDA events
 (`chip_smoke.time_ms`), beside the bound and the kernel's own floor
-(`chip_smoke.bwd_bound`); the split of one call among the lse/delta pass,
-the dq kernel and the dK/dV kernel comes from a `torch.profiler` trace.
+(`chip_smoke.bwd_bound`; the own floor is 14*D FLOPs a pair); the split
+of one call among the lse/delta pass, the dq kernel and the dK/dV kernel
+comes from a `torch.profiler` trace.
 
 Each --baseline-cu FILE is another version of `flash_backward_tc.cu` with
 the same entry `flash_backward_tc_launch` (put it under `build/`, which is
@@ -39,7 +43,6 @@ import chip_smoke as cs  # noqa: E402
 import nvcc_lib  # noqa: E402
 from repro_torch.kernels import _build, flash_backward, ref  # noqa: E402
 
-SETTINGS = ("internlm2_1_8b", "kimi_k2_1t_a32b")
 PARTS = ("stats", "dq", "dkdv")
 
 
@@ -80,6 +83,8 @@ def split(fn) -> dict:
         for part in PARTS:
             if f"flash_backward_tc_{part}" in e.key:
                 out[part] += e.self_device_time_total / 1e3
+    if not any(out.values()):
+        cs.log("the profiler saw no backward kernel: split not measured")
     return out
 
 
@@ -115,18 +120,23 @@ def main() -> int:
     bases = {}
     for i, path in enumerate(args.baseline_cu):
         run = baseline_fn(path, f"backward-baseline-{i}")
+        for log in sorted(_build.BUILD_ROOT.glob(f"probe-backward-baseline-{i}-*/build.log")):
+            for ln in cs.ptxas_lines(log.read_text()):
+                if "dkdv" in ln or "_dq" in ln:
+                    cs.log(f"{path.name}: ptxas {ln}")
         cs.log(f"{path.name}: {check_ragged(run, path.name, gen):.3f} of BWD_TC_TOL at worst "
                f"on {len(cs.BWD_TC_CASES)} ragged cases")
         bases[path.name] = run
-    for name in SETTINGS:
+    for name in cs.BWD_SETTINGS:
         b, s, hq, hkv, d, window, cap, _ = cs.BWD_SETTINGS[name]
         q, k, v, o, do, lse = cs.bwd_inputs(gen, b, s, hq, hkv, d, torch.bfloat16, window, cap,
                                             lse=True)
+        kw = dict(window=window, softcap=cap)
         bound = cs.bwd_bound(b, s, hq, hkv, d, window, 2 * (3 * q.numel() + 2 * k.numel()))
         own = 1.4 * bound["flops"] / cs.BF16_TC_FLOPS * 1e3
 
         def cur():
-            return current(q, k, v, o, do, lse)
+            return current(q, k, v, o, do, lse, **kw)
         want = cur()
         parts = split(cur)
         cs.log(f"{name}: flash_backward_tc {cs.time_ms(cur, args.reps):.3f} ms (bound "
@@ -134,7 +144,7 @@ def main() -> int:
                + ", ".join(f"{k} {v:.3f}" for k, v in parts.items()))
         for base_name, run in bases.items():
             def base():
-                return run(q, k, v, o, do, lse)
+                return run(q, k, v, o, do, lse, **kw)
             same = all(torch.equal(x, y) for x, y in zip(base(), want))
             t = [cs.time_ms(f, args.reps) for f in (base, cur, cur, base)]
             cs.log(f"{name}: {base_name} {t[0]:.3f} / {t[3]:.3f} ms, current {t[1]:.3f} / "

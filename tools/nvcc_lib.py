@@ -4,8 +4,9 @@
 
 Compiles with the port's `nvcc` flags for `sm_90a` (`repro_torch.kernels
 ._build`) and the port's `csrc/` on the include path, into
-`build/probe-<tag>-<hash>/`, and loads the result with ctypes. The caller
-sets each function's `argtypes` and `restype`.
+`build/probe-<tag>-<hash>/` (nvcc's output, ptxas's register and spill
+lines among it, beside it as `build.log`), and loads the result with
+ctypes. The caller sets each function's `argtypes` and `restype`.
 """
 from __future__ import annotations
 
@@ -29,4 +30,5 @@ def load(src: Path, tag: str) -> ctypes.CDLL:
         done = subprocess.run(cmd, capture_output=True, text=True)
         if done.returncode:
             raise RuntimeError(f"nvcc failed on {src}:\n{done.stdout}{done.stderr}")
+        (out_dir / "build.log").write_text(done.stdout + done.stderr)
     return ctypes.CDLL(str(lib))
