@@ -269,6 +269,33 @@ a non-zero exit):
         steps (52 flash_backward_tc, 104 flash_prefill and no
         flash_backward a step), one profiled. At 4096 positions its window
         of 4096 reaches key 0, so every layer runs causal-global.
+  7. the recsys family (DeepFM, BST, BERT4Rec, two-tower retrieval), its
+     card work beside phase 2's CPU worker (after the tuning phase, phase
+     3's operands resident), its training half after phase 6; every cut in
+     RECSYS_REDUCED:
+     a. the tile kernel forward and the CUDA-core backward, non-causal,
+        against their plain versions on ragged f32 cases (D 4 zero-padded
+        to 8 with the scale 1/sqrt(4), S 1 on the tile kernel, a batch of
+        65537 in two launches a call, windows, G 1-2, D 8-32), each call's
+        launches counted, the autograd Function's gradient == the direct
+        calls; flash_backward_tc non-causal (bf16, D 64 and 256, each lse
+        from flash_prefill); then at BST's attention (B 65536, S 21, H 8,
+        D 4) and BERT4Rec's (B 1024, S 200, H 2, D 32) timed beside their
+        bounds, plain versions and SDPA's f32 forward and backward;
+     b. each arch's SMOKE config, card == CPU: loss, every gradient leaf,
+        every serve output (top-k ids in jax.lax.top_k's tie order); DeepFM
+        failed at step 3 and resumed == an uninterrupted run, bit for bit;
+     c. full width (the configs' tables, random weights from --seed):
+        serve_p99 (B 512) and retrieval_cand (10^6 candidates) through the
+        registry's serve functions, two-tower's beside retrieval_cand_tiered
+        (Tier-1 a random half); `top_k` at 10^6 scores beside torch.topk and
+        a stable sort; then train_batch steps through make_train_step (ms a
+        step, examples/s, peak GiB), each arch's launches counted;
+     d. `build_tiered_index` at medium with optpes on the card; ψ of every
+        query by clause_match == classify_queries; Theorem 3.1 on 256
+        eligible queries (the Tier-1 top-100 == the whole index's); after
+        phase 2's worker, the CPU's optpes Tier-1 ids and top-100s == the
+        card's.
 The last lines are the kernels' JSON record, the card line, and the
 contract line {"ok": true, "device": {...}}.
 
@@ -4510,12 +4537,12 @@ def bwd_pairs(s: int, window: int | None) -> int:
     return attention_pairs(s, 0, s, True, window)
 
 
-def bwd_bound(b, s, hq, hkv, d, window, nbytes_in: int) -> dict:
+def bwd_bound(b, s, hq, hkv, d, window, nbytes_in: int, causal: bool = True) -> dict:
     """The backward's least time: 10*D FLOPs per visible pair and query
     head over the bf16 tensor-core peak, or its bytes (q, k, v, o, dO read
     once, f32 dQ, dK, dV written once) over HBM; and the same FLOPs over the
     CUDA cores' f32 peak, the floor of flash_backward.cu's design."""
-    flops = 10.0 * d * bwd_pairs(s, window) * hq * b
+    flops = 10.0 * d * attention_pairs(s, 0, s, causal, window) * hq * b
     nbytes = nbytes_in + 4 * (b * s * hq * d + 2 * b * s * hkv * d)
     t_f, t_b = flops / BF16_TC_FLOPS, nbytes / HBM_BYTES_PER_S
     return dict(bound_ms=max(t_f, t_b) * 1e3,
@@ -5157,6 +5184,730 @@ def phase6(seed: int, host, dev=torch.device("cuda")) -> list[dict]:
     return [tc, cc]
 
 
+# -- phase 7: the recsys family --------------------------------------------------
+
+RECSYS_ARCHS = ("deepfm", "bst", "bert4rec", "two-tower-retrieval")
+# 7a: ragged non-causal cases of the tile kernel and the CUDA-core backward,
+# f32 (b, s, hq, hkv, d, window): D 4 (zero-padded to 8) at odd S, G 1 and
+# 2 and with a window; S 1 at D 4 (the tile kernel, not flash_decode;
+# forward only: with one key dq and dk are 0 but for rounding) and S 2; a
+# batch past the grid's z limit (two launches each way); D 8, 16 and 32
+RECSYS_CASES = [
+    (3, 21, 8, 8, 4, None),
+    (2, 1, 4, 2, 4, None),
+    (4, 2, 4, 2, 4, None),
+    (5, 37, 4, 2, 4, 9),
+    (65537, 3, 2, 2, 4, None),
+    (1, 200, 2, 2, 32, None),
+    (2, 130, 8, 4, 16, None),
+    (1, 64, 2, 1, 8, 17),
+]
+# 7a: flash_backward_tc non-causal, bf16, each lse from flash_prefill
+# (b, s, hq, hkv, d)
+RECSYS_TC_CASES = [(2, 1000, 8, 2, 64), (1, 1024, 8, 4, 256)]
+# 7a's timed rows: the recsys blocks' attention at the configs' shapes
+# (b, s, heads, d): BST's train_batch (seq_len 20 + the target, 32 / 8),
+# BERT4Rec's at 7c's train batch (64 / 2)
+RECSYS_ATTN = {"bst": (65536, 21, 8, 4), "bert4rec": (1024, 200, 2, 32)}
+RECSYS_SERVE_TOL = 1e-4         # 7b: serve outputs, card against CPU (rtol and atol)
+RECSYS_SERVE_B = 512            # 7c: serve_p99
+RECSYS_CAND_CHUNK = 1 << 17     # 7c: two-tower's index built this many items at a time
+RECSYS_TRAIN_B = {"deepfm": 65536, "bst": 65536, "bert4rec": 1024,
+                  "two-tower-retrieval": 32768}
+RECSYS_TRAIN_STEPS = 4          # 7c: 1 warm-up + 3 timed
+RECSYS_RESTART = (4096, 5, 3)   # 7b: DeepFM SMOKE at this batch, steps, the failing step
+TIERED_SCALE = "medium"         # 7d: the preset of build_tiered_index (phase 2's)
+TIERED_QUERIES = 256            # 7d: eligible queries held to Theorem 3.1
+TOPK_N = 10 ** 6                # 7c: top_k timed at this many scores
+RECSYS_REDUCED = {
+    "weights": "random from --seed (the init functions' distributions), tables at "
+               "the configs' full sizes",
+    "bert4rec_train_batch": "1024 (train_batch has 65536: its [B, 200, 8193] f32 "
+                            "sampled-softmax logits would be 430 GB a copy; at 1024 "
+                            "they are 6.7 GB, a few copies live in the step)",
+    "two_tower_train_batch": "32768 (train_batch has 65536: the [B, B] f32 in-batch "
+                             "scores are 17.2 GB a copy there, and the step keeps "
+                             "about four beside 8.2 GB of tables and Adam state)",
+    "train_steps": f"{RECSYS_TRAIN_STEPS}: 1 warm-up + {RECSYS_TRAIN_STEPS - 1} timed, "
+                   "the same batch every step",
+    "serve_bulk": "not run (serve_p99 at B 512 and retrieval_cand at 10^6 "
+                  "candidates are)",
+    "tiered": "7d builds the tiered index at the medium preset (20000 items); "
+              "retrieval_cand_tiered is timed at the cell's shape (Tier-1 = "
+              "N_CANDIDATES / 2, a random half of the 10^6 candidates)",
+    "restart": f"7b: DeepFM's SMOKE config at batch {RECSYS_RESTART[0]} (the "
+               "embedding backward's sorting path), not at full width",
+}
+
+
+def recsys_init(name: str):
+    from repro_torch.models import recsys as M
+    return {"deepfm": M.deepfm_init, "bst": M.bst_init, "bert4rec": M.bert4rec_init,
+            "two-tower-retrieval": M.twotower_init}[name]
+
+
+def sdpa_plain(q, k, v, do, reps: int) -> dict:
+    """One scaled_dot_product_attention call, non-causal, the backend left
+    to PyTorch, on [B, H, S, D] copies with K and V repeated to Hq (made
+    here, not timed): its forward's ms, its backward's (forward + backward
+    minus forward), and its output and (dq, dk, dv) in the port's layout,
+    dK and dV summed back over each group in f32. The yardstick, never on
+    the port's path."""
+    g = q.shape[2] // k.shape[2]
+    qt = q.transpose(1, 2).contiguous().requires_grad_()
+    kt, vt = (x.repeat_interleave(g, dim=2).transpose(1, 2).contiguous().requires_grad_()
+              for x in (k, v))
+    dot = do.transpose(1, 2).contiguous()
+
+    def fwd():
+        return torch.nn.functional.scaled_dot_product_attention(qt, kt, vt)
+
+    def fwd_bwd():
+        return torch.autograd.grad(fwd(), (qt, kt, vt), dot)
+    with torch.no_grad():
+        out = fwd().transpose(1, 2)
+    grads = fwd_bwd()
+    f_ms, fb_ms = time_ms(fwd, reps), time_ms(fwd_bwd, reps)
+    b, s, hkv, d = k.shape
+    dk, dv = (x.transpose(1, 2).float().reshape(b, s, hkv, g, d).sum(3) for x in grads[1:])
+    return dict(fwd_ms=f_ms, bwd_ms=fb_ms - f_ms, out=out, grads=(grads[0].transpose(1, 2),
+                                                                  dk, dv))
+
+
+def launch_counts() -> dict:
+    """A copy of `_build.LAUNCHES`, to diff against with `launched`."""
+    from repro_torch.kernels import _build
+    return dict(_build.LAUNCHES)
+
+
+def launched(n0: dict) -> dict:
+    """The kernels launched since the snapshot `n0` (`launch_counts`)."""
+    return {k: v - n0.get(k, 0) for k, v in launch_counts().items() if v != n0.get(k, 0)}
+
+
+def phase7_kernels(dev) -> dict:
+    """7a: the tile kernel forward and the CUDA-core backward, non-causal,
+    against their plain versions (`ref.flash_attention` held per query row
+    to 2e-4 x its rms, `row_error`; `ref.flash_attention_bwd` at BWD_RTOL)
+    on RECSYS_CASES, each call's launches counted (a head dim below 8 pads
+    and launches the kernel; a batch past 65535 launches once a slice);
+    the autograd Function's non-causal gradient equal to the direct call;
+    flash_backward_tc non-causal on RECSYS_TC_CASES (BWD_TC_TOL against
+    ref.flash_backward_tc, BWD_BF16_TOL against the f32 plain version); then
+    each RECSYS_ATTN shape timed beside its bound, its plain version and
+    SDPA's f32 forward and backward. Returns the timed rows and the worst
+    errors."""
+    from repro_torch.kernels import _build, flash_backward, flash_prefill, ops, ref
+    gen = torch.Generator(dev).manual_seed(71)
+
+    def draw(*shape, dtype=torch.float32):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+    worst = dict(fwd=0.0, bwd=0.0, abs=0.0)
+    for b, s, hq, hkv, d, window in RECSYS_CASES:
+        what = f"b{b} s{s} hq{hq} hkv{hkv} d{d} window={window} non-causal"
+        q, k, v, do = draw(b, s, hq, d), draw(b, s, hkv, d), draw(b, s, hkv, d), \
+            draw(b, s, hq, d)
+        slices = -(-b // _build.MAX_GRID_Z)
+        n0 = launch_counts()
+        o = ops.flash_attention(q, k, v, causal=False, window=window)
+        torch.cuda.synchronize()
+        check(launched(n0) == {"flash_attention": slices},
+              f"7a {what}: launches {launched(n0)}, want {slices} of flash_attention")
+        r, e = row_error(o, ref.flash_attention(q, k, v, causal=False, window=window),
+                         False, f"flash_attention {what}")
+        worst.update(fwd=max(worst["fwd"], r), abs=max(worst["abs"], e))
+        if s == 1:
+            continue
+        n0 = launch_counts()
+        got = flash_backward.flash_backward(q, k, v, o, do, causal=False, window=window)
+        torch.cuda.synchronize()
+        check(launched(n0) == {"flash_backward": slices},
+              f"7a {what}: launches {launched(n0)}, want {slices} of flash_backward")
+        r, e = bwd_agree(got, ref.flash_attention_bwd(q, k, v, o, do, causal=False,
+                                                      window=window), what)
+        worst.update(bwd=max(worst["bwd"], r), abs=max(worst["abs"], e))
+        if (b, s, d) == (3, 21, 4):   # the recsys blocks' call: through autograd
+            qg, kg, vg = (x.clone().requires_grad_() for x in (q, k, v))
+            n0 = launch_counts()
+            og = ops.flash_attention(qg, kg, vg, causal=False, window=window)
+            og.backward(do)
+            torch.cuda.synchronize()
+            check(launched(n0) == {"flash_attention": 1, "flash_backward": 1},
+                  f"7a {what}: autograd launched {launched(n0)}")
+            check(torch.equal(og.detach(), o) and all(
+                torch.equal(x.grad, y) for x, y in zip((qg, kg, vg), got)),
+                f"7a {what}: the autograd Function != the direct calls")
+    log(f"[phase 7a] non-causal flash_attention / flash_backward on {len(RECSYS_CASES)} "
+        f"ragged cases (D 4 padded to 8, S 1 on the tile kernel, B 65537 in two slices): "
+        f"worst {worst['fwd']:.3f} (forward, 2e-4 x row rms) / {worst['bwd']:.3f} "
+        f"(backward, rtol {BWD_RTOL}, atol {BWD_RTOL} x max) of the limit, max abs err "
+        f"{worst['abs']:.3g}; autograd's non-causal gradient == the direct calls")
+
+    tc = []
+    for b, s, hq, hkv, d in RECSYS_TC_CASES:
+        what = f"b{b} s{s} hq{hq} hkv{hkv} d{d} bf16 non-causal"
+        q, k, v, do = (draw(b, s, h, d, dtype=torch.bfloat16) for h in (hq, hkv, hkv, hq))
+        lse = torch.empty((b, hq, s), dtype=torch.float32, device=dev)
+        o = flash_prefill.flash_prefill(q, k, v, causal=False, lse_out=lse)
+        check(torch.equal(o, flash_prefill.flash_prefill(q, k, v, causal=False)),
+              f"7a {what}: flash_prefill's output changed with lse_out")
+        want_lse = torch.empty_like(lse)
+        ref.flash_prefill(q, k, v, causal=False, lse_out=want_lse)
+        check(float((lse - want_lse).abs().max()) <= LSE_ATOL, f"7a {what}: lse")
+        check(flash_backward.route(q, k, v, lse) == "flash_backward_tc", f"7a {what}: route")
+
+        def call():
+            return flash_backward.flash_backward(q, k, v, o, do, causal=False, lse=lse)
+        n0 = launch_counts()
+        got = call()
+        torch.cuda.synchronize()
+        check(launched(n0) == {"flash_backward_tc": 1},
+              f"7a {what}: launches {launched(n0)}")
+        r_own, e = bwd_agree(got, ref.flash_backward_tc(q, k, v, o, do, lse, causal=False),
+                             f"{what} (own plain)", BWD_TC_TOL, "flash_backward_tc")
+        f32 = ref.flash_attention_bwd(q, k, v, o, do, causal=False)
+        r_f32, _ = bwd_agree(got, f32, f"{what} (f32 plain)", BWD_BF16_TOL,
+                             "flash_backward_tc")
+        lib = sdpa_plain(q, k, v, do, 5)
+        row = dict(shape=[b, s, hq, hkv, d], dtype="bf16", causal=False,
+                   ms=time_ms(call, 5),
+                   plain_ms=time_ms(lambda: ref.flash_backward_tc(
+                       q, k, v, o, do, lse, causal=False), 1),
+                   **bwd_bound(b, s, hq, hkv, d, None, 2 * (3 * q.numel() + 2 * k.numel()),
+                               causal=False),
+                   library_ms=lib["bwd_ms"], library_fwd_ms=lib["fwd_ms"],
+                   library_call="scaled_dot_product_attention, non-causal, bf16, K/V "
+                                "repeated to Hq: forward + backward minus forward",
+                   max_abs_err=e, err_over_limit_own=r_own, err_over_limit_f32=r_f32,
+                   err_over_max=err_over_max(got, f32),
+                   library_err_over_max=err_over_max(lib["grads"], f32))
+        tc.append(row)
+        log(f"[phase 7a] flash_backward_tc {what}: {row['ms']:.3f} ms (bound "
+            f"{row['bound_ms']:.3f} ms by {row['bound_by']}, plain {row['plain_ms']:.1f} ms, "
+            f"SDPA backward {row['library_ms']:.3f} ms); {r_own:.3f} / {r_f32:.3f} of the "
+            f"limits, error {row['err_over_max']:.3g} of max (SDPA's "
+            f"{row['library_err_over_max']:.3g})")
+        del q, k, v, do, o, lse, got, f32, lib
+
+    rows = {}
+    for arch, (b, s, h, d) in RECSYS_ATTN.items():
+        what = f"{arch} b{b} s{s} h{h} d{d} f32 non-causal"
+        q, k, v, do = (draw(b, s, h, d) for _ in range(4))
+
+        def fwd():
+            return ops.flash_attention(q, k, v, causal=False)
+        o = fwd()
+        r_f, e_f = row_error(o, ref.flash_attention(q, k, v, causal=False), False,
+                             f"flash_attention {what}")
+
+        def bwd():
+            return flash_backward.flash_backward(q, k, v, o, do, causal=False)
+        want = ref.flash_attention_bwd(q, k, v, o, do, causal=False)
+        r_b, e_b = bwd_agree(bwd(), want, what)
+        lib = sdpa_plain(q, k, v, do, 5)
+        lib_f_err = float((lib["out"] - o).abs().max())
+        check(lib_f_err <= 2e-2, f"7a {what}: SDPA's output differs by {lib_f_err:.3g}")
+        f_bound, f_by = fa_bound(q, k, False, None, 0, s)
+        fwd_row = dict(shape=[b, s, h, h, d], dtype="f32", causal=False,
+                       ms=time_ms(fwd, 5),
+                       plain_ms=time_ms(lambda: ref.flash_attention(q, k, v, causal=False), 2),
+                       bound_ms=f_bound, bound_by=f_by, library_ms=lib["fwd_ms"],
+                       library_call="scaled_dot_product_attention, non-causal, f32, the "
+                                    "backend PyTorch picks",
+                       library_err=lib_f_err, max_abs_err=e_f, err_over_limit=r_f,
+                       padded_to=8 if d < 8 else None)
+        bwd_row = dict(shape=[b, s, h, h, d], dtype="f32", causal=False,
+                       ms=time_ms(bwd, 5),
+                       plain_ms=time_ms(lambda: ref.flash_attention_bwd(
+                           q, k, v, o, do, causal=False), 2),
+                       **bwd_bound(b, s, h, h, d, None, 4 * 5 * q.numel(), causal=False),
+                       library_ms=lib["bwd_ms"],
+                       library_call="scaled_dot_product_attention, non-causal, f32, the "
+                                    "backend PyTorch picks: forward + backward minus forward",
+                       library_err_over_max=err_over_max(lib["grads"], want),
+                       max_abs_err=e_b, err_over_limit=r_b, err_over_max=err_over_max(
+                           bwd(), want), padded_to=8 if d < 8 else None)
+        rows[arch] = dict(fwd=fwd_row, bwd=bwd_row)
+        for kn, r in (("flash_attention", fwd_row), ("flash_backward", bwd_row)):
+            log(f"[phase 7a] {kn} {what}: {r['ms']:.3f} ms (bound {r['bound_ms']:.3f} ms "
+                f"by {r['bound_by']}, plain {r['plain_ms']:.1f} ms, SDPA "
+                f"{r['library_ms']:.3f} ms), max abs err {r['max_abs_err']:.3g}")
+        del q, k, v, do, o, want, lib
+        gc.collect()
+        torch.cuda.empty_cache()
+    return dict(rows=rows, tc=tc, worst=worst)
+
+
+def recsys_serve_batches(name: str, cfg, rng, n_serve: int, n_cand: int, dev) -> tuple:
+    """(serve_p99 batch, retrieval_cand batch) of an arch as tensors on
+    `dev`, drawn from `rng` (numpy): ids over the config's vocabularies,
+    BERT4Rec's last position the mask token; two-tower's candidates are a
+    [n_cand, embed_dim] index passed separately (`twotower_index`)."""
+    i32 = np.int32
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    if name == "deepfm":
+        v, f = cfg.vocab_per_field, cfg.n_fields
+        return ({"feat_ids": t(rng.integers(0, v, (n_serve, f)).astype(i32))},
+                {"user_feat_ids": t(rng.integers(0, v, (1, f - 1)).astype(i32)),
+                 "cand_ids": t(rng.permutation(v)[:n_cand].astype(i32))})
+    if name == "bst":
+        n, s = cfg.n_items, cfg.seq_len
+        hist = rng.integers(-1, n, (n_serve, s)).astype(i32)
+        return ({"hist": t(hist), "target": t(rng.integers(0, n, n_serve).astype(i32))},
+                {"hist": t(hist[:1]), "cand_ids": t(rng.permutation(n)[:n_cand].astype(i32))})
+    if name == "bert4rec":
+        seq = rng.integers(0, cfg.n_items, (n_serve, cfg.seq_len)).astype(i32)
+        seq[:, -1] = cfg.n_items
+        return ({"seq": t(seq)}, {"seq": t(seq[:1]), "cand_ids": t(
+            rng.permutation(cfg.n_items)[:n_cand].astype(i32))})
+    v, fu, fi = cfg.vocab_per_field, cfg.n_user_fields, cfg.n_item_fields
+    return ({"user_ids": t(rng.integers(0, v, (n_serve, fu)).astype(i32)),
+             "item_ids": t(rng.integers(0, v, (n_serve, fi)).astype(i32))},
+            {"user_ids": t(rng.integers(0, v, (1, fu)).astype(i32))})
+
+
+def recsys_train_batch(name: str, cfg, rng, b: int, dev) -> dict:
+    """A train_batch of `b` rows drawn from `rng` on `dev`: labels 0/1 for
+    the CTR models; BERT4Rec's 15% of positions masked (label the item, -100
+    elsewhere) and its shared negatives; two-tower's uniform logQ."""
+    i32 = np.int32
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    if name == "deepfm":
+        return {"feat_ids": t(rng.integers(0, cfg.vocab_per_field, (b, cfg.n_fields))
+                              .astype(i32)),
+                "labels": t(rng.integers(0, 2, b).astype(np.float32))}
+    if name == "bst":
+        n = cfg.n_items
+        return {"hist": t(rng.integers(-1, n, (b, cfg.seq_len)).astype(i32)),
+                "target": t(rng.integers(0, n, b).astype(i32)),
+                "labels": t(rng.integers(0, 2, b).astype(np.float32))}
+    if name == "bert4rec":
+        seq = rng.integers(0, cfg.n_items, (b, cfg.seq_len))
+        masked = rng.random((b, cfg.seq_len)) < 0.15
+        labels = np.where(masked, seq, -100)
+        seq = np.where(masked, cfg.n_items, seq)
+        return {"seq": t(seq.astype(i32)), "labels": t(labels.astype(i32)),
+                "negatives": t(rng.integers(0, cfg.n_items, cfg.n_negatives).astype(i32))}
+    v = cfg.vocab_per_field
+    return {"user_ids": t(rng.integers(0, v, (b, cfg.n_user_fields)).astype(i32)),
+            "item_ids": t(rng.integers(0, v, (b, cfg.n_item_fields)).astype(i32)),
+            "item_logq": t(np.full(b, -math.log(v), np.float32))}
+
+
+def twotower_index(params, cfg, item_ids: torch.Tensor) -> torch.Tensor:
+    """The serving index: `twotower_item` over the catalog's items,
+    RECSYS_CAND_CHUNK at a time."""
+    from repro_torch.models import recsys as M
+    return torch.cat([M.twotower_item(params, ids, cfg)
+                      for ids in item_ids.split(RECSYS_CAND_CHUNK)])
+
+
+def recsys_smoke_run(name: str, seed: int, device) -> dict:
+    """An arch's SMOKE config on `device`, parameters drawn on the CPU from
+    `seed` (both devices get the same numbers): loss, metrics, every
+    gradient leaf (on the CPU), and each serve function's outputs (a serve
+    batch of 12, retrieval_cand over the whole vocabulary, two-tower's also
+    over a tiered index)."""
+    from repro_torch.configs import registry as R
+    from repro_torch.train import tree
+    arch = R.get_arch(name)
+    cfg, batch, _ = arch.smoke()
+    params = tree.map(lambda a: a.to(device),
+                      recsys_init(name)(torch.Generator("cpu").manual_seed(seed), cfg))
+    leaves = tree.leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    loss, met = arch.loss_fn(cfg)(params, {k: v.to(device) for k, v in batch.items()})
+    grads = torch.autograd.grad(loss, leaves)
+    out = dict(loss=float(loss.detach()),
+               metrics={k: float(v.detach()) for k, v in met.items()},
+               grads={p: g.detach().cpu() for (p, _), g in
+                      zip(tree.leaves_with_paths(params), grads)}, serve={})
+    rng = np.random.default_rng(seed + 17)
+    n_cand = getattr(cfg, "n_items", None) or cfg.vocab_per_field   # every candidate
+    serve, cand = recsys_serve_batches(name, cfg, rng, 12, n_cand, device)
+    with torch.no_grad():
+        for p in leaves:
+            p.requires_grad_(False)
+        out["serve"]["serve_p99"] = arch.serve_fn(cfg, "serve_p99")(params, serve)
+        if name == "two-tower-retrieval":
+            ids = torch.arange(cfg.vocab_per_field, device=device, dtype=torch.int32)
+            items = ids[:, None].expand(-1, cfg.n_item_fields).contiguous()
+            cand["cand_emb"] = twotower_index(params, cfg, items)
+            half = torch.arange(0, cfg.vocab_per_field, 2, device=device)
+            out["serve"]["retrieval_cand_tiered"] = arch.serve_fn(
+                cfg, "retrieval_cand_tiered")(params, {
+                    "user_ids": cand["user_ids"], "tier1_emb": cand["cand_emb"][half],
+                    "tier1_ids": half})
+        out["serve"]["retrieval_cand"] = arch.serve_fn(cfg, "retrieval_cand")(params, cand)
+    out["serve"] = tree.map(lambda x: x.cpu(), out["serve"])
+    return out
+
+
+def recsys_restart(seed: int, dev) -> dict:
+    """7b: DeepFM's SMOKE config through `TrainingDriver` on a batch of
+    RECSYS_RESTART[0] rows from `seed`: a run that fails at step
+    RECSYS_RESTART[2] (its checkpoint there), the resumed run to
+    RECSYS_RESTART[1], and an uninterrupted run; losses and every state
+    leaf equal bit for bit."""
+    import shutil
+    from repro_torch.configs import deepfm
+    from repro_torch.models import recsys as M
+    from repro_torch.train import tree
+    from repro_torch.train.optimizer import OptimizerConfig
+    from repro_torch.train.trainer import DriverConfig, TrainingDriver, make_train_step
+    b, steps, fail = RECSYS_RESTART
+    cfg = deepfm.SMOKE
+    batch = recsys_train_batch("deepfm", cfg, np.random.default_rng(seed), b, dev)
+    init_state, train_step = make_train_step(
+        lambda p, x: M.deepfm_loss(p, x, cfg),
+        OptimizerConfig(name="adamw", lr=1e-3, warmup_steps=1, decay_steps=100))
+    root = Path(__file__).resolve().parent / "build" / "phase7_ckpt"
+    shutil.rmtree(root, ignore_errors=True)
+
+    def run(name, **kw):
+        d = DriverConfig(ckpt_dir=str(root / name), max_steps=steps, keep_last=1, **kw)
+        return TrainingDriver(init_state, train_step, d).run(
+            lambda: M.deepfm_init(torch.Generator(dev).manual_seed(seed), cfg),
+            itertools.repeat(batch))
+    try:
+        run("resumed", ckpt_every=fail, fail_at_step=fail)
+        raise AssertionError("the injected failure did not fire")
+    except RuntimeError as e:
+        check("injected failure" in str(e), f"7b: {e}")
+    resumed, hist_r = run("resumed", ckpt_every=fail)
+    whole, hist_w = run("whole", ckpt_every=steps)
+    check([h["loss"] for h in hist_r] == [h["loss"] for h in hist_w[fail:]],
+          f"7b: resumed losses {hist_r} != uninterrupted {hist_w[fail:]}")
+    diff = [p for (p, a), c in zip(tree.leaves_with_paths(resumed), tree.leaves(whole))
+            if not torch.equal(a, c)]
+    check(not diff, f"7b: the resumed DeepFM state differs at {diff[:5]}")
+    shutil.rmtree(root, ignore_errors=True)
+    return dict(losses=[h["loss"] for h in hist_w], leaves=len(tree.leaves(whole)))
+
+
+def phase7_card_vs_cpu(seed: int, dev) -> dict:
+    """7b: each arch's SMOKE config on the card against the CPU (the plain
+    versions): loss and metrics within TRAIN_LOSS_RTOL, every gradient leaf
+    within TRAIN_GRAD_TOL x its max + 1e-6, every serve output within
+    RECSYS_SERVE_TOL and every top-k's ids equal (jax.lax.top_k's tie
+    order); then the DeepFM restart."""
+    out = {}
+    for name in RECSYS_ARCHS:
+        n0 = launch_counts()
+        card = recsys_smoke_run(name, seed, dev)
+        card_launch = launched(n0)
+        cpu = recsys_smoke_run(name, seed, torch.device("cpu"))
+        for key in ("loss", *cpu["metrics"]):
+            g = card["loss"] if key == "loss" else card["metrics"][key]
+            c = cpu["loss"] if key == "loss" else cpu["metrics"][key]
+            check(abs(g - c) <= TRAIN_LOSS_RTOL * max(1.0, abs(c)),
+                  f"7b {name} {key}: card {g} != CPU {c}")
+        check(card["grads"].keys() == cpu["grads"].keys(), f"7b {name}: gradient leaves")
+        worst, where = 0.0, ""
+        for path, gc_ in cpu["grads"].items():
+            r = float((card["grads"][path] - gc_).abs().max()) / (
+                TRAIN_GRAD_TOL * float(gc_.abs().max()) + 1e-6)
+            if r > worst:
+                worst, where = r, path
+        check(worst <= 1.0, f"7b {name}: gradient {where} at {worst:.3f} of the limit")
+        for cell, want in cpu["serve"].items():
+            got = card["serve"][cell]
+            vals = (got[0], want[0]) if isinstance(want, tuple) else (got, want)
+            torch.testing.assert_close(*vals, rtol=RECSYS_SERVE_TOL, atol=RECSYS_SERVE_TOL,
+                                       msg=lambda m: f"7b {name} {cell}: {m}")
+            if isinstance(want, tuple):
+                check(torch.equal(got[1], want[1]), f"7b {name} {cell}: top-k ids differ")
+        if name in ("bst", "bert4rec"):
+            check(card_launch.get("flash_attention", 0) > 0
+                  and card_launch.get("flash_backward", 0) > 0,
+                  f"7b {name}: the card's step did not launch the attention kernels: "
+                  f"{card_launch}")
+        out[name] = dict(loss=card["loss"], loss_cpu=cpu["loss"], grad_worst=worst,
+                         worst_leaf=where, leaves=len(cpu["grads"]), launches=card_launch)
+        log(f"[phase 7b] {name} SMOKE: loss card {card['loss']:.6f} / CPU "
+            f"{cpu['loss']:.6f}; {len(cpu['grads'])} gradient leaves within {worst:.3f} "
+            f"of the limit; serve outputs {sorted(cpu['serve'])} equal (ids) and within "
+            f"{RECSYS_SERVE_TOL}; launches {card_launch}")
+    out["restart"] = recsys_restart(seed, dev)
+    log(f"[phase 7b] DeepFM SMOKE at batch {RECSYS_RESTART[0]}: failed at step "
+        f"{RECSYS_RESTART[2]}, resumed to {RECSYS_RESTART[1]}: losses and all "
+        f"{out['restart']['leaves']} state leaves equal the uninterrupted run's bit for "
+        f"bit; losses {out['restart']['losses']}")
+    return out
+
+
+def topk_times(dev) -> dict:
+    """`common.top_k` (jax.lax.top_k's order) beside torch.topk and a stable
+    descending sort at TOPK_N scores, k 100: ms by CUDA events, ids equal
+    to the stable sort's."""
+    from repro_torch.models import common
+    x = torch.randn(TOPK_N, generator=torch.Generator(dev).manual_seed(5), device=dev)
+    v, i = common.top_k(x, 100)
+    s = torch.sort(x, descending=True, stable=True)
+    check(torch.equal(i, s.indices[:100]) and torch.equal(v, s.values[:100]),
+          "common.top_k != the stable sort's first 100")
+    return dict(n=TOPK_N, k=100, top_k_ms=time_ms(lambda: common.top_k(x, 100), 10),
+                torch_topk_ms=time_ms(lambda: torch.topk(x, 100), 10),
+                stable_sort_ms=time_ms(lambda: torch.sort(x, descending=True, stable=True),
+                                       10))
+
+
+def phase7_serve(seed: int, dev) -> dict:
+    """7c's serving half: each arch at full width (parameters drawn on the
+    card from `seed`), serve_p99 (B RECSYS_SERVE_B) and retrieval_cand (10^6
+    candidates) timed through the registry's serve functions, two-tower's
+    retrieval_cand beside retrieval_cand_tiered (Tier-1 = a random half);
+    each output finite and of its shape; `top_k` timed."""
+    from repro_torch.configs import registry as R
+    from repro_torch.kernels import _build
+    from repro_torch.train import tree
+    out = {"topk": topk_times(dev)}
+    log(f"[phase 7c] top_k over {TOPK_N} scores, k 100: common.top_k "
+        f"{out['topk']['top_k_ms']:.3f} ms, torch.topk {out['topk']['torch_topk_ms']:.3f} "
+        f"ms, stable sort {out['topk']['stable_sort_ms']:.3f} ms")
+    for name in RECSYS_ARCHS:
+        arch = R.get_arch(name)
+        cfg = arch.config_for("serve_p99")
+        rng = np.random.default_rng(seed + 23)
+        t = time.perf_counter()
+        _build.reset_launches()      # the arch's serving path starts here
+        with torch.no_grad():
+            params = recsys_init(name)(torch.Generator(dev).manual_seed(seed), cfg)
+            torch.cuda.synchronize()
+            init_s = time.perf_counter() - t
+            serve, cand = recsys_serve_batches(name, cfg, rng, RECSYS_SERVE_B, R.N_CANDIDATES,
+                                               dev)
+            rec = dict(init_s=init_s, param_gb=sum(
+                x.numel() * 4 for x in tree.leaves(params)) / 1e9)
+            fn = arch.serve_fn(cfg, "serve_p99")
+            got = fn(params, serve)
+            vals = got[0] if isinstance(got, tuple) else got
+            check(bool(torch.isfinite(vals).all()) and vals.shape[0] == RECSYS_SERVE_B,
+                  f"7c {name} serve_p99: shape {tuple(vals.shape)}, or not finite")
+            rec["serve_p99_ms"] = time_ms(lambda: fn(params, serve), 5)
+            if name == "two-tower-retrieval":
+                items = torch.from_numpy(rng.integers(
+                    0, cfg.vocab_per_field, (R.N_CANDIDATES, cfg.n_item_fields)).astype(
+                        np.int32)).to(dev)
+                t = time.perf_counter()
+                cand["cand_emb"] = twotower_index(params, cfg, items)
+                torch.cuda.synchronize()
+                rec["index_build_s"] = time.perf_counter() - t
+                del items
+                half = torch.from_numpy(np.sort(rng.permutation(R.N_CANDIDATES)[
+                    :R.N_CANDIDATES // 2])).to(dev)
+                tiered = {"user_ids": cand["user_ids"], "tier1_emb": cand["cand_emb"][half],
+                          "tier1_ids": half}
+                tfn = arch.serve_fn(cfg, "retrieval_cand_tiered")
+                v, i = tfn(params, tiered)
+                check(bool(torch.isin(i, half).all()) and bool(torch.isfinite(v).all()),
+                      "7c two-tower retrieval_cand_tiered: ids outside Tier 1")
+                rec["retrieval_cand_tiered_ms"] = time_ms(lambda: tfn(params, tiered), 5)
+                nb = {k: x.numel() * x.element_size() for k, x in
+                      (("full", cand["cand_emb"]), ("tiered", tiered["tier1_emb"]))}
+                rec.update(cand_bytes=nb["full"], tier1_bytes=nb["tiered"],
+                           bound_ms=nb["full"] / HBM_BYTES_PER_S * 1e3,
+                           tiered_bound_ms=nb["tiered"] / HBM_BYTES_PER_S * 1e3)
+                del tiered
+            cfn = arch.serve_fn(cfg, "retrieval_cand")
+            v, i = cfn(params, cand)
+            check(v.shape == (100,) and bool(torch.isfinite(v).all())
+                  and bool((v[:-1] >= v[1:]).all()), f"7c {name} retrieval_cand: top-100")
+            rec["retrieval_cand_ms"] = time_ms(lambda: cfn(params, cand), 3)
+        rec["launches"] = {k: v for k, v in _build.LAUNCHES.items() if v}
+        if name in ("bst", "bert4rec"):
+            check(set(rec["launches"]) == {"flash_attention"},
+                  f"7c {name}: serving launched {rec['launches']}")
+        out[name] = rec
+        tier = (f", retrieval_cand_tiered {rec['retrieval_cand_tiered_ms']:.3f} ms over "
+                f"{rec['tier1_bytes'] / 1e9:.2f} GB of Tier-1 rows (bound "
+                f"{rec['tiered_bound_ms']:.3f} ms) beside {rec['cand_bytes'] / 1e9:.2f} GB "
+                f"(bound {rec['bound_ms']:.3f} ms); index built in {rec['index_build_s']:.2f} s"
+                if "retrieval_cand_tiered_ms" in rec else "")
+        log(f"[phase 7c] {name} full width ({rec['param_gb']:.2f} GB of parameters, drawn "
+            f"in {rec['init_s']:.2f} s): serve_p99 (B {RECSYS_SERVE_B}) "
+            f"{rec['serve_p99_ms']:.3f} ms, retrieval_cand ({R.N_CANDIDATES}) "
+            f"{rec['retrieval_cand_ms']:.3f} ms{tier}; launches {rec['launches']}")
+        del params, serve, cand
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase7_train(seed: int, dev) -> dict:
+    """7c's training half: each arch at full width through the registry's
+    loss and `make_train_step` (AdamW, f32), RECSYS_TRAIN_B rows of a batch
+    drawn from `seed`, 1 warm-up and RECSYS_TRAIN_STEPS - 1 timed steps:
+    ms a step, examples a second, peak GiB, the loss finite, each arch's
+    launches counted."""
+    from repro_torch.configs import registry as R
+    from repro_torch.kernels import _build
+    from repro_torch.train.optimizer import OptimizerConfig
+    from repro_torch.train.trainer import make_train_step
+    out = {}
+    for name in RECSYS_ARCHS:
+        arch = R.get_arch(name)
+        cfg = arch.config_for("train_batch")
+        b = RECSYS_TRAIN_B[name]
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        init_state, train_step = make_train_step(
+            arch.loss_fn(cfg), OptimizerConfig(name=arch.optimizer, lr=1e-3, warmup_steps=1,
+                                               decay_steps=100))
+        state = init_state(recsys_init(name)(torch.Generator(dev).manual_seed(seed), cfg))
+        batch = recsys_train_batch(name, cfg, np.random.default_rng(seed + 29), b, dev)
+        _build.reset_launches()      # the arch's training path starts here
+        losses, times = [], []
+        for _ in range(RECSYS_TRAIN_STEPS):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            state, met = train_step(state, batch)
+            losses.append(float(met["loss"]))
+            times.append((time.perf_counter() - t) * 1e3)
+        launches = {k: v for k, v in _build.LAUNCHES.items() if v}
+        check(all(math.isfinite(x) for x in losses), f"7c {name}: losses {losses}")
+        if name in ("bst", "bert4rec"):
+            check(launches.get("flash_attention", 0) >= RECSYS_TRAIN_STEPS
+                  and launches.get("flash_backward", 0) >= RECSYS_TRAIN_STEPS
+                  and set(launches) == {"flash_attention", "flash_backward"},
+                  f"7c {name}: the steps' attention took other kernels: {launches}")
+        ms = statistics.median(times[1:])
+        out[name] = dict(batch=b, ms_per_step=ms, examples_per_s=b / ms * 1e3,
+                         peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+                         losses=losses, launches=launches)
+        log(f"[phase 7c] {name} train_batch at B {b}: {ms:.1f} ms a step "
+            f"({out[name]['examples_per_s']:.0f} examples/s), peak "
+            f"{out[name]['peak_gib']:.2f} GiB, losses {[round(x, 5) for x in losses]}; "
+            f"launches {launches}")
+        del state, batch
+    return out
+
+
+def phase7_tiered(seed: int, dev) -> dict:
+    """7d's card half: `build_tiered_index` at medium with optpes on the
+    card; ψ for every query by `clause_match` on the card == the tiering's
+    `classify_queries`; for up to TIERED_QUERIES eligible queries the Tier-1
+    top-k over matching items == the whole index's (Theorem 3.1). The
+    candidate embeddings and user vectors are multiples of 1/8 in [-1, 1)
+    (exact f32 dot products at D 256), so the CPU's scores are the same
+    numbers and its top-k the same ids."""
+    from repro_torch.core import bitset
+    from repro_torch.kernels import ops
+    from repro_torch.models.tiered_retrieval import build_tiered_index, tiered_retrieval_scores
+    t = time.perf_counter()
+    idx = build_tiered_index(seed=0, scale=TIERED_SCALE, solver="optpes", device=dev)
+    build_s = time.perf_counter() - t
+    data = idx.data
+    qbits = data.log.query_bits
+    n0 = launch_counts()
+    elig = ops.clause_match(bitset.to_tensor(qbits, dev),
+                            bitset.to_tensor(idx.tiering.clause_vocab_bits, dev)).cpu().numpy()
+    check(launched(n0).get("clause_match", 0) >= 1, "7d: clause_match did not launch")
+    check(np.array_equal(elig, idx.tiering.classify_queries(qbits)),
+          "7d: clause_match's ψ != classify_queries")
+    check(bool(idx.tiering.verify_correctness(data)), "7d: Theorem 3.1 violated")
+    rng = np.random.default_rng(seed + 31)
+    cand = rng.integers(-8, 8, (data.n_docs, 256)).astype(np.float32) / 8
+    qs = np.nonzero(elig)[0][:TIERED_QUERIES]
+    users = rng.integers(-8, 8, (len(qs), 256)).astype(np.float32) / 8
+    cand_t, t1 = torch.from_numpy(cand).to(dev), torch.from_numpy(idx.tier1_ids).to(dev)
+    got = []
+    for qi, u in zip(qs, users):
+        match = torch.from_numpy(bitset.np_unpack(data.query_doc_bits[qi], data.n_docs)).to(dev)
+        ut = torch.from_numpy(u).to(dev)
+        v1, i1 = tiered_retrieval_scores(ut, cand_t, t1, True, match, k=100)
+        v2, i2 = tiered_retrieval_scores(ut, cand_t, t1, torch.tensor(False, device=dev),
+                                         match, k=100)
+        check(torch.equal(v1, v2) and torch.equal(i1[torch.isfinite(v1)],
+                                                  i2[torch.isfinite(v2)]),
+              f"7d: query {qi}: the Tier-1 top-k != the whole index's (Theorem 3.1)")
+        got.append((v1.cpu(), i1.cpu()))
+    res = dict(build_s=build_s, n_docs=data.n_docs, n_queries=len(elig),
+               eligible=float(elig.mean()), tier1_frac=idx.tier1_frac, checked=len(qs),
+               tier1_ids=idx.tier1_ids, clauses=idx.tiering.clauses, cand=cand, users=users,
+               queries=qs, topk=got)
+    log(f"[phase 7d] build_tiered_index({TIERED_SCALE}, optpes) on the card in "
+        f"{build_s:.1f} s: "
+        f"{data.n_docs} items, Tier-1 {idx.tier1_frac:.4f}; ψ by clause_match on "
+        f"{len(elig)} queries == classify_queries ({elig.mean():.4f} eligible); Theorem "
+        f"3.1 on {len(qs)} eligible queries: Tier-1 top-100 == the whole index's")
+    return res
+
+
+def phase7_tiered_cpu(p7d: dict, data, cpu_selected) -> dict:
+    """7d's CPU half, after phase 2's CPU worker: the Tier-1 ids of the
+    CPU's optpes selection at medium (phase 2's, the same mined data) ==
+    the card's `build_tiered_index`; each checked query's Tier-1 top-k on
+    the CPU == the card's (values and ids)."""
+    from repro_torch.core import bitset
+    from repro_torch.core.tiering import ClauseTiering
+    from repro_torch.models.tiered_retrieval import tiered_retrieval_scores
+    tiering = ClauseTiering.from_selection(data, cpu_selected)
+    t1 = np.nonzero(tiering.tier1_docs)[0]
+    check(tiering.clauses == p7d["clauses"] and np.array_equal(t1, p7d["tier1_ids"]),
+          "7d: the card's Tier-1 ids != the CPU's")
+    cand, t1_t = torch.from_numpy(p7d["cand"]), torch.from_numpy(t1)
+    for qi, u, (v, i) in zip(p7d["queries"], p7d["users"], p7d["topk"]):
+        match = torch.from_numpy(bitset.np_unpack(data.query_doc_bits[qi], data.n_docs))
+        cv, ci = tiered_retrieval_scores(torch.from_numpy(u), cand, t1_t, True, match, k=100)
+        check(torch.equal(cv, v) and torch.equal(ci, i),
+              f"7d: query {qi}: the CPU's Tier-1 top-k != the card's")
+    log(f"[phase 7d] the CPU's optpes Tier-1 ({len(t1)} ids, {len(tiering.clauses)} "
+        f"clauses) == the card's; the CPU's Tier-1 top-100 == the card's on "
+        f"{len(p7d['queries'])} queries")
+    return dict(tier1=len(t1), clauses=len(tiering.clauses))
+
+
+def phase7_wait(seed: int, dev=torch.device("cuda")) -> dict:
+    """Phase 7's work beside phase 2's CPU worker (after the tuning phase,
+    while the card would wait for it), phase 3's operands still resident:
+    7a, 7b, 7c's serving half and 7d's card half. Frees what it made."""
+    t_all = time.perf_counter()
+    free, total = torch.cuda.mem_get_info()
+    log(f"[phase 7] {free / 2 ** 30:.1f} of {total / 2 ** 30:.1f} GiB free beside phase 3's "
+        f"operands")
+    out = {}
+    for key, fn in (("kernels", lambda: phase7_kernels(dev)),
+                    ("card_vs_cpu", lambda: phase7_card_vs_cpu(seed, dev)),
+                    ("tiered", lambda: phase7_tiered(seed, dev))):
+        t = time.perf_counter()
+        out[key] = fn()
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"[phase 7] {key}: {time.perf_counter() - t:.1f}s")
+    t = time.perf_counter()
+    out["serve"] = phase7_serve(seed, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[phase 7] serve: {time.perf_counter() - t:.1f}s; phase 7 beside phase 2's worker "
+        f"{time.perf_counter() - t_all:.1f}s")
+    return out
+
+
+def recsys_records(p7: dict) -> list[dict]:
+    """The kernels line's recsys rows: the tile kernel and the CUDA-core
+    backward at BST's and BERT4Rec's attention (7a's timings), each with
+    its launches in that arch's 7c run (serve and train); flash_backward_tc's
+    non-causal cases go into that kernel's own row."""
+    rows = []
+    for arch, r in p7["kernels"]["rows"].items():
+        for kn, key in (("flash_attention", "fwd"), ("flash_backward", "bwd")):
+            src, tpu = SOURCES[kn]
+            n = p7["train"][arch]["launches"].get(kn, 0) + \
+                p7["serve"][arch]["launches"].get(kn, 0)
+            rows.append(dict(r[key], name=f"{kn}:{arch}", route="cuda", source=src,
+                             replaces=tpu, launches=n,
+                             launches_path=f"7c: {arch} at full width (serve_p99, "
+                                           "retrieval_cand, train_batch steps)"))
+    return rows
+
+
 SOURCES = {
     "coverage_gain": ("src/repro_torch/kernels/csrc/coverage_gain.cu",
                       "src/repro/kernels/coverage_gain.py:33"),
@@ -5238,7 +5989,7 @@ def main() -> int:
         log(f"[phase 0]   ptxas {ln}")
     log(f"[phase 0] {time.perf_counter() - t:.1f}s")
 
-    rec = tiering_phases(args.seed)
+    rec, p7 = tiering_phases(args.seed)
     t = time.perf_counter()
     fa_small = phase4_kernel_small(cuda)
     small = phase4_decode_small(cuda)
@@ -5280,6 +6031,14 @@ def main() -> int:
                                "of that kernel's function (jax.grad of chunked_attention)")
         rec.append(r)
     log(f"[phase 6] {time.perf_counter() - t:.1f}s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    p7["train"] = phase7_train(args.seed, cuda)
+    next(r for r in rec if r["name"] == "flash_backward_tc")["non_causal"] = p7["kernels"]["tc"]
+    rec += recsys_records(p7)
+    log(f"[phase 7] train: {time.perf_counter() - t:.1f}s; recsys_reduced "
+        f"{json.dumps(RECSYS_REDUCED)}")
     log(f"total {time.perf_counter() - t_all:.1f}s")
     print(json.dumps({"kernels": rec}))
     print(card_line())
@@ -5321,10 +6080,11 @@ def production_phases(seed: int):
     return rec, p3, counts, solvers, telemetry, t_scale
 
 
-def tiering_phases(seed: int) -> list[dict]:
+def tiering_phases(seed: int) -> tuple[list[dict], dict]:
     """Phases 1-3, the tuning phase and phase 5, and the tiering kernels'
-    records. Phase 2's CPU half runs in a worker process beside phase 3,
-    phase 1's production timings and the tuning phase."""
+    records; and phase 7's results but its training half. Phase 2's CPU
+    half runs in a worker process beside phase 3, phase 1's production
+    timings, the tuning phase and phase 7's card work (`phase7_wait`)."""
     from repro_torch import obs
     t = time.perf_counter()
     worst = phase1_small(torch.device("cuda"))
@@ -5339,9 +6099,12 @@ def tiering_phases(seed: int) -> list[dict]:
         p2 = phase2(medium_counts, pool)
         log(f"[phase 2] card half {time.perf_counter() - t:.1f}s")
         rec, p3, counts, solvers, telemetry, t_scale = production_phases(seed)
+        p7 = phase7_wait(seed)
         t = time.perf_counter()
         phase2_compare(p2, medium_counts)
         log(f"[phase 2] compared {time.perf_counter() - t:.1f}s")
+        p7["tiered_cpu"] = phase7_tiered_cpu(p7["tiered"], p2["data"],
+                                             p2["host"].get()["main"]["optpes"].selected)
     finally:
         pool.terminate()
         pool.join()
@@ -5393,7 +6156,7 @@ def tiering_phases(seed: int) -> list[dict]:
         f"fused_match {cx['fused_match_ms']:.3f} ms; {cx['eligible']:.4f} "
         f"eligible; max abs err {cx['max_abs_err']}")
     log(f"[phase 1] at scale: {t_scale + time.perf_counter() - t:.1f}s")
-    return rec
+    return rec, p7
 
 
 def phase5(p3: dict, medium) -> dict:

@@ -1,11 +1,14 @@
-"""Architecture registry, the LM part of `repro.configs.registry`.
+"""Architecture registry, the LM and recsys parts of
+`repro.configs.registry`.
 
 Each registered arch names its config, its cells, its serving functions and
 its training setup (loss, optimizer, microbatches, gradient accumulation
 dtype, and the `smoke` batch). A cell's dimensions are plain numbers: the
 port runs on one device, so there are no PartitionSpecs. The LM family's
-cells (`train_4k`, `prefill_32k`, `decode_32k`, `long_500k`) are ported;
-the other families are not yet.
+cells (`train_4k`, `prefill_32k`, `decode_32k`, `long_500k`) and the recsys
+family's (`train_batch`, `serve_p99`, `serve_bulk`, `retrieval_cand`, and
+two-tower's `retrieval_cand_tiered`) are ported; the GNN family (EGNN) is
+not yet.
 """
 from __future__ import annotations
 
@@ -21,14 +24,14 @@ LM_SHAPES = ("train_4k", "prefill_32k", "decode_32k", "long_500k")
 
 @dataclasses.dataclass
 class Cell:
-    kind: str                       # train | prefill | decode
-    dims: dict[str, Any]            # name -> int or shape tuple
+    kind: str                       # train | prefill | decode | serve
+    dims: dict[str, Any]            # input name -> shape tuple (or an int)
 
 
 @dataclasses.dataclass
 class ArchSpec:
     name: str
-    family: str                     # lm
+    family: str                     # lm | recsys
     shapes: tuple[str, ...]
     skips: dict[str, str]
     config_for: Callable[[str], Any]
@@ -44,7 +47,8 @@ class ArchSpec:
 
 ARCHS: dict[str, ArchSpec] = {}
 _ARCH_MODULES = ["gemma2_2b", "gemma3_12b", "internlm2_1_8b", "kimi_k2_1t_a32b",
-                 "llama4_maverick_400b_a17b"]
+                 "llama4_maverick_400b_a17b", "bert4rec", "bst", "deepfm",
+                 "two_tower_retrieval"]
 _LOADED = False
 
 
@@ -130,3 +134,29 @@ def register_lm(name: str, cfg, *, n_micro: int = 1, optimizer: str = "adamw",
         serve_fn=lm_serve, loss_fn=lm_loss, optimizer=optimizer,
         grad_accum_dtype=grad_accum_dtype, n_micro=n_micro, smoke=smoke,
         smoke_cfg=smoke_cfg))
+
+
+# =============================================================================
+# RecSys family glue
+# =============================================================================
+
+RECSYS_SHAPES = ("train_batch", "serve_p99", "serve_bulk", "retrieval_cand")
+RECSYS_BATCH = {"train_batch": 65536, "serve_p99": 512, "serve_bulk": 262144}
+N_CANDIDATES = 1_000_000
+
+
+def recsys_kind(shape: str) -> str:
+    return "train" if shape == "train_batch" else "serve"
+
+
+def as_tensors(batch: dict) -> dict:
+    """A smoke batch of numpy arrays as CPU tensors of the same dtypes."""
+    return {k: torch.from_numpy(np.asarray(v)) for k, v in batch.items()}
+
+
+def register_recsys(name: str, cfg, *, cell_for, loss_fn, serve_fn, smoke,
+                    extra_shapes: tuple[str, ...] = ()) -> ArchSpec:
+    return register(ArchSpec(
+        name=name, family="recsys", shapes=RECSYS_SHAPES + extra_shapes, skips={},
+        config_for=lambda shape: cfg, cell_for=cell_for, serve_fn=serve_fn,
+        loss_fn=loss_fn, optimizer="adamw", smoke=smoke))

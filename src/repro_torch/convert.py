@@ -68,13 +68,16 @@ def _tensor_leaf(a, device) -> torch.Tensor:
 
 
 def _walk(tree, fn):
-    return {k: _walk(v, fn) for k, v in tree.items()} if isinstance(tree, dict) else fn(tree)
+    if isinstance(tree, dict):
+        return {k: _walk(v, fn) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_walk(v, fn) for v in tree)
+    return fn(tree)
 
 
-def tensors_from_numpy(tree: dict, dtype: torch.dtype = torch.float32,
-                       device=None) -> dict:
-    """A nested dict of numpy arrays as tensors of `dtype` on `device`, the
-    nesting kept."""
+def tensors_from_numpy(tree, dtype: torch.dtype = torch.float32, device=None):
+    """Nested dicts, lists and tuples of numpy arrays as tensors of `dtype`
+    on `device`, the nesting kept."""
     dev = resolve_device(device)
     return _walk(tree, lambda a: _tensor_leaf(a, dev).to(dtype))
 
@@ -85,6 +88,14 @@ def transformer_params_from_numpy(tree: dict, cfg, device=None) -> dict:
     leaves, an MoE layer's [L, E, D, F] experts among them), in
     `cfg.param_dtype` on `device`."""
     return tensors_from_numpy(tree, cfg.pdtype, device)
+
+
+def recsys_params_from_numpy(tree: dict, cfg, device=None) -> dict:
+    """The port's parameters of a recsys arch (DeepFM, BST, BERT4Rec,
+    two-tower) from the reference's `*_init` tree as numpy arrays: the same
+    keys, the MLP and block lists kept as lists, in `cfg.dtype` on
+    `device`."""
+    return tensors_from_numpy(tree, getattr(torch, cfg.dtype), device)
 
 
 def train_state_from_numpy(state: dict, device=None) -> dict:

@@ -34,6 +34,7 @@ KERNELS = ("coverage_gain", "bit_matvec", "clause_match", "tier_match",
            "partition_gain", "sparse_gain", "flash_attention", "flash_decode",
            "flash_prefill", "flash_backward", "flash_backward_tc")
 LAUNCHES: dict[str, int] = {k: 0 for k in KERNELS}
+MAX_GRID_Z = 65535   # gridDim.z at most: a wrapper launches a larger batch in slices
 
 _P, _I64, _INT, _F32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_float
 _PINT = ctypes.POINTER(ctypes.c_int)
@@ -46,12 +47,12 @@ _SIGNATURES = {
     "tier_match_launch": [_P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _INT, _P],
     "partition_gain_launch": [_P, _P, _P, _P, _I64, _I64, _I64, _INT, _INT, _P],
     "sparse_gain_launch": [_P, _P, _P, _I64, _I64, _I64, _INT, _INT, _P],
-    "flash_attention_launch": [_P] * 4 + [_I64] * 17 + [_F32, _INT, _INT, _I64, _P],
+    "flash_attention_launch": [_P] * 4 + [_I64] * 17 + [_F32, _F32, _INT, _INT, _I64, _P],
     "flash_decode_launch": [_P] * 5 + [_I64] * 16 + [_INT, _F32, _INT, _INT, _INT, _P],
     "flash_decode_ctas_per_sm": [_I64, _INT, _INT, _PINT],
     "flash_prefill_launch": [_P] * 5 + [_I64] * 17 + [_F32, _INT, _P],
     "flash_backward_launch": [_P] * 10 + [_I64] * 6 + [_PI64, _I64, _I64, _F32,
-                                                       _INT, _INT, _P],
+                                                       _F32, _INT, _INT, _P],
     "flash_backward_tc_launch": [_P] * 10 + [_I64] * 5 + [_PI64, _I64, _F32, _INT, _P],
 }
 

@@ -24,7 +24,9 @@
 //      (cvt.rna.tf32.f32), and S = hi.hi + hi.lo + lo.hi: within ~2^-21 of
 //      the f32 product, where one TF32 pass rounds each operand to 2^-11.
 //      bf16 values are exact in TF32 (lo = 0): one product;
-//   2. times 1/sqrt(D) in f32 after the product;
+//   2. times the softmax scale in f32 after the product: 1/sqrt(D) from the
+//      wrapper, or 1/sqrt(D0) when it zero-pads a head dim D0 < 8 to D = 8
+//      (zero columns add exact zeros to every split product);
 //   3. softcap as cap * tanh(s / cap) with tanh = 1 - 2 / (1 + 2^(2|y| log2 e))
 //      on ex2.approx, sign restored (tanh.approx's 2^-11 is too coarse);
 //      then the mask with the finite NEG = -1e30;
@@ -576,14 +578,15 @@ extern "C" int flash_attention_launch(
     int64_t Sq, int64_t Hq, int64_t Hkv, int64_t D, int64_t q_sb, int64_t q_ss,
     int64_t q_sh, int64_t k_sb, int64_t k_ss, int64_t k_sh, int64_t v_sb,
     int64_t v_ss, int64_t v_sh, int64_t kv_len, int64_t q_offset,
-    int64_t window, float cap, int causal, int bf16, int64_t smem, void* stream) {
+    int64_t window, float cap, float scale, int causal, int bf16, int64_t smem,
+    void* stream) {
   using namespace repro_torch;
   const int64_t g = Hq / Hkv;
   const FaArgs a{q,      k,        v,      out,  q_sb, q_ss, q_sh,
                  k_sb,   k_ss,     k_sh,   v_sb, v_ss, v_sh, Sq,
                  Hq,     g,        Sq * g, kv_len, q_offset, window,
                  cap,    cap > 0.f ? 1.f / cap : 0.f,
-                 (float)(1.0 / sqrt((double)D)), causal};
+                 scale,  causal};
   const cudaStream_t st = (cudaStream_t)stream;
   return bf16 ? launch_d<__nv_bfloat16>(a, D, B, Hkv, smem, st)
               : launch_d<float>(a, D, B, Hkv, smem, st);

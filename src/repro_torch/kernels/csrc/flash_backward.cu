@@ -1,4 +1,4 @@
-// flash_backward: the gradient of flash_attention (GQA, causal, optional
+// flash_backward: the gradient of flash_attention (GQA, causal or not, optional
 // sliding window and logit softcap, q_offset 0) with respect to q, k and v,
 // by FlashAttention-2's backward: the scores are recomputed tile by tile
 // from q, k, v, the forward's output o and its gradient dO; no [Sq, Skv]
@@ -26,13 +26,14 @@
 // which bf16 tensor cores would not give.
 //
 // Arithmetic, all f32 (the plain version's rule):
-//   s = (q.k) / sqrt(D); with a softcap, s = cap * tanh(s / cap);
+//   s = (q.k) * scale, scale = 1/sqrt(D) from the wrapper (1/sqrt(D0) when
+//   it zero-pads a head dim D0 < 8 to 8); with a softcap, s = cap * tanh(s / cap);
 //   a key is visible when key <= query (causal), query - key < window
 //   (when set) and key < kv_len; lse = max + log(sum exp(s - max)) over a
 //   row's visible keys; delta = rowsum(dO * o);
 //   p = exp(s - lse) (0 where not visible); dp = dO.v;
 //   ds = p * (dp - delta), times (1 - (s / cap)^2) with a softcap;
-//   dV = sum p * dO, dK = sum ds * q / sqrt(D), dQ = sum ds * k / sqrt(D).
+//   dV = sum p * dO, dK = sum ds * q * scale, dQ = sum ds * k * scale.
 //
 // Design. Three kernels, one launch entry, no float atomics, so two runs
 // give the same bits:
@@ -470,7 +471,8 @@ extern "C" int flash_backward_launch(
     const void* q, const void* k, const void* v, const void* o, const void* dout,
     void* dq, void* dk, void* dv, void* lse, void* delta, int64_t B, int64_t S,
     int64_t Skv, int64_t Hq, int64_t Hkv, int64_t D, const int64_t* strides,
-    int64_t kv_len, int64_t window, float cap, int causal, int bf16, void* stream) {
+    int64_t kv_len, int64_t window, float cap, float scale, int causal, int bf16,
+    void* stream) {
   using namespace repro_torch;
   if (Hkv <= 0 || Hq % Hkv || B <= 0 || S <= 0 || Skv <= 0 || kv_len > Skv)
     return (int)cudaErrorInvalidValue;
@@ -497,7 +499,7 @@ extern "C" int flash_backward_launch(
   a.causal = causal;
   a.cap = cap;
   a.inv_cap = cap > 0.f ? 1.f / cap : 0.f;
-  a.scale = (float)(1.0 / sqrt((double)D));
+  a.scale = scale;
   const cudaStream_t st = (cudaStream_t)stream;
   return bf16 ? dispatch<__nv_bfloat16>(a, D, B, st) : dispatch<float>(a, D, B, st);
 }

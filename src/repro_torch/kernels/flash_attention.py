@@ -10,8 +10,13 @@ position (Sq = 1, the decode step) goes to the split-KV kernel of
 operands to the wgmma kernel of `flash_prefill`; everything else (f32, the
 other head dims, unaligned views) to the tile kernel, which multiplies on
 the TF32 tensor cores with split operands (`ref.flash_tile` is its
-arithmetic) in the tiles `tile_plan` gives. All read q, k and v in their
-[B, S, H, D] layout through their strides, so a decode step passes one
+arithmetic) in the tiles `tile_plan` gives. A head dim below 8 (BST's 32 /
+8 = 4) also goes to the tile kernel, zero-padded to 8 with the softmax
+scale of the true D: zero columns add exact zeros to every split-TF32
+product, so the padded call computes the unpadded function (the TF32
+`mma.sync` is 8 wide in k, so a D-4 kernel would pad inside anyway). A
+batch past the grid's z limit (65535) is launched in slices. All read q, k
+and v in their [B, S, H, D] layout through their strides, so a decode step passes one
 layer's slice of the KV cache as it lies, with `kv_len` = the filled
 length.
 
@@ -24,12 +29,14 @@ and its gradient takes the bf16 tensor-core pair
 `csrc/flash_backward_tc.cu`; every other gradient (f32, D in (8, 16, 32),
 an unaligned view) takes the CUDA-core `csrc/flash_backward.cu`. On the CPU the forward is the plain one and
 saves no lse, so the gradient is `ref.flash_attention_bwd`. The contract is
-the training forward's: causal, q_offset 0, every key valid and Sq = Skv,
-with or without a window and a softcap; a gradient asked for outside it (a
-decode step, kv_len < Skv, causal=False) raises NotImplementedError.
+the training forward's: q_offset 0, every key valid and Sq = Skv, causal
+(the LM) or not (the recsys blocks), with or without a window and a
+softcap; a gradient asked for outside it (a decode step, kv_len < Skv)
+raises NotImplementedError.
 """
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import torch
@@ -86,6 +93,8 @@ def tile_plan(d: int, dtype: torch.dtype) -> TilePlan:
 
 def route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
     """The kernel a CUDA call with these operands launches."""
+    if q.shape[3] < flash_backward.MIN_HEAD_DIM:
+        return "flash_attention"
     if q.shape[1] == 1:
         return "flash_decode"
     return "flash_prefill" if flash_prefill.takes(q, k, v) else "flash_attention"
@@ -130,15 +139,14 @@ class Attention(torch.autograd.Function):
         q, k, v, out, lse = ctx.saved_tensors
         causal, window, softcap, q_offset, kv_len = ctx.args
         skv = k.shape[1]
-        if not causal or q_offset != 0 or (kv_len is not None and kv_len != skv) \
-                or q.shape[1] != skv:
+        if q_offset != 0 or (kv_len is not None and kv_len != skv) or q.shape[1] != skv:
             raise NotImplementedError(
-                "flash_attention's gradient is the training forward's: causal, "
-                f"q_offset 0, kv_len = Skv = Sq; got causal={causal}, "
-                f"q_offset={q_offset}, kv_len={kv_len}, Sq={q.shape[1]}, Skv={skv}")
+                "flash_attention's gradient is the training forward's: q_offset 0, "
+                f"kv_len = Skv = Sq; got q_offset={q_offset}, kv_len={kv_len}, "
+                f"Sq={q.shape[1]}, Skv={skv}")
         if not flash_prefill.aligned(dout):   # a fresh copy is aligned
             dout = dout.clone(memory_format=torch.contiguous_format)
-        dq, dk, dv = flash_backward.flash_backward(q, k, v, out, dout, causal=True,
+        dq, dk, dv = flash_backward.flash_backward(q, k, v, out, dout, causal=causal,
                                                    window=window, softcap=softcap,
                                                    lse=lse)
         return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None, None, None, None, None
@@ -182,17 +190,20 @@ def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if q.device.type != "cuda":
         raise ValueError(f"q must be a CUDA tensor (or every operand on the "
                          f"CPU), got device {q.device}")
+    kernel = route(q, k, v)
+    if 0 < d < flash_backward.MIN_HEAD_DIM:
+        q, k, v = flash_backward.pad_head_dim(q, k, v)
     for t, name in ((q, "q"), (k, "k"), (v, "v")):
         _require(t, name, q)
-    if d not in HEAD_DIMS:
-        raise ValueError(f"head dim {d} not among the kernel's {HEAD_DIMS}")
+    if q.shape[3] not in HEAD_DIMS:
+        raise ValueError(f"head dim {d} not among the kernel's {HEAD_DIMS} "
+                         f"nor below {flash_backward.MIN_HEAD_DIM}")
     if window is not None and window < 1:
         raise ValueError(f"window must be >= 1, got {window}")
     if softcap is not None and softcap <= 0:
         raise ValueError(f"softcap must be > 0, got {softcap}")
     kw = dict(causal=causal, window=window, softcap=softcap, q_offset=q_offset,
               kv_len=kv_len)
-    kernel = route(q, k, v)
     if lse_out is not None and kernel != "flash_prefill":
         raise ValueError(f"lse_out is written by flash_prefill only; this call "
                          f"routes to {kernel}")
@@ -200,16 +211,29 @@ def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return flash_decode.flash_decode(q, k, v, **kw)
     if kernel == "flash_prefill":
         return flash_prefill.flash_prefill(q, k, v, lse_out=lse_out, **kw)
+    out = _tile(q, k, v, scale=1.0 / math.sqrt(d), **kw)
+    return out if out.shape[3] == d else out[..., :d]
+
+
+def _tile(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool,
+          window: int | None, softcap: float | None, q_offset: int, kv_len: int,
+          scale: float) -> torch.Tensor:
+    """The tile kernel on checked operands, with scores times `scale`: one
+    launch per slice of at most `_build.MAX_GRID_Z` batch entries."""
+    b, sq, hq, d = q.shape
+    hkv = k.shape[2]
     out = torch.empty((b, sq, hq, d), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out
     smem = tile_plan(d, q.dtype).smem
-    _build.launch("flash_attention", q.device, lambda lib, stream:
-                  lib.flash_attention_launch(
-                      q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                      b, sq, hq, hkv, d, *q.stride()[:3], *k.stride()[:3],
-                      *v.stride()[:3], kv_len, int(q_offset),
-                      -1 if window is None else int(window),
-                      0.0 if softcap is None else float(softcap), int(causal),
-                      int(q.dtype == torch.bfloat16), smem, stream))
+    for b0 in range(0, b, _build.MAX_GRID_Z):
+        qs, ks, vs, os_ = (t[b0:b0 + _build.MAX_GRID_Z] for t in (q, k, v, out))
+        _build.launch("flash_attention", q.device, lambda lib, stream:
+                      lib.flash_attention_launch(
+                          qs.data_ptr(), ks.data_ptr(), vs.data_ptr(), os_.data_ptr(),
+                          qs.shape[0], sq, hq, hkv, d, *q.stride()[:3], *k.stride()[:3],
+                          *v.stride()[:3], kv_len, int(q_offset),
+                          -1 if window is None else int(window),
+                          0.0 if softcap is None else float(softcap), scale,
+                          int(causal), int(q.dtype == torch.bfloat16), smem, stream))
     return out

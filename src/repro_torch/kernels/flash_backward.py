@@ -12,7 +12,10 @@ Two kernels, by `route`, decided from the operands before any launch:
 - `csrc/flash_backward.cu` for everything else (f32, D in (8, 16, 32),
   no saved lse): FlashAttention-2's backward on the CUDA cores in f32
   (row statistics, dK/dV per key block, dQ per query block). Plain version
-  `ref.flash_attention_bwd`.
+  `ref.flash_attention_bwd`. A head dim below 8 is zero-padded to 8 with
+  the true D's scale (`pad_head_dim`, as the forward pads it) and the
+  gradients sliced back; a batch past the grid's z limit is launched in
+  slices.
 Neither uses float atomics, so a run repeats its bits. Neither replaces a
 Pallas kernel: the reference has no Pallas backward and differentiates its
 pure-JAX `chunked_attention`. CPU tensors take the routed kernel's plain
@@ -23,12 +26,14 @@ operands' dtype.
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
 from repro_torch.kernels import _build, flash_prefill, ref
 
 HEAD_DIMS = (8, 16, 32, 64, 128, 256)   # flash_backward.cu's instantiations
+MIN_HEAD_DIM = HEAD_DIMS[0]             # smaller head dims are zero-padded to it (both kernels)
 TC_HEAD_DIMS = (64, 128, 256)           # flash_backward_tc.cu's
 DTYPES = (torch.float32, torch.bfloat16)
 INT32_MAX = 2 ** 31 - 1
@@ -48,6 +53,15 @@ def route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     pair where it `takes` them and the forward's lse is given; else the
     CUDA-core kernel."""
     return "flash_backward_tc" if lse is not None and takes(q, k, v) else "flash_backward"
+
+
+def pad_head_dim(*ts: torch.Tensor) -> tuple[torch.Tensor, ...]:
+    """Each [B, S, H, D] tensor, D < MIN_HEAD_DIM, as a fresh contiguous
+    copy with zero columns up to MIN_HEAD_DIM: q·k and p·v gain exact zero
+    terms, so a kernel given the true D's scale computes the unpadded
+    function, and the gradients' padded columns are sliced off."""
+    return tuple(torch.nn.functional.pad(t, (0, MIN_HEAD_DIM - t.shape[3])).contiguous()
+                 for t in ts)
 
 
 def kernel_window(window: int | None, s: int) -> int:
@@ -71,8 +85,8 @@ def flash_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    window: int | None = None, softcap: float | None = None,
                    lse: torch.Tensor | None = None
                    ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """(dq, dk, dv) in f32 of causal attention at q_offset 0 over all Skv
-    keys: q/o/do [B, S, Hq, D], k/v [B, Skv, Hkv, D]; `lse` [B, Hq, S] f32,
+    """(dq, dk, dv) in f32 of attention (causal or not) at q_offset 0 over
+    all Skv keys: q/o/do [B, S, Hq, D], k/v [B, Skv, Hkv, D]; `lse` [B, Hq, S] f32,
     the forward's per-row log-sum-exp in base 2 (`flash_prefill`'s
     `lse_out`), or None."""
     b, s, hq, d = q.shape
@@ -94,8 +108,9 @@ def flash_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"CPU), got device {q.device}")
     for t, name in ((q, "q"), (k, "k"), (v, "v"), (o, "o"), (do, "do")):
         _check(t, name, q)
-    if d not in HEAD_DIMS:
-        raise ValueError(f"head dim {d} not among the kernel's {HEAD_DIMS}")
+    if d not in HEAD_DIMS and not 0 < d < MIN_HEAD_DIM:
+        raise ValueError(f"head dim {d} not among the kernel's {HEAD_DIMS} "
+                         f"nor below {MIN_HEAD_DIM}")
     if window is not None and window < 1:
         raise ValueError(f"window must be >= 1, got {window}")
     if softcap is not None and softcap <= 0:
@@ -104,6 +119,21 @@ def flash_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError("flash_backward's positions must fit in int32")
     if kernel == "flash_backward_tc":
         return _backward_tc(q, k, v, o, do, lse, **kw)
+    scale = 1.0 / math.sqrt(d)
+    if d < MIN_HEAD_DIM:
+        q, k, v, o, do = pad_head_dim(q, k, v, o, do)
+    grads = _backward_cuda_core(q, k, v, o, do, scale=scale, **kw)
+    return grads if d == q.shape[3] else tuple(g[..., :d] for g in grads)
+
+
+def _backward_cuda_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        o: torch.Tensor, do: torch.Tensor, *, causal: bool,
+                        window: int | None, softcap: float | None, scale: float
+                        ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """`csrc/flash_backward.cu` on checked operands, scores times `scale`:
+    one launch per slice of at most `_build.MAX_GRID_Z` batch entries."""
+    b, s, hq, d = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
     f32 = dict(dtype=torch.float32, device=q.device)
     dq = torch.empty((b, s, hq, d), **f32)
     dk = torch.empty((b, skv, hkv, d), **f32)
@@ -114,14 +144,15 @@ def flash_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     delta = torch.empty((b, hq, s), **f32)
     strides = (ctypes.c_int64 * 24)(*(x for t in (q, k, v, o, do, dq, dk, dv)
                                       for x in t.stride()[:3]))
-    _build.launch("flash_backward", q.device, lambda lib, stream:
-                  lib.flash_backward_launch(
-                      q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                      do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-                      row_lse.data_ptr(), delta.data_ptr(), b, s, skv, hq, hkv, d,
-                      strides, skv, kernel_window(window, s),
-                      0.0 if softcap is None else float(softcap), int(causal),
-                      int(q.dtype == torch.bfloat16), stream))
+    for b0 in range(0, b, _build.MAX_GRID_Z):
+        part = [t[b0:b0 + _build.MAX_GRID_Z]
+                for t in (q, k, v, o, do, dq, dk, dv, row_lse, delta)]
+        _build.launch("flash_backward", q.device, lambda lib, stream:
+                      lib.flash_backward_launch(
+                          *(t.data_ptr() for t in part), part[0].shape[0], s, skv, hq,
+                          hkv, d, strides, skv, kernel_window(window, s),
+                          0.0 if softcap is None else float(softcap), scale,
+                          int(causal), int(q.dtype == torch.bfloat16), stream))
     return dq, dk, dv
 
 

@@ -215,7 +215,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         o: torch.Tensor, do: torch.Tensor, *, causal: bool = True,
-                        window: int | None = None, softcap: float | None = None
+                        window: int | None = None, softcap: float | None = None,
+                        scale: float | None = None
                         ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The gradient of `flash_attention` (q_offset 0, every key valid) with
     respect to q, k and v, given its output `o` and the output's gradient
@@ -225,11 +226,13 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     their softmax, dp = do.v, ds = p * (dp - rowsum(do * o)), zero where a
     key is not visible, times 1 - (s / cap)^2 under a softcap; dk and dv
     summed over each KV head's G query heads. Works through blocks of query
-    positions, dk and dv accumulated across them."""
+    positions, dk and dv accumulated across them. `scale` (default
+    1/sqrt(D)) multiplies the scores: a head dim zero-padded for the kernel
+    keeps its true D's."""
     b, sq, hq, d = q.shape
     _, skv, hkv, _ = k.shape
     g = hq // hkv
-    scale = 1.0 / math.sqrt(d)
+    scale = 1.0 / math.sqrt(d) if scale is None else scale
     kf, vf = k.float(), v.float()
     k_pos = torch.arange(skv, device=q.device)
     dq = torch.empty(q.shape, dtype=torch.float32, device=q.device)
@@ -518,7 +521,7 @@ def _split_product(eq: str, a: tuple[torch.Tensor, torch.Tensor],
 def flash_tile(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                causal: bool = True, window: int | None = None,
                softcap: float | None = None, q_offset: int = 0,
-               kv_len: int | None = None) -> torch.Tensor:
+               kv_len: int | None = None, scale: float | None = None) -> torch.Tensor:
     """`flash_attention` computed as the tile kernel computes it: the rows of
     a KV head are its flattened (query position, group head) pairs, r =
     position * G + head, in blocks of TILE_ROWS; each block walks the keys
@@ -529,13 +532,15 @@ def flash_tile(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     the `tanh_accurate` softcap and the mask NEG = -1e30; one division by
     max(l, 1e-30) and one rounding to q's dtype. Keys at or past kv_len,
     which the kernel reads as zeros with p = 0, are left out; a row that
-    sees no key gives the uniform mean of v[:kv_len]."""
+    sees no key gives the uniform mean of v[:kv_len]. `scale` replaces
+    1/sqrt(D) where the wrapper zero-pads a head dim below 8."""
     b, sq, hq, d = q.shape
     skv, hkv = k.shape[1], k.shape[2]
     kv_len = skv if kv_len is None else int(kv_len)
     g = hq // hkv
     n_rows = sq * g
-    scale = torch.tensor(1.0 / math.sqrt(d), dtype=torch.float32)
+    scale = torch.tensor(1.0 / math.sqrt(d) if scale is None else scale,
+                         dtype=torch.float32)
     inv_cap = None if softcap is None else torch.tensor(1.0 / softcap,
                                                         dtype=torch.float32)
     rows = q.float().reshape(b, sq, hkv, g, d).permute(0, 2, 1, 3, 4) \

@@ -3,11 +3,13 @@
 Runs an arch's SMOKE config end to end through `TrainingDriver`: the
 trainer with the arch's optimizer, checkpoint/restart (a relaunch resumes
 from the newest committed checkpoint under `--ckpt-dir/<arch>`), the
-straggler policy and optional gradient compression, on the reference's
-numpy token stream (`synthetic_lm_batches`, labels = tokens). Parameters
-are random from seed 0 on the device (`transformer.init_params`: the
+straggler policy and optional gradient compression. An LM trains on the
+reference's numpy token stream (`synthetic_lm_batches`, labels = tokens),
+a recsys arch (deepfm, bst, bert4rec, two-tower-retrieval) on its SMOKE
+batch repeated, as the reference's launcher does. Parameters are random
+from seed 0 on the device (`transformer.init_params`, `recsys.*_init`: the
 reference's distributions, not its numbers). The card unless `--device`
-names another. Only the LM family is ported.
+names another. The GNN family (egnn) is not ported.
 """
 from __future__ import annotations
 
@@ -18,8 +20,7 @@ import numpy as np
 
 
 # the reference's other trainable archs, whose models the port has not yet
-UNPORTED = {"egnn": "gnn", "bert4rec": "recsys", "bst": "recsys",
-            "deepfm": "recsys", "two-tower-retrieval": "recsys"}
+UNPORTED = {"egnn": "gnn"}
 
 
 def synthetic_lm_batches(cfg, batch: int, seq: int, seed: int = 0):
@@ -50,6 +51,7 @@ def main() -> None:
     from repro_torch.configs import registry as R
     from repro_torch.device import resolve_device
     from repro_torch.distributed.compression import CompressionConfig
+    from repro_torch.models import recsys as M
     from repro_torch.models import transformer as T
     from repro_torch.train.optimizer import OptimizerConfig
     from repro_torch.train.trainer import DriverConfig, TrainingDriver, \
@@ -57,10 +59,10 @@ def main() -> None:
 
     if args.arch in UNPORTED:
         raise NotImplementedError(
-            f"{args.arch} is a {UNPORTED[args.arch]} arch: the recsys and EGNN models "
-            "and their training are not ported yet (ROADMAP queue 1, item 9)")
+            f"{args.arch} is a {UNPORTED[args.arch]} arch: the EGNN model and its "
+            "training are not ported yet (ROADMAP queue 1, item 9c)")
     arch = R.get_arch(args.arch)
-    cfg, _, kind = arch.smoke()
+    cfg, smoke_batch, kind = arch.smoke()
     assert kind == "train", f"{args.arch} has no training smoke path"
     device = resolve_device(args.device)
 
@@ -71,13 +73,23 @@ def main() -> None:
         compression=CompressionConfig(kind=args.compression))
 
     def params_init():
-        return T.init_params(torch.Generator(device).manual_seed(0), cfg)
+        gen = torch.Generator(device).manual_seed(0)
+        if arch.family == "lm":
+            return T.init_params(gen, cfg)
+        init = {"deepfm": M.deepfm_init, "bst": M.bst_init, "bert4rec": M.bert4rec_init,
+                "two-tower-retrieval": M.twotower_init}[args.arch]
+        return init(gen, cfg)
+
+    def repeat(batch):
+        while True:
+            yield batch
 
     driver = TrainingDriver(init_state, train_step, DriverConfig(
         ckpt_dir=os.path.join(args.ckpt_dir, args.arch),
         ckpt_every=args.ckpt_every, max_steps=args.steps))
-    state, history = driver.run(params_init,
-                                synthetic_lm_batches(cfg, args.batch, args.seq))
+    batches = (synthetic_lm_batches(cfg, args.batch, args.seq) if arch.family == "lm"
+               else repeat(smoke_batch))
+    state, history = driver.run(params_init, batches)
 
     print(f"[train] {args.arch}: {len(history)} steps this run, "
           f"loss {history[0]['loss']:.4f} -> {history[-1]['loss']:.4f}")

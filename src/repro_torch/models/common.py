@@ -5,11 +5,17 @@ the reference does. `attention` is the one attention entry the transformer
 calls: the reference's `chunked_attention` (which its Pallas kernel mirrors
 on the TPU), here `ops.flash_attention`, differentiable through its
 `Attention` function. `chunked_cross_entropy` is the training loss's
-sequence-chunked softmax cross-entropy.
+sequence-chunked softmax cross-entropy. `dense_init`, `mlp_params` and
+`mlp` are the plain initialiser and MLP of the recsys towers and heads
+(the reference keeps the MLP pair in `repro.models.egnn` as `_mlp_params`
+and `_mlp`).
 """
 from __future__ import annotations
 
+import math
+
 import torch
+import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels import ops
@@ -35,6 +41,52 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 10000.0) -> to
     x1, x2 = x[..., :half], x[..., half:]
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
+
+
+def dense_init(gen: torch.Generator, shape: tuple[int, ...], in_axis: int = -2) -> torch.Tensor:
+    """f32 N(0, 1) / sqrt(fan_in) on `gen`'s device, fan_in = shape[in_axis]
+    (the reference's distribution, not its numbers: the generators differ)."""
+    return torch.randn(shape, generator=gen, device=gen.device).div_(math.sqrt(shape[in_axis]))
+
+
+def mlp_params(gen: torch.Generator, dims: tuple[int, ...]) -> list[dict]:
+    """[{"w": dense_init [d_i, d_i+1], "b": zeros [d_i+1]}] for each layer."""
+    return [{"w": dense_init(gen, (dims[i], dims[i + 1])),
+             "b": torch.zeros(dims[i + 1], device=gen.device)}
+            for i in range(len(dims) - 1)]
+
+
+def mlp(params: list[dict], x: torch.Tensor, act=F.silu,
+        last_act: bool = False) -> torch.Tensor:
+    """x @ w + b for each layer, `act` (silu) between layers and, with
+    `last_act`, after the last."""
+    for i, layer in enumerate(params):
+        x = x @ layer["w"].to(x.dtype) + layer["b"].to(x.dtype)
+        if i < len(params) - 1 or last_act:
+            x = act(x)
+    return x
+
+
+def top_k(x: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """(values, int64 indices) of the k largest entries along the last axis
+    in `jax.lax.top_k`'s order: values descending, and at equal values the
+    lower index first (-inf included; -0.0 ranks below +0.0, as in XLA's
+    total order). `torch.topk` promises
+    no order at ties, so it runs on unique int64 keys: the value's f32 bits
+    mapped to an order-preserving int32, times 2^32, plus 2^32 - 1 - index.
+    NaN is not ordered."""
+    n = x.shape[-1]
+    if not 0 <= k <= n:
+        raise ValueError(f"k {k} outside [0, {n}]")
+    if n >= 2 ** 32:
+        raise ValueError(f"top_k takes at most 2^32 - 1 entries a row, got {n}")
+    bits = x.float().contiguous().view(torch.int32)
+    ordered = torch.where(bits < 0, bits ^ 0x7FFFFFFF, bits).to(torch.int64)
+    idx = torch.arange(n, device=x.device, dtype=torch.int64)
+    keys = ordered * 2 ** 32 + (2 ** 32 - 1 - idx)
+    top = torch.topk(keys, k, dim=-1, sorted=True).values
+    ids = 2 ** 32 - 1 - (top & (2 ** 32 - 1))
+    return torch.gather(x, -1, ids), ids
 
 
 def softcap(x: torch.Tensor, cap: float | None) -> torch.Tensor:

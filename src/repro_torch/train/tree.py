@@ -36,10 +36,13 @@ def map(fn: Callable, tree, *rest):   # noqa: A001  (jax.tree.map's name)
 
 def unzip(tree, n: int) -> list:
     """n trees from a tree whose leaves are n-tuples (a `map` whose fn
-    returned n values)."""
+    returned n values); a list level is nesting, a tuple a leaf."""
     if isinstance(tree, dict):
         parts = {k: unzip(v, n) for k, v in tree.items()}
         return [{k: parts[k][j] for k in tree} for j in range(n)]
+    if isinstance(tree, list):
+        parts = [unzip(v, n) for v in tree]
+        return [[p[j] for p in parts] for j in range(n)]
     return list(tree)
 
 

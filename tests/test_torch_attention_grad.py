@@ -100,7 +100,7 @@ def test_no_gradient_wanted_takes_the_plain_forward():
 @pytest.mark.parametrize("kw,sq,skv", [
     (dict(q_offset=8, kv_len=9), 1, 12),          # a decode step
     (dict(kv_len=6), 8, 8),                       # kv_len < Skv
-    (dict(causal=False), 8, 8),                   # not causal
+    (dict(causal=False, kv_len=6), 8, 8),         # not causal, kv_len < Skv
     (dict(q_offset=4), 8, 8),                     # a query offset
     (dict(), 5, 8),                               # Sq != Skv
 ])
