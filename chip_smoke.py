@@ -224,10 +224,15 @@ a non-zero exit):
   6. LM training (after phase 4d), on the hand-written attention backward,
      routed by `flash_backward.route`: `flash_backward_tc`
      (csrc/flash_backward_tc.cu, bf16 wgmma from flash_prefill's lse, D
-     64/128/256) and the CUDA-core `flash_backward` (csrc/flash_backward.cu:
-     f32, D 8-32, no lse):
-     a. flash_backward against its plain version `ref.flash_attention_bwd`
-        on ragged cases (B 1-3, S 2-1000, G 1-8, every head dim, f32 and
+     64/128/256), `flash_backward_short` (csrc/flash_backward_short.cu:
+     Skv <= 256, D <= 32, one pass; f32 FMA at D <= 8 and Skv <= 32, else
+     split-TF32 mma.sync) and the CUDA-core `flash_backward`
+     (csrc/flash_backward.cu: the rest without an lse):
+     a. the backward without an lse, each call on its routed kernel (the
+        short one up to 256 positions and D 32, also held to its own
+        plain version `ref.flash_backward_short`), against the plain
+        version `ref.flash_attention_bwd` on ragged cases (B 1-3, S 2-1000,
+        G 1-8, every head dim, f32 and
         bf16, windows 8 and 100, softcap 50; f32 outputs within rtol 1e-4
         and atol 1e-4 x max|plain|); flash_backward_tc on its own ragged
         cases (bf16, D 64/128/256, G 1-8, each forward's lse from
@@ -249,9 +254,10 @@ a non-zero exit):
         window); the pair's error over max is at most BWD_LIB_FACTOR x the
         library's, both against the f32 plain version;
      c. `loss_fn` and every gradient leaf, card against CPU (the CPU half in
-        a worker process started with phase 6), f32 (the CUDA-core kernel):
-        internlm2-1.8b and gemma2-2b at full width, 2 layers, 256
-        positions; kimi-k2's SMOKE config (loss, aux, gradients);
+        a worker process started with phase 6), f32: internlm2-1.8b and
+        gemma2-2b at full width, 2 layers, 256 positions (the CUDA-core
+        kernel); kimi-k2's SMOKE config (loss, aux, gradients; the short
+        kernel);
      d. internlm2-1.8b at full width and depth through `make_train_step`:
         AdamW with bf16 states, remat, bf16 activations, f32 parameters,
         8 x 4096 tokens as 2 microbatches, one batch of the reference's
@@ -273,15 +279,19 @@ a non-zero exit):
      card work beside phase 2's CPU worker (after the tuning phase, phase
      3's operands resident), its training half after phase 6; every cut in
      RECSYS_REDUCED:
-     a. the tile kernel forward and the CUDA-core backward, non-causal,
-        against their plain versions on ragged f32 cases (D 4 zero-padded
-        to 8 with the scale 1/sqrt(4), S 1 on the tile kernel, a batch of
-        65537 in two launches a call, windows, G 1-2, D 8-32), each call's
-        launches counted, the autograd Function's gradient == the direct
-        calls; flash_backward_tc non-causal (bf16, D 64 and 256, each lse
-        from flash_prefill); then at BST's attention (B 65536, S 21, H 8,
-        D 4) and BERT4Rec's (B 1024, S 200, H 2, D 32) timed beside their
-        bounds, plain versions and SDPA's f32 forward and backward;
+     a. the tile kernel forward and the routed backward against their
+        plain versions on ragged f32 cases (the forward pads D 4 to 8 with
+        the scale 1/sqrt(4); S 1 on the tile kernel; a batch of 65537 in
+        two forward launches and one of the short backward; windows, a
+        softcap, causal and not, G 1-2, D 4-32; the short backward also
+        against `ref.flash_backward_short`, and S 300 on the CUDA-core
+        kernel), each call's launches counted, the autograd Function's
+        gradient == the direct calls; flash_backward_tc non-causal (bf16,
+        D 64 and 256, each lse from flash_prefill); then at BST's attention
+        (B 65536, S 21, H 8, D 4) and BERT4Rec's (B 1024, S 200, H 2, D 32)
+        timed beside their bounds, plain versions and SDPA's f32 forward
+        and backward, the short backward beside flash_backward.cu on the
+        same inputs;
      b. each arch's SMOKE config, card == CPU: loss, every gradient leaf,
         every serve output (top-k ids in jax.lax.top_k's tie order); DeepFM
         failed at step 3 and resumed == an uninterrupted run, bit for bit;
@@ -4434,10 +4444,11 @@ def lm_record(kern: dict, model: dict, small: dict, cfg, fa_small: dict) -> list
 
 # -- phase 6: LM training on flash_backward_tc and flash_backward -------------
 
-# ragged cases of the CUDA-core flash_backward (called without the
-# forward's lse) against its plain version: B 1-3, S 2 to 1000, G 1, 2, 4,
-# 5 and 8, every head dim, f32 and bf16, windows 8 and 100 and softcap 50
-# alone and together
+# ragged cases of the backward called without the forward's lse, on the
+# kernel `flash_backward.route` picks (flash_backward_short up to 256
+# positions at D 8-32, else the CUDA-core flash_backward), against the plain
+# version: B 1-3, S 2 to 1000, G 1, 2, 4, 5 and 8, every head dim, f32 and
+# bf16, windows 8 and 100 and softcap 50 alone and together
 BWD_CASES = [
     # b, s, hq, hkv, d, bf16, window, cap
     (1, 2, 2, 2, 16, False, None, None),
@@ -4598,30 +4609,39 @@ def err_over_max(got, want) -> float:
 
 
 def phase6_kernel_small(dev) -> dict:
-    """6a: flash_backward against ref.flash_attention_bwd on BWD_CASES,
-    one launch each; returns the worst error ratio by dtype and the max
-    abs error."""
+    """6a: the backward without an lse against ref.flash_attention_bwd on
+    BWD_CASES, one launch each of the kernel `flash_backward.route` names
+    (flash_backward_short's also against ref.flash_backward_short);
+    returns, by kernel, the worst error ratio by dtype (and against its own
+    plain version) and the max abs error."""
     from repro_torch.kernels import _build, flash_backward, ref
     gen = torch.Generator(dev).manual_seed(6)
-    worst = {"f32": 0.0, "bf16": 0.0, "abs": 0.0}
+    worst = {kn: {"f32": 0.0, "bf16": 0.0, "own": 0.0, "abs": 0.0, "cases": 0}
+             for kn in ("flash_backward", "flash_backward_short")}
     for b, s, hq, hkv, d, bf16, window, cap in BWD_CASES:
         dt = torch.bfloat16 if bf16 else torch.float32
         q, k, v, o, do, _ = bwd_inputs(gen, b, s, hq, hkv, d, dt, window, cap)
-        n0 = dict(_build.LAUNCHES)
+        kernel = flash_backward.route(q, k, v, None)
+        n0 = launch_counts()
         got = flash_backward.flash_backward(q, k, v, o, do, window=window, softcap=cap)
         torch.cuda.synchronize()
-        check(_build.LAUNCHES["flash_backward"] == n0["flash_backward"] + 1
-              and _build.LAUNCHES["flash_backward_tc"] == n0["flash_backward_tc"],
-              "flash_backward did not launch, or flash_backward_tc did")
+        check(launched(n0) == {kernel: 1}, f"6a: launches {launched(n0)}, want one {kernel}")
         want = ref.flash_attention_bwd(q, k, v, o, do, window=window, softcap=cap)
         key = "bf16" if bf16 else "f32"
-        r, e = bwd_agree(got, want, f"b{b} s{s} hq{hq} hkv{hkv} d{d} {key} "
-                         f"window={window} cap={cap}")
-        worst[key] = max(worst[key], r)
-        worst["abs"] = max(worst["abs"], e)
-    log(f"[phase 6a] flash_backward == plain on {len(BWD_CASES)} ragged cases: worst "
-        f"{worst['f32']:.3f} (f32) / {worst['bf16']:.3f} (bf16) of the limit (rtol "
-        f"{BWD_RTOL}, atol {BWD_RTOL} x max), max abs err {worst['abs']:.3g}")
+        what = f"b{b} s{s} hq{hq} hkv{hkv} d{d} {key} window={window} cap={cap}"
+        w = worst[kernel]
+        r, e = bwd_agree(got, want, what, kernel=kernel)
+        if kernel == "flash_backward_short":
+            own, _ = bwd_agree(got, ref.flash_backward_short(q, k, v, o, do, window=window,
+                                                             softcap=cap),
+                               f"{what} (own plain)", kernel=kernel)
+            w["own"] = max(w["own"], own)
+        w.update({key: max(w[key], r), "abs": max(w["abs"], e), "cases": w["cases"] + 1})
+    for kn, w in worst.items():
+        log(f"[phase 6a] {kn} == plain on {w['cases']} of {len(BWD_CASES)} ragged cases: "
+            f"worst {w['f32']:.3f} (f32) / {w['bf16']:.3f} (bf16) of the limit (rtol "
+            f"{BWD_RTOL}, atol {BWD_RTOL} x max), {w['own']:.3f} against its own plain "
+            f"version; max abs err {w['abs']:.3g}")
     return worst
 
 
@@ -4879,14 +4899,20 @@ def phase6_card_vs_cpu(seed: int, host, dev) -> dict:
     """6c: loss_fn and every gradient leaf on the card against the CPU's
     (the plain versions), f32, at full width and 2 layers over 256
     positions (internlm2-1.8b, gemma2-2b) and at kimi-k2's SMOKE config."""
-    from repro_torch.kernels import _build
+    import importlib
+    from repro_torch.kernels import _build, flash_backward
     card = {}
     _build.reset_launches()
     for mod, n, s, smoke in TRAIN_CARD_CPU:
-        n0 = _build.LAUNCHES["flash_backward"]
+        m = importlib.import_module(f"repro_torch.configs.{mod}")
+        cfg = m.SMOKE if smoke else m.CONFIG
+        q, k = (torch.empty((1, s, h, cfg.d_head), device="meta")
+                for h in (cfg.n_heads, cfg.n_kv_heads))
+        kernel = flash_backward.route(q, k, k, None)   # f32: no lse
+        n0 = _build.LAUNCHES[kernel]
         card[mod] = train_grads(mod, n, s, smoke, seed, dev)
-        check(_build.LAUNCHES["flash_backward"] >= n0 + n,
-              f"{mod}: the card's gradient did not launch flash_backward")
+        check(_build.LAUNCHES[kernel] >= n0 + n,
+              f"{mod}: the card's gradient did not launch {kernel}")
     launches = {k: v for k, v in _build.LAUNCHES.items() if v}
     check(launches.get("flash_backward_tc", 0) == 0,
           f"6c's f32 gradients launched flash_backward_tc: {launches}")
@@ -5118,10 +5144,12 @@ def phase6_restart(seed: int, dev) -> dict:
     return res
 
 
-def phase6(seed: int, host, dev=torch.device("cuda")) -> list[dict]:
+def phase6(seed: int, host, dev=torch.device("cuda")) -> tuple[list[dict], dict, dict]:
     """Phase 6 a-f; returns the entries of flash_backward_tc (the bf16
-    training path, 6d and 6f) and of flash_backward (the f32 path, 6c) for
-    the kernels line. `host` is 6c's CPU half, started in a worker before
+    training path, 6d and 6f) and of flash_backward (the f32 path at long
+    sequences and wide heads, 6c) for the kernels line, 6a's worst errors
+    of flash_backward_short and 6c's launches (kimi-k2's SMOKE gradient
+    takes the short kernel). `host` is 6c's CPU half, started in a worker before
     phase 6. 6f: gemma2-2b at full width and depth (26 layers, D 256,
     softcaps 50 and 30, tied 256000 x 2304 embedding), as 6d; at S = 4096
     its window of 4096 is none (TRAIN_REDUCED["windows"]), so every layer
@@ -5171,9 +5199,10 @@ def phase6(seed: int, host, dev=torch.device("cuda")) -> list[dict]:
                              "window", "softcap", "library_ms", "library_call")}
     cc.update(name="flash_backward", ms=g2["cuda_core"]["ms"],
               plain_ms=g2["cuda_core"]["plain_ms"],
-              max_abs_err=max(small["abs"], *(m["cuda_core"]["max_abs_err"]
-                                              for m in tc_model.values())),
-              err_over_limit={"f32": small["f32"], "bf16": small["bf16"],
+              max_abs_err=max(small["flash_backward"]["abs"],
+                              *(m["cuda_core"]["max_abs_err"] for m in tc_model.values())),
+              err_over_limit={"f32": small["flash_backward"]["f32"],
+                              "bf16": small["flash_backward"]["bf16"],
                               **{k: m["cuda_core"]["err_over_limit"]
                                  for k, m in tc_model.items()}},
               earlier_route_ms={k: m["cuda_core"]["ms"] for k, m in tc_model.items()},
@@ -5181,26 +5210,35 @@ def phase6(seed: int, host, dev=torch.device("cuda")) -> list[dict]:
               launches_path="6c: loss_fn's f32 gradients of internlm2-1.8b, gemma2-2b "
                             "(2 layers, 256 positions) and kimi-k2's SMOKE config",
               card_vs_cpu=card_cpu)
-    return [tc, cc]
+    return [tc, cc], small["flash_backward_short"], card_cpu["launches"]
 
 
 # -- phase 7: the recsys family --------------------------------------------------
 
 RECSYS_ARCHS = ("deepfm", "bst", "bert4rec", "two-tower-retrieval")
-# 7a: ragged non-causal cases of the tile kernel and the CUDA-core backward,
-# f32 (b, s, hq, hkv, d, window): D 4 (zero-padded to 8) at odd S, G 1 and
-# 2 and with a window; S 1 at D 4 (the tile kernel, not flash_decode;
-# forward only: with one key dq and dk are 0 but for rounding) and S 2; a
-# batch past the grid's z limit (two launches each way); D 8, 16 and 32
+# 7a: ragged f32 cases of the tile kernel's forward and the routed backward
+# (b, s, hq, hkv, d, window, causal, softcap): non-causal D 4 (the forward
+# pads it to 8) at odd S, G 1 and 2 and with a window; S 1 at D 4 (the tile
+# kernel, not flash_decode; forward only: with one key dq and dk are 0 but
+# for rounding) and S 2; a batch past the grid's z limit (two forward
+# launches, one of the short backward); D 8, 16 and 32; the short backward
+# causal, softcapped, windowed and at G 2 and 4; S 300 at D 32 and at D 4,
+# past SHORT_MAX_S, on the CUDA-core backward
 RECSYS_CASES = [
-    (3, 21, 8, 8, 4, None),
-    (2, 1, 4, 2, 4, None),
-    (4, 2, 4, 2, 4, None),
-    (5, 37, 4, 2, 4, 9),
-    (65537, 3, 2, 2, 4, None),
-    (1, 200, 2, 2, 32, None),
-    (2, 130, 8, 4, 16, None),
-    (1, 64, 2, 1, 8, 17),
+    (3, 21, 8, 8, 4, None, False, None),
+    (2, 1, 4, 2, 4, None, False, None),
+    (4, 2, 4, 2, 4, None, False, None),
+    (5, 37, 4, 2, 4, 9, False, None),
+    (65537, 3, 2, 2, 4, None, False, None),
+    (1, 200, 2, 2, 32, None, False, None),
+    (2, 130, 8, 4, 16, None, False, None),
+    (1, 64, 2, 1, 8, 17, False, None),
+    (3, 21, 8, 4, 4, None, True, None),
+    (2, 200, 4, 2, 32, None, True, 50.0),
+    (4, 21, 8, 8, 4, 7, False, 30.0),
+    (2, 256, 8, 2, 16, 64, True, None),
+    (1, 300, 2, 2, 32, None, False, None),
+    (2, 300, 8, 8, 4, None, False, None),
 ]
 # 7a: flash_backward_tc non-causal, bf16, each lse from flash_prefill
 # (b, s, hq, hkv, d)
@@ -5285,63 +5323,93 @@ def launched(n0: dict) -> dict:
     return {k: v - n0.get(k, 0) for k, v in launch_counts().items() if v != n0.get(k, 0)}
 
 
+def cuda_core_bwd(q, k, v, o, do, *, causal, window=None, softcap=None):
+    """csrc/flash_backward.cu on the operands as its route took them before
+    the short kernel: a head dim below 8 zero-padded to 8 with the true D's
+    scale, the gradients sliced back; the yardstick of 7z and 7ab."""
+    from repro_torch.kernels import flash_backward
+    d = q.shape[3]
+    ops_ = flash_backward.pad_head_dim(q, k, v, o, do) if d < 8 else (q, k, v, o, do)
+    grads = flash_backward._backward_cuda_core(*ops_, causal=causal, window=window,
+                                               softcap=softcap, scale=1.0 / math.sqrt(d))
+    return tuple(g[..., :d] for g in grads)
+
+
 def phase7_kernels(dev) -> dict:
-    """7a: the tile kernel forward and the CUDA-core backward, non-causal,
-    against their plain versions (`ref.flash_attention` held per query row
-    to 2e-4 x its rms, `row_error`; `ref.flash_attention_bwd` at BWD_RTOL)
-    on RECSYS_CASES, each call's launches counted (a head dim below 8 pads
-    and launches the kernel; a batch past 65535 launches once a slice);
+    """7a: the tile kernel forward and the routed backward against their
+    plain versions (`ref.flash_attention` held per query row to 2e-4 x its
+    rms, `row_error`; `ref.flash_attention_bwd` at BWD_RTOL, the short
+    kernel also `ref.flash_backward_short` at BWD_RTOL) on RECSYS_CASES,
+    each call's launches counted against `flash_backward.route` (a head dim
+    below 8 pads and launches the tile kernel, a batch past 65535 once a
+    slice; the short backward once a call, the CUDA-core one once a slice);
     the autograd Function's non-causal gradient equal to the direct call;
     flash_backward_tc non-causal on RECSYS_TC_CASES (BWD_TC_TOL against
     ref.flash_backward_tc, BWD_BF16_TOL against the f32 plain version); then
     each RECSYS_ATTN shape timed beside its bound, its plain version and
-    SDPA's f32 forward and backward. Returns the timed rows and the worst
-    errors."""
+    SDPA's f32 forward and backward, the short backward also beside
+    flash_backward.cu on the same inputs (`cuda_core_bwd`). Returns the
+    timed rows and the worst errors."""
     from repro_torch.kernels import _build, flash_backward, flash_prefill, ops, ref
     gen = torch.Generator(dev).manual_seed(71)
 
     def draw(*shape, dtype=torch.float32):
         return torch.randn(shape, generator=gen, device=dev).to(dtype)
-    worst = dict(fwd=0.0, bwd=0.0, abs=0.0)
-    for b, s, hq, hkv, d, window in RECSYS_CASES:
-        what = f"b{b} s{s} hq{hq} hkv{hkv} d{d} window={window} non-causal"
+    worst = dict(fwd=0.0, bwd=0.0, abs=0.0, short=0.0, short_own=0.0, short_abs=0.0,
+                 cuda_core=0.0)
+    for b, s, hq, hkv, d, window, causal, cap in RECSYS_CASES:
+        what = f"b{b} s{s} hq{hq} hkv{hkv} d{d} window={window} causal={causal} cap={cap}"
+        kw = dict(causal=causal, window=window, softcap=cap)
         q, k, v, do = draw(b, s, hq, d), draw(b, s, hkv, d), draw(b, s, hkv, d), \
             draw(b, s, hq, d)
         slices = -(-b // _build.MAX_GRID_Z)
         n0 = launch_counts()
-        o = ops.flash_attention(q, k, v, causal=False, window=window)
+        o = ops.flash_attention(q, k, v, **kw)
         torch.cuda.synchronize()
         check(launched(n0) == {"flash_attention": slices},
               f"7a {what}: launches {launched(n0)}, want {slices} of flash_attention")
-        r, e = row_error(o, ref.flash_attention(q, k, v, causal=False, window=window),
-                         False, f"flash_attention {what}")
+        r, e = row_error(o, ref.flash_attention(q, k, v, **kw), False,
+                         f"flash_attention {what}")
         worst.update(fwd=max(worst["fwd"], r), abs=max(worst["abs"], e))
         if s == 1:
             continue
+        kernel = flash_backward.route(q, k, v, None)
+        check(kernel == ("flash_backward_short" if s <= flash_backward.SHORT_MAX_S
+                         else "flash_backward"), f"7a {what}: routed to {kernel}")
+        want_n = {kernel: 1 if kernel == "flash_backward_short" else slices}
         n0 = launch_counts()
-        got = flash_backward.flash_backward(q, k, v, o, do, causal=False, window=window)
+        got = flash_backward.flash_backward(q, k, v, o, do, **kw)
         torch.cuda.synchronize()
-        check(launched(n0) == {"flash_backward": slices},
-              f"7a {what}: launches {launched(n0)}, want {slices} of flash_backward")
-        r, e = bwd_agree(got, ref.flash_attention_bwd(q, k, v, o, do, causal=False,
-                                                      window=window), what)
+        check(launched(n0) == want_n, f"7a {what}: launches {launched(n0)}, want {want_n}")
+        r, e = bwd_agree(got, ref.flash_attention_bwd(q, k, v, o, do, **kw), what,
+                         kernel=kernel)
         worst.update(bwd=max(worst["bwd"], r), abs=max(worst["abs"], e))
-        if (b, s, d) == (3, 21, 4):   # the recsys blocks' call: through autograd
+        if kernel == "flash_backward_short":
+            own, _ = bwd_agree(got, ref.flash_backward_short(q, k, v, o, do, **kw),
+                               f"{what} (own plain)", kernel=kernel)
+            worst.update(short=max(worst["short"], r), short_own=max(worst["short_own"], own),
+                         short_abs=max(worst["short_abs"], e))
+        else:
+            worst.update(cuda_core=max(worst["cuda_core"], r))
+        if (b, s, d, causal) == (3, 21, 4, False):   # the recsys blocks' call: autograd
             qg, kg, vg = (x.clone().requires_grad_() for x in (q, k, v))
             n0 = launch_counts()
-            og = ops.flash_attention(qg, kg, vg, causal=False, window=window)
+            og = ops.flash_attention(qg, kg, vg, **kw)
             og.backward(do)
             torch.cuda.synchronize()
-            check(launched(n0) == {"flash_attention": 1, "flash_backward": 1},
+            check(launched(n0) == {"flash_attention": 1, "flash_backward_short": 1},
                   f"7a {what}: autograd launched {launched(n0)}")
             check(torch.equal(og.detach(), o) and all(
                 torch.equal(x.grad, y) for x, y in zip((qg, kg, vg), got)),
                 f"7a {what}: the autograd Function != the direct calls")
-    log(f"[phase 7a] non-causal flash_attention / flash_backward on {len(RECSYS_CASES)} "
-        f"ragged cases (D 4 padded to 8, S 1 on the tile kernel, B 65537 in two slices): "
-        f"worst {worst['fwd']:.3f} (forward, 2e-4 x row rms) / {worst['bwd']:.3f} "
-        f"(backward, rtol {BWD_RTOL}, atol {BWD_RTOL} x max) of the limit, max abs err "
-        f"{worst['abs']:.3g}; autograd's non-causal gradient == the direct calls")
+    log(f"[phase 7a] flash_attention / the routed backward on {len(RECSYS_CASES)} ragged "
+        f"cases (D 4 padded to 8 in the forward, S 1 on the tile kernel, B 65537 in two "
+        f"forward slices and one short backward, S 300 on flash_backward.cu): worst "
+        f"{worst['fwd']:.3f} (forward, 2e-4 x row rms) / {worst['bwd']:.3f} (backward, "
+        f"rtol {BWD_RTOL}, atol {BWD_RTOL} x max) of the limit; flash_backward_short "
+        f"{worst['short']:.3f} against ref.flash_attention_bwd, {worst['short_own']:.3f} "
+        f"against ref.flash_backward_short; flash_backward.cu {worst['cuda_core']:.3f}; max "
+        f"abs err {worst['abs']:.3g}; autograd's non-causal gradient == the direct calls")
 
     tc = []
     for b, s, hq, hkv, d in RECSYS_TC_CASES:
@@ -5402,8 +5470,17 @@ def phase7_kernels(dev) -> dict:
 
         def bwd():
             return flash_backward.flash_backward(q, k, v, o, do, causal=False)
+        kernel = flash_backward.route(q, k, v, None)
+        check(kernel == "flash_backward_short", f"7a {what}: the gradient routes to {kernel}")
         want = ref.flash_attention_bwd(q, k, v, o, do, causal=False)
-        r_b, e_b = bwd_agree(bwd(), want, what)
+        got = bwd()
+        r_b, e_b = bwd_agree(got, want, what, kernel=kernel)
+        r_own, _ = bwd_agree(got, ref.flash_backward_short(q, k, v, o, do, causal=False),
+                             f"{what} (own plain)", kernel=kernel)
+
+        def cc():
+            return cuda_core_bwd(q, k, v, o, do, causal=False)
+        r_cc, e_cc = bwd_agree(cc(), want, f"{what} (flash_backward.cu)")
         lib = sdpa_plain(q, k, v, do, 5)
         lib_f_err = float((lib["out"] - o).abs().max())
         check(lib_f_err <= 2e-2, f"7a {what}: SDPA's output differs by {lib_f_err:.3g}")
@@ -5416,23 +5493,32 @@ def phase7_kernels(dev) -> dict:
                                     "backend PyTorch picks",
                        library_err=lib_f_err, max_abs_err=e_f, err_over_limit=r_f,
                        padded_to=8 if d < 8 else None)
-        bwd_row = dict(shape=[b, s, h, h, d], dtype="f32", causal=False,
-                       ms=time_ms(bwd, 5),
-                       plain_ms=time_ms(lambda: ref.flash_attention_bwd(
+        bwd_row = dict(shape=[b, s, h, h, d], dtype="f32", causal=False, kernel=kernel,
+                       ms=time_ms(bwd, 10),
+                       plain_ms=time_ms(lambda: ref.flash_backward_short(
+                           q, k, v, o, do, causal=False), 2),
+                       plain_f32_ms=time_ms(lambda: ref.flash_attention_bwd(
                            q, k, v, o, do, causal=False), 2),
                        **bwd_bound(b, s, h, h, d, None, 4 * 5 * q.numel(), causal=False),
                        library_ms=lib["bwd_ms"],
                        library_call="scaled_dot_product_attention, non-causal, f32, the "
                                     "backend PyTorch picks: forward + backward minus forward",
                        library_err_over_max=err_over_max(lib["grads"], want),
-                       max_abs_err=e_b, err_over_limit=r_b, err_over_max=err_over_max(
-                           bwd(), want), padded_to=8 if d < 8 else None)
+                       max_abs_err=e_b, err_over_limit=r_b, err_over_limit_own=r_own,
+                       err_over_max=err_over_max(got, want),
+                       cuda_core=dict(ms=time_ms(cc, 5), max_abs_err=e_cc, err_over_limit=r_cc,
+                                      padded_to=8 if d < 8 else None,
+                                      source=SOURCES["flash_backward"][0]))
         rows[arch] = dict(fwd=fwd_row, bwd=bwd_row)
-        for kn, r in (("flash_attention", fwd_row), ("flash_backward", bwd_row)):
+        for kn, r in (("flash_attention", fwd_row), (kernel, bwd_row)):
             log(f"[phase 7a] {kn} {what}: {r['ms']:.3f} ms (bound {r['bound_ms']:.3f} ms "
                 f"by {r['bound_by']}, plain {r['plain_ms']:.1f} ms, SDPA "
                 f"{r['library_ms']:.3f} ms), max abs err {r['max_abs_err']:.3g}")
-        del q, k, v, do, o, want, lib
+        log(f"[phase 7a] flash_backward.cu {what} on the same inputs: "
+            f"{bwd_row['cuda_core']['ms']:.3f} ms ({r_cc:.3f} of its limit); the short "
+            f"kernel {r_b:.3f} of the limit against ref.flash_attention_bwd, {r_own:.3f} "
+            f"against ref.flash_backward_short (plain f32 {bwd_row['plain_f32_ms']:.1f} ms)")
+        del q, k, v, do, o, want, lib, got
         gc.collect()
         torch.cuda.empty_cache()
     return dict(rows=rows, tc=tc, worst=worst)
@@ -5624,7 +5710,7 @@ def phase7_card_vs_cpu(seed: int, dev) -> dict:
                 check(torch.equal(got[1], want[1]), f"7b {name} {cell}: top-k ids differ")
         if name in ("bst", "bert4rec"):
             check(card_launch.get("flash_attention", 0) > 0
-                  and card_launch.get("flash_backward", 0) > 0,
+                  and card_launch.get("flash_backward_short", 0) > 0,
                   f"7b {name}: the card's step did not launch the attention kernels: "
                   f"{card_launch}")
         out[name] = dict(loss=card["loss"], loss_cpu=cpu["loss"], grad_worst=worst,
@@ -5774,8 +5860,8 @@ def phase7_train(seed: int, dev) -> dict:
         check(all(math.isfinite(x) for x in losses), f"7c {name}: losses {losses}")
         if name in ("bst", "bert4rec"):
             check(launches.get("flash_attention", 0) >= RECSYS_TRAIN_STEPS
-                  and launches.get("flash_backward", 0) >= RECSYS_TRAIN_STEPS
-                  and set(launches) == {"flash_attention", "flash_backward"},
+                  and launches.get("flash_backward_short", 0) >= RECSYS_TRAIN_STEPS
+                  and set(launches) == {"flash_attention", "flash_backward_short"},
                   f"7c {name}: the steps' attention took other kernels: {launches}")
         ms = statistics.median(times[1:])
         out[name] = dict(batch=b, ms_per_step=ms, examples_per_s=b / ms * 1e3,
@@ -5890,21 +5976,34 @@ def phase7_wait(seed: int, dev=torch.device("cuda")) -> dict:
     return out
 
 
-def recsys_records(p7: dict) -> list[dict]:
-    """The kernels line's recsys rows: the tile kernel and the CUDA-core
-    backward at BST's and BERT4Rec's attention (7a's timings), each with
-    its launches in that arch's 7c run (serve and train); flash_backward_tc's
-    non-causal cases go into that kernel's own row."""
+def recsys_records(p7: dict, short_small: dict, p6_launches: dict) -> list[dict]:
+    """The kernels line's recsys rows: the tile kernel and the short
+    backward at BST's and BERT4Rec's attention (7a's timings; the short
+    kernel with flash_backward.cu's time on the same inputs), each with its
+    launches in that arch's 7c run (serve and train); the short kernel's
+    rows also carry 6a's and 7a's ragged errors and its launches in 6c;
+    flash_backward_tc's non-causal cases go into that kernel's own row."""
     rows = []
     for arch, r in p7["kernels"]["rows"].items():
-        for kn, key in (("flash_attention", "fwd"), ("flash_backward", "bwd")):
+        for kn, key in (("flash_attention", "fwd"), ("flash_backward_short", "bwd")):
             src, tpu = SOURCES[kn]
             n = p7["train"][arch]["launches"].get(kn, 0) + \
                 p7["serve"][arch]["launches"].get(kn, 0)
-            rows.append(dict(r[key], name=f"{kn}:{arch}", route="cuda", source=src,
-                             replaces=tpu, launches=n,
-                             launches_path=f"7c: {arch} at full width (serve_p99, "
-                                           "retrieval_cand, train_batch steps)"))
+            row = dict(r[key], name=f"{kn}:{arch}", route="cuda", source=src,
+                       replaces=tpu, launches=n,
+                       launches_path=f"7c: {arch} at full width (serve_p99, "
+                                     "retrieval_cand, train_batch steps)")
+            if key == "bwd":
+                w = p7["kernels"]["worst"]
+                row.update(replaces_note="the reference has no Pallas backward; this is the "
+                                         "gradient of that kernel's function (jax.grad of "
+                                         "chunked_attention)",
+                           max_abs_err=max(row["max_abs_err"], w["short_abs"],
+                                           short_small["abs"]),
+                           ragged=dict(phase6a=short_small, phase7a_f32=w["short"],
+                                       phase7a_own=w["short_own"]),
+                           launches_6c=p6_launches.get(kn, 0))
+            rows.append(row)
     return rows
 
 
@@ -5932,11 +6031,13 @@ SOURCES = {
                        "src/repro/kernels/flash_attention.py:93"),
     "flash_backward_tc": ("src/repro_torch/kernels/csrc/flash_backward_tc.cu",
                           "src/repro/kernels/flash_attention.py:93"),
+    "flash_backward_short": ("src/repro_torch/kernels/csrc/flash_backward_short.cu",
+                             "src/repro/kernels/flash_attention.py:93"),
 }
 # the kernels of the tiering paths (phases 1-3); the LM phases check their own:
 # serving's three attention kernels (phase 4) and training's backward (phase 6)
 LM_KERNELS = ("flash_attention", "flash_decode", "flash_prefill")
-TRAIN_KERNELS = ("flash_backward", "flash_backward_tc")
+TRAIN_KERNELS = ("flash_backward", "flash_backward_tc", "flash_backward_short")
 TIERING_KERNELS = tuple(k for k in SOURCES if k not in LM_KERNELS + TRAIN_KERNELS)
 
 
@@ -6020,7 +6121,7 @@ def main() -> int:
     pool = multiprocessing.get_context("spawn").Pool(1)
     try:
         host = pool.apply_async(train_cpu_half, (args.seed,))
-        bwd = phase6(args.seed, host)
+        bwd, short_small, p6_launches = phase6(args.seed, host)
     finally:
         pool.terminate()
         pool.join()
@@ -6036,7 +6137,7 @@ def main() -> int:
     t = time.perf_counter()
     p7["train"] = phase7_train(args.seed, cuda)
     next(r for r in rec if r["name"] == "flash_backward_tc")["non_causal"] = p7["kernels"]["tc"]
-    rec += recsys_records(p7)
+    rec += recsys_records(p7, short_small, p6_launches)
     log(f"[phase 7] train: {time.perf_counter() - t:.1f}s; recsys_reduced "
         f"{json.dumps(RECSYS_REDUCED)}")
     log(f"total {time.perf_counter() - t_all:.1f}s")

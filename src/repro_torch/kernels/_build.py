@@ -32,7 +32,8 @@ FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 KERNELS = ("coverage_gain", "bit_matvec", "clause_match", "tier_match",
            "partition_gain", "sparse_gain", "flash_attention", "flash_decode",
-           "flash_prefill", "flash_backward", "flash_backward_tc")
+           "flash_prefill", "flash_backward", "flash_backward_tc",
+           "flash_backward_short")
 LAUNCHES: dict[str, int] = {k: 0 for k in KERNELS}
 MAX_GRID_Z = 65535   # gridDim.z at most: a wrapper launches a larger batch in slices
 
@@ -54,6 +55,8 @@ _SIGNATURES = {
     "flash_backward_launch": [_P] * 10 + [_I64] * 6 + [_PI64, _I64, _I64, _F32,
                                                        _F32, _INT, _INT, _P],
     "flash_backward_tc_launch": [_P] * 10 + [_I64] * 5 + [_PI64, _I64, _F32, _INT, _P],
+    "flash_backward_short_launch": [_P] * 8 + [_I64] * 6 + [_PI64, _INT] + [_I64] * 7
+                                   + [_F32, _F32, _INT, _INT, _I64, _P],
 }
 
 _lib: ctypes.CDLL | None = None

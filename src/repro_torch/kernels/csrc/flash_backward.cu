@@ -11,11 +11,12 @@
 // Replaces no Pallas kernel: the reference has no Pallas backward (its
 // training forward runs the pure-JAX chunked_attention, which jax.grad
 // differentiates). It is the gradient of the port's forward kernels for
-// the calls that flash_backward_tc.cu does not take (flash_backward.route):
-// f32 operands (the tile kernel's forward), D in {8, 16, 32} and D = 256
-// (gemma2-2b, gemma3-12b: a 64-key warpgroup of the tensor-core pair would
-// hold 256 f32 of dK and dV a thread), and a forward that saved no lse.
-// Its plain version is ref.flash_attention_bwd, in f32 throughout.
+// the calls that neither flash_backward_tc.cu (bf16 after flash_prefill,
+// with its lse) nor flash_backward_short.cu (at most 256 keys and D <= 32)
+// takes (flash_backward.route): long sequences in f32 or at small head
+// dims, and D of 64 and above without a saved lse (the f32 gradients of
+// internlm2-1.8b and gemma2-2b). Its plain version is
+// ref.flash_attention_bwd, in f32 throughout.
 //
 // Bound on an H100: 10*D FLOPs per visible (query, key) pair and query
 // head (S = QK^T, dP = dO V^T, dV += P^T dO, dK += dS^T Q, dQ = dS K),

@@ -23,12 +23,16 @@ length.
 When autograd wants a gradient of q, k or v, the call goes through
 `Attention`, a `torch.autograd.Function` whose forward is the routed
 forward above and whose backward is `flash_backward`, itself routed by
-`flash_backward.route`: on the card, a forward that takes `flash_prefill`
-(D in (64, 128, 256)) also writes each row's log-sum-exp (`saves_lse`),
-and its gradient takes the bf16 tensor-core pair
-`csrc/flash_backward_tc.cu`; every other gradient (f32, D in (8, 16, 32),
-an unaligned view) takes the CUDA-core `csrc/flash_backward.cu`. On the CPU the forward is the plain one and
-saves no lse, so the gradient is `ref.flash_attention_bwd`. The contract is
+`flash_backward.route` to one of three kernels: on the card, a forward
+that takes `flash_prefill` (D in (64, 128, 256)) also writes each row's
+log-sum-exp (`saves_lse`), and its gradient takes the bf16 tensor-core pair
+`csrc/flash_backward_tc.cu`; a gradient without it over at most
+`flash_backward.SHORT_MAX_S` keys at D <= 32 (the recsys blocks, D 4
+included) takes the one-pass `csrc/flash_backward_short.cu`; the rest
+(f32 or unaligned at longer sequences, D 64 and above without an lse)
+takes the CUDA-core `csrc/flash_backward.cu`. On the CPU the forward is
+the plain one and saves no lse, so the gradient is
+`ref.flash_attention_bwd`. The contract is
 the training forward's: q_offset 0, every key valid and Sq = Skv, causal
 (the LM) or not (the recsys blocks), with or without a window and a
 softcap; a gradient asked for outside it (a decode step, kv_len < Skv)

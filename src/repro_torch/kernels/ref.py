@@ -511,6 +511,18 @@ def split_tf32(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return hi, _tf32(x - hi)
 
 
+def split_tf32_raw(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """x = hi + lo as `csrc/flash_backward_short.cu` splits it, in three
+    instructions: hi = tf32(x) (`split_tf32`'s), lo = x - hi passed as it
+    is, of which the tensor core reads the TF32 bits (lo truncated toward
+    zero). hi·hi + hi·lo + lo·hi is within about 2^-21 of the f32
+    product."""
+    x = x.float()
+    hi = _tf32(x)
+    lo = ((x - hi).contiguous().view(torch.int32) & ~0x1FFF).view(torch.float32)
+    return hi, lo
+
+
 def _split_product(eq: str, a: tuple[torch.Tensor, torch.Tensor],
                    b: tuple[torch.Tensor, torch.Tensor]) -> torch.Tensor:
     """a·b as the tile kernel's three TF32 products, summed in f32."""
@@ -579,3 +591,74 @@ def flash_tile(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         out[:, :, r0:r1] = acc / l.clamp(min=1e-30)[..., None]
     return out.reshape(b, hkv, sq, g, d).permute(0, 2, 1, 3, 4) \
         .reshape(b, sq, hq, d).to(q.dtype)
+
+
+def flash_backward_short(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         o: torch.Tensor, do: torch.Tensor, *, causal: bool = True,
+                         window: int | None = None, softcap: float | None = None
+                         ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The gradient of `flash_attention` (q_offset 0, every key valid) as
+    `csrc/flash_backward_short.cu` computes it, from the forward's output
+    `o` and its gradient `do`: per (batch, kv head) unit, rows r = position
+    * G + head against all Skv keys; s = Q·K^T times 1/sqrt(D) after the
+    product, under a softcap cap * tanh(s / cap); each row's max m over its
+    visible keys, lse = m + log(sum exp(s - m)) (+inf for a row that sees
+    none), p = exp(s - lse) where visible and 0 elsewhere, dp = dO·V^T,
+    delta = rowsum(dO * o), ds = p * (dp - delta) times 1 - (s / cap)^2
+    under a softcap; dq = dS·K / sqrt(D), dk = dS^T·Q / sqrt(D), dv =
+    P^T·dO. Every product is three TF32 products of operands split as the
+    kernel's tensor-core route splits them (`split_tf32_raw`,
+    `_split_product`), summed in f32. -> (dq, dk, dv) in f32. Works
+    through blocks of batch entries. (The kernel's CUDA-core route, D <= 8
+    and Skv <= 32, multiplies in f32: its plain version is
+    `flash_attention_bwd`.)"""
+    b, sq, hq, d = q.shape
+    _, skv, hkv, _ = k.shape
+    g = hq // hkv
+    scale = torch.tensor(1.0 / math.sqrt(d), dtype=torch.float32)
+    inv_cap = None if softcap is None else torch.tensor(1.0 / softcap,
+                                                        dtype=torch.float32)
+    q_pos = torch.arange(sq, device=q.device)
+    k_pos = torch.arange(skv, device=q.device)
+    mask = torch.ones((sq, skv), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= q_pos[:, None] >= k_pos[None, :]
+    if window is not None:
+        mask &= q_pos[:, None] - k_pos[None, :] < window
+    mask = mask.repeat_interleave(g, dim=0)                   # [S * G, Skv]
+    zero = torch.tensor(0.0, device=q.device)
+    dq = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    dk = torch.empty(k.shape, dtype=torch.float32, device=q.device)
+    dv = torch.empty(v.shape, dtype=torch.float32, device=q.device)
+    per = max(1, CHUNK_BYTES // max(1, hkv * sq * g * skv * 4 * 6))
+    for b0 in range(0, b, per):
+        n = min(per, b - b0)
+
+        def rows(x):
+            return x[b0:b0 + n].float().reshape(n, sq, hkv, g, d).permute(0, 2, 1, 3, 4) \
+                .reshape(n, hkv, sq * g, d)
+        qr, dor, orr = rows(q), rows(do), rows(o)
+        kb, vb = (x[b0:b0 + n].float().permute(0, 2, 1, 3) for x in (k, v))
+        ks = split_tf32_raw(kb)
+        s = _split_product("bhrd,bhkd->bhrk", split_tf32_raw(qr), ks) * scale
+        if softcap is not None:
+            s = softcap * torch.tanh(s * inv_cap)
+        m = torch.where(mask, s, -torch.inf).amax(-1, keepdim=True)
+        l = torch.where(mask, torch.exp(s - m), zero).sum(-1, keepdim=True)
+        lse = torch.where(l > 0, m + torch.log(l), torch.inf)
+        p = torch.where(mask, torch.exp(s - lse), zero)
+        dp = _split_product("bhrd,bhkd->bhrk", split_tf32_raw(dor), split_tf32_raw(vb))
+        ds = p * (dp - (dor * orr).sum(-1, keepdim=True))
+        if softcap is not None:
+            t = s * inv_cap
+            ds = ds * (1.0 - t * t)
+        ds = torch.where(mask, ds, zero)
+        dss = split_tf32_raw(ds)
+        gq = _split_product("bhrk,bhkd->bhrd", dss, ks) * scale
+        dq[b0:b0 + n] = gq.reshape(n, hkv, sq, g, d).permute(0, 2, 1, 3, 4) \
+            .reshape(n, sq, hq, d)
+        dk[b0:b0 + n] = (_split_product("bhrk,bhrd->bhkd", dss, split_tf32_raw(qr))
+                         * scale).permute(0, 2, 1, 3)
+        dv[b0:b0 + n] = _split_product("bhrk,bhrd->bhkd", split_tf32_raw(p),
+                                       split_tf32_raw(dor)).permute(0, 2, 1, 3)
+    return dq, dk, dv

@@ -182,8 +182,9 @@ def _meta(shape, dtype=torch.bfloat16):
 @pytest.mark.parametrize("dev", ["cpu", "meta"])
 def test_route(dev):
     """flash_backward.route: bf16, D 64, 128 or 256, 16-byte aligned, Sq > 1
-    and the forward's lse -> flash_backward_tc; f32, D 32, an unaligned
-    view, one query position or no lse -> flash_backward."""
+    and the forward's lse -> flash_backward_tc; f32, an unaligned view, one
+    query position or no lse -> flash_backward; D 32 (16 positions) ->
+    flash_backward_short."""
     def make(b, s, h, d, dtype=torch.bfloat16):
         return torch.empty((b, s, h, d), dtype=dtype, device=dev)
     lse = torch.empty((2, 8, 16), device=dev)
@@ -196,7 +197,7 @@ def test_route(dev):
         q1, k1 = make(2, 1, 8, d), make(2, 1, 2, d)
         assert flash_backward.route(q1, k1, k1, lse) == "flash_backward"
     q, k = make(2, 16, 8, 32), make(2, 16, 2, 32)
-    assert flash_backward.route(q, k, k, lse) == "flash_backward"
+    assert flash_backward.route(q, k, k, lse) == "flash_backward_short"
     if dev == "cpu":
         big = torch.empty((2, 16, 8, 72), dtype=torch.bfloat16)
         q, k = big[..., 1:65], make(2, 16, 2, 64)
