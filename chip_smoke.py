@@ -5,8 +5,8 @@
 Phases (each prints its seconds; any failure is an uncaught exception and
 a non-zero exit):
   0. environment: card name and power limit, torch/CUDA versions, and the
-     build of the ten CUDA kernels from `src/repro_torch/kernels/csrc`
-     (ptxas registers and spills of each).
+     build of the CUDA kernels from `src/repro_torch/kernels/csrc`, one nvcc
+     a source, in parallel (ptxas registers and spills of each).
   1. each kernel against its plain PyTorch version on ragged small shapes
      (exact for the integer kernels, allclose for bit_matvec), every tile
      of the autotuner's spaces too (warps 1-32 a block of coverage_gain,
@@ -306,6 +306,34 @@ a non-zero exit):
         eligible queries (the Tier-1 top-100 == the whole index's); after
         phase 2's worker, the CPU's optpes Tier-1 ids and top-100s == the
         card's.
+  8. the GNN family (EGNN) on `csrc/segment_sum.cu`, a segment sum that adds
+     each node's edges in ascending edge order (no atomics); all of it
+     beside phase 2's CPU worker after phase 7's card work, phase 3's
+     operands resident; every cut in GNN_REDUCED:
+     a. segment_sum against its plain version on the CPU copy, bit for bit
+        (and against the CPU's index_add_), on ragged cases: F 1-128 on both
+        routes (a thread a node up to F 8, a warp a node above), empty
+        segments, every edge into one node, -1 pads, out0, no edges; a
+        repeat identical; 3 chunks continued through out0 == one call;
+        `sum_rows` / `gather_rows` and their gradients == the direct calls;
+        then at ogb_products' [E, 64] against the plain version on the card,
+        timed beside its byte bound, the plain version, `index_add_` and
+        `index_put_(accumulate=True)`;
+     b. card == CPU at SMOKE and at full_graph_sm's full width (loss, every
+        gradient leaf, serve logits and coordinates), one numpy parameter
+        tree through `convert.egnn_params_from_numpy`; `launch.train --arch
+        egnn` on the card failed at step 3 and resumed == uninterrupted, bit
+        for bit; rotation + translation equivariance at SMOKE; the example
+        twin (`examples/egnn_molecule_torch.py`); the forward under
+        Mesh("data", 4 x the card) == direct; `quantized_psum` over 8
+        entries within the reference's bound;
+     c. each GNN shape at full width (d_hidden 64, 4 layers), random weights
+        from --seed: train steps through `make_train_step` (ms, edges/s,
+        peak GiB, launches a step) and serve_step ms; minibatch_lg fed by
+        the port's sampler (fanout 15-10, 1024 seeds) over a synthetic
+        reddit-sized graph, ogb_products at 61.9M edges in chunks of 2^22;
+        one step of minibatch_lg and of ogb_products under the profiler
+        (busy and idle shares; no scatter or atomic kernel on the path).
 The last lines are the kernels' JSON record, the card line, and the
 contract line {"ok": true, "device": {...}}.
 
@@ -6007,6 +6035,697 @@ def recsys_records(p7: dict, short_small: dict, p6_launches: dict) -> list[dict]
     return rows
 
 
+# -- phase 8: the GNN family (EGNN) ----------------------------------------------
+
+GNN_KERNELS = ("segment_sum",)
+# 8a: ragged cases of segment_sum against its plain version (name, N, E, F, kind):
+# random edges, many empty segments, every edge into one node, -1-padded
+# edges, a non-zero out0, chunked against unchunked; F 1, 3, 5 (the thread
+# route), 64, 100, 128 (the warp route), 9 and 33 (its edges)
+SEG_CASES = [
+    ("random", 24, 64, 1, "random"), ("random", 24, 64, 3, "random"),
+    ("random", 100, 700, 5, "random"), ("random", 1000, 7000, 64, "random"),
+    ("random", 37, 300, 100, "random"), ("random", 513, 4099, 128, "random"),
+    ("random", 50, 333, 9, "random"), ("random", 50, 333, 33, "random"),
+    ("empty", 5000, 300, 64, "random"), ("empty", 5000, 300, 3, "random"),
+    ("hub", 10, 5000, 64, "hub"), ("hub", 10, 5000, 1, "hub"),
+    ("padded", 200, 2048, 64, "pad"), ("padded", 200, 2048, 3, "pad"),
+    ("out0", 300, 2500, 64, "out0"), ("out0", 300, 2500, 5, "out0"),
+    ("no edges", 40, 0, 64, "random"), ("no edges", 40, 0, 3, "out0"),
+]
+SEG_CHUNKS = 3                  # 8a: the chunked case's contiguous edge chunks
+SEG_REPS = 10                   # 8a: timed launches at ogb_products' [E, 64]
+GNN_SERVE_TOL = 1e-4            # 8b: serve outputs, rtol and atol x max|CPU|
+GNN_MESH_TOL = (1e-4, 1e-5)     # 8b: the 4-entry data mesh against direct (rtol, atol)
+GNN_EQUI_TOL = (2e-3, 1e-2)     # 8b: rotation + translation (rtol, atol), untrained
+GNN_MESH_ENTRIES = 4
+GNN_QPSUM_ENTRIES = 8
+GNN_RESTART = (5, 3)            # 8b: launch.train --arch egnn: steps, the failing step
+GNN_TRAIN_STEPS = 3             # 8c: 1 warm-up + 2 timed (ogb_products: + 1 profiled)
+GNN_SERVE_REPS = 3              # 8c: serve_step calls timed (median)
+REDDIT_NODES = 232965           # 8c: minibatch_lg's synthetic graph
+REDDIT_DEGREE = 25              # 8c: out-edges a node (reddit has ~492)
+GNN_FANOUT = (15, 10)
+GNN_SEEDS = 1024
+GNN_REAL_EDGES = {"full_graph_sm": 10556, "ogb_products": 61859140, "molecule": 8192}
+# kernel names that add by scatter or atomics: index_add_ (indexFunc*),
+# index_put_ (with accumulate: indexing_backward), scatter_ / scatter_add_
+# (the scatter-like instance of the kernel torch.gather shares)
+GNN_FORBIDDEN = ("indexfunc", "indexing_backward", "index_put",
+                 "scatter_gather_internal_kernel<true", "scatter_add", "atomic")
+GNN_REDUCED = {
+    "weights": "random from --seed (init_params' distributions) at full width: "
+               "d_hidden 64, 4 layers, each shape's d_feat and classes",
+    "graphs": "synthetic: uniform random edges (cora's 10556 and ogb_products' "
+              "61859140 real edges, the rest of the cell's -1 pads), features, "
+              "coordinates and labels from --seed; molecule as 128 graphs of 30 "
+              "nodes and 64 edges",
+    "minibatch_lg_graph": f"reddit's {REDDIT_NODES} nodes with {REDDIT_DEGREE} random "
+                          "out-edges a node (reddit averages ~492): every fanout of "
+                          f"{GNN_FANOUT} still saturates, 5.8M edges instead of 114.6M",
+    "train_steps": f"{GNN_TRAIN_STEPS}: 1 warm-up + {GNN_TRAIN_STEPS - 1} timed, the "
+                   "same batch every step",
+    "restart": "8b: the SMOKE config through launch.train, not full width",
+}
+
+
+def seg_case(gen, n: int, e: int, f: int, kind: str, dev):
+    """(rows [E, F], index [E] with -1 where not valid, out0 or None) on
+    `dev` for one SEG_CASES row; `gen` is a CPU generator."""
+    rows = torch.randn((e, f), generator=gen)
+    if kind == "hub":
+        idx = torch.full((e,), n // 2, dtype=torch.int32)
+    else:
+        idx = torch.randint(0, n, (e,), generator=gen, dtype=torch.int32)
+    if kind == "pad":
+        idx[torch.rand(e, generator=gen) < 0.25] = -1
+        idx[-37:] = -1
+    out0 = torch.randn((n, f), generator=gen) if kind == "out0" else None
+    return rows.to(dev), idx.to(dev), None if out0 is None else out0.to(dev)
+
+
+def bits(t: torch.Tensor) -> torch.Tensor:
+    return t.detach().contiguous().view(torch.int32).cpu()
+
+
+def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    return a.shape == b.shape and torch.equal(bits(a), bits(b))
+
+
+def phase8_kernel_small(dev) -> dict:
+    """8a: segment_sum on SEG_CASES against its plain version on the CPU copy,
+    bit for bit (the plan built on the card equal to the CPU's), each call's
+    launch counted; a repeat gives the same bits; SEG_CHUNKS contiguous
+    chunks continued through out0 equal one call; `sum_rows` and
+    `gather_rows` and their gradients equal the direct calls."""
+    from repro_torch.kernels import _build, ref
+    from repro_torch.kernels import segment_sum as S
+    gen = torch.Generator().manual_seed(8)
+    routes = set()
+    for name, n, e, f, kind in SEG_CASES:
+        rows, idx, out0 = seg_case(gen, n, e, f, kind, dev)
+        p, pc = S.plan(idx, n), S.plan(idx.cpu(), n)
+        check(torch.equal(p.perm.cpu(), pc.perm) and torch.equal(p.offsets.cpu(), pc.offsets),
+              f"8a {name} F {f}: the card's plan differs from the CPU's")
+        n0 = _build.LAUNCHES["segment_sum"]
+        got = S.segment_sum(rows, p.perm, p.offsets, out0)
+        again = S.segment_sum(rows, p.perm, p.offsets, out0)
+        torch.cuda.synchronize()
+        check(_build.LAUNCHES["segment_sum"] == n0 + 2,
+              f"8a {name} F {f}: {_build.LAUNCHES['segment_sum'] - n0} launches for 2 calls")
+        want = ref.segment_sum(rows.cpu(), pc.perm, pc.offsets,
+                               None if out0 is None else out0.cpu())
+        check(same_bits(got, want), f"8a {name} N {n} E {e} F {f}: kernel != plain, max "
+              f"diff {float((got.cpu() - want).abs().max()) if got.numel() else 0.0}")
+        check(same_bits(got, again), f"8a {name} F {f}: two calls differ")
+        if e:
+            want_add = (torch.zeros((n, f)) if out0 is None else out0.cpu().clone()) \
+                .index_add_(0, pc.index[pc.perm.long()].long(), rows.cpu()[pc.perm.long()])
+            check(same_bits(got, want_add), f"8a {name} F {f}: kernel != the CPU's index_add_")
+        routes.add(S.route(f))
+        if e >= SEG_CHUNKS:
+            acc = out0
+            for c in torch.arange(e, device=dev).chunk(SEG_CHUNKS):
+                pp = S.plan(idx[c], n)
+                acc = S.segment_sum(rows[c].contiguous(), pp.perm, pp.offsets, acc)
+            check(same_bits(acc, got), f"8a {name} F {f}: chunked != unchunked")
+    # the autograd Functions: sum_rows' backward is a gather, gather_rows' a
+    # segment sum by the same plan; both equal the direct calls bit for bit
+    rows, idx, out0 = seg_case(gen, 300, 2500, 64, "pad", dev)
+    out0 = torch.randn((300, 64), generator=gen).to(dev)
+    p = S.plan(idx, 300)
+    r, o = rows.clone().requires_grad_(), out0.clone().requires_grad_()
+    y = S.sum_rows(r, p, o)
+    g = torch.randn(y.shape, generator=gen).to(dev)
+    gr, go = torch.autograd.grad(y, (r, o), g)
+    check(same_bits(y, S.segment_sum(rows, p.perm, p.offsets, out0)), "8a: sum_rows != direct")
+    keep = (idx >= 0)[:, None]
+    check(same_bits(gr, torch.where(keep, g[idx.clamp(min=0).long()], 0.0))
+          and same_bits(go, g), "8a: sum_rows' gradient != the gather")
+    table = torch.randn((300, 64), generator=gen).to(dev).requires_grad_()
+    z = S.gather_rows(table, p)
+    gz = torch.randn(z.shape, generator=gen).to(dev)
+    (gt,) = torch.autograd.grad(z, table, gz)
+    check(same_bits(z, torch.where(keep, table.detach()[idx.clamp(min=0).long()], 0.0)),
+          "8a: gather_rows != table[index]")
+    check(same_bits(gt, S.segment_sum(gz, p.perm, p.offsets)),
+          "8a: gather_rows' gradient != segment_sum by the plan")
+    check(routes == {"thread", "warp"}, f"8a: routes taken {routes}")
+    log(f"[phase 8a] segment_sum == its plain version (and the CPU's index_add_) bit for "
+        f"bit on {len(SEG_CASES)} ragged cases (F 1-128, empty segments, one hub node, "
+        f"-1 pads, out0, no edges; routes {sorted(routes)}), repeats identical, "
+        f"{SEG_CHUNKS} chunks == one call; sum_rows / gather_rows and their gradients == "
+        f"the direct calls")
+    return dict(cases=len(SEG_CASES), routes=sorted(routes))
+
+
+def ogb_edges(seed: int, dev) -> torch.Tensor:
+    """ogb_products' [2, E] int32 edges on `dev`: GNN_REAL_EDGES uniform random
+    (src, dst) pairs from `seed`, then -1 pads to the cell's E."""
+    n, e = gnn_dims()["ogb_products"][:2]
+    gen = torch.Generator(dev).manual_seed(seed)
+    edges = torch.randint(0, n, (2, e), generator=gen, device=dev, dtype=torch.int32)
+    edges[:, GNN_REAL_EDGES["ogb_products"]:] = -1
+    return edges
+
+
+def gnn_dims() -> dict:
+    from repro_torch.configs import registry as R
+    return R.GNN_DIMS
+
+
+def phase8_kernel_ogb(seed: int, dev) -> dict:
+    """8a at ogb_products' [E, 64] (the layer's message sum): the kernel
+    against its plain version on the card (bit for bit; the plain version's
+    order is the plan's on either device), a repeat identical, then timed
+    beside its byte bound, the plain version and the library's two calls that
+    compute the same sum with atomics (`index_add_`, `index_put_` with
+    accumulate; pad rows zeroed and sent to node 0 so all compute one
+    function)."""
+    from repro_torch.kernels import _build, ref
+    from repro_torch.kernels import segment_sum as S
+    n, e = gnn_dims()["ogb_products"][:2]
+    f = 64
+    edges = ogb_edges(seed, dev)
+    dst = edges[1].clone()
+    del edges
+    gen = torch.Generator(dev).manual_seed(seed + 1)
+    rows = torch.randn((e, f), generator=gen, device=dev)
+    valid = dst >= 0
+    rows[~valid] = 0.0
+    t = time.perf_counter()
+    p = S.plan(dst, n, valid)
+    torch.cuda.synchronize()
+    plan_ms = (time.perf_counter() - t) * 1e3
+    m = p.perm.shape[0]
+    n0 = _build.LAUNCHES["segment_sum"]
+    got = S.segment_sum(rows, p.perm, p.offsets)
+    again = S.segment_sum(rows, p.perm, p.offsets)
+    want = ref.segment_sum(rows, p.perm, p.offsets)
+    torch.cuda.synchronize()
+    check(_build.LAUNCHES["segment_sum"] == n0 + 2, "8a ogb: launches")
+    check(same_bits(got, want), f"8a ogb [E, 64]: kernel != plain, max diff "
+          f"{float((got - want).abs().max())}")
+    check(same_bits(got, again), "8a ogb [E, 64]: two calls differ")
+    del want, again
+    idx64 = torch.where(valid, dst, 0).long()
+    out = torch.zeros((n, f), device=dev)
+    lib_add = torch.zeros((n, f), device=dev).index_add_(0, idx64, rows)
+    lib_put = torch.zeros((n, f), device=dev).index_put_((idx64,), rows, accumulate=True)
+    lib_err = max(float((lib_add - got).abs().max()), float((lib_put - got).abs().max()))
+    lib_bits = same_bits(lib_add, torch.zeros((n, f), device=dev).index_add_(0, idx64, rows))
+    del lib_add, lib_put
+    ms = time_ms(lambda: S.segment_sum(rows, p.perm, p.offsets), SEG_REPS)
+    plain_ms = time_ms(lambda: ref.segment_sum(rows, p.perm, p.offsets), 2)
+    add_ms = time_ms(lambda: out.zero_().index_add_(0, idx64, rows), SEG_REPS)
+    put_ms = time_ms(lambda: out.zero_().index_put_((idx64,), rows, accumulate=True), SEG_REPS)
+    nbytes = m * f * 4 + m * 4 + (n + 1) * 4 + n * f * 4
+    b_ms, b_by = bound(nbytes)
+    rec = dict(name="segment_sum", shape=f"E={e} ({m} valid), N={n}, F={f}", ms=ms,
+               plain_ms=plain_ms, library_ms=add_ms, library=f"index_add_ {add_ms:.3f} ms "
+               f"(atomics), index_put_(accumulate=True) {put_ms:.3f} ms",
+               index_put_ms=put_ms, bound_ms=b_ms, bound_by=b_by, max_abs_err=0.0,
+               library_max_abs_diff=lib_err, library_repeat_identical=lib_bits,
+               plan_ms=plan_ms, bytes=nbytes)
+    log(f"[phase 8a] segment_sum at ogb_products' [E, 64] ({m} valid of {e} edges onto "
+        f"{n} nodes): {ms:.3f} ms (bound {b_ms:.3f} ms by {b_by}, {b_ms / ms:.1%}), plain "
+        f"{plain_ms:.3f} ms, index_add_ {add_ms:.3f} ms, index_put_(accumulate=True) "
+        f"{put_ms:.3f} ms; == plain bit for bit, repeat identical; the atomics' result "
+        f"within {lib_err:.3g} of it (two index_add_ calls identical: {lib_bits}); the "
+        f"plan (two sorts' worth) {plan_ms:.1f} ms")
+    return rec
+
+
+def egnn_numpy_params(rng, cfg) -> dict:
+    """An EGNN parameter tree of numpy f32 arrays from `rng`: weights
+    N(0, 1/fan_in), biases N(0, 0.1^2) (non-zero, so they count)."""
+    def mlp(dims):
+        return [{"w": (rng.standard_normal((a, b)) / np.sqrt(a)).astype(np.float32),
+                 "b": (0.1 * rng.standard_normal(b)).astype(np.float32)}
+                for a, b in zip(dims, dims[1:])]
+    dh = cfg.d_hidden
+    return {"embed": mlp((cfg.d_feat, dh)),
+            "layers": [{"phi_e": mlp((2 * dh + 1, dh, dh)), "phi_x": mlp((dh, dh, 1)),
+                        "phi_h": mlp((2 * dh, dh, dh))} for _ in range(cfg.n_layers)],
+            "readout": mlp((dh, dh, cfg.n_classes))}
+
+
+def gnn_batch(shape: str, seed: int, dev) -> tuple[dict, dict]:
+    """A full-width batch of `shape` on `dev` from `seed`, and what went
+    into it (minibatch_lg: the sampler's graph and its times)."""
+    n, e, d, c, task = gnn_dims()[shape]
+    if shape == "minibatch_lg":
+        return sampled_batch(seed, dev)
+    gen = torch.Generator(dev).manual_seed(seed)
+    batch = {"node_feat": torch.randn((n, d), generator=gen, device=dev),
+             "coords": torch.randn((n, 3), generator=gen, device=dev)}
+    if shape == "ogb_products":
+        batch["edges"] = ogb_edges(seed, dev)
+    elif task == "graph_reg":           # molecule: 128 graphs of 30 nodes, 64 edges each
+        g, per = 128, n // 128
+        base = torch.arange(g, device=dev, dtype=torch.int32).repeat_interleave(e // g) * per
+        batch["edges"] = torch.randint(0, per, (2, e), generator=gen, device=dev,
+                                       dtype=torch.int32) + base
+        batch["graph_ids"] = torch.arange(g, device=dev, dtype=torch.int32).repeat_interleave(per)
+        batch["targets"] = torch.randn((g,), generator=gen, device=dev)
+    else:
+        batch["edges"] = torch.randint(0, n, (2, e), generator=gen, device=dev,
+                                       dtype=torch.int32)
+        batch["edges"][:, GNN_REAL_EDGES[shape]:] = -1
+    if task == "node_class":
+        batch["labels"] = torch.randint(0, c, (n,), generator=gen, device=dev,
+                                        dtype=torch.int32)
+    return batch, {}
+
+
+def sampled_batch(seed: int, dev) -> tuple[dict, dict]:
+    """minibatch_lg from the port's sampler: a synthetic graph of
+    REDDIT_NODES nodes with REDDIT_DEGREE random out-edges each, GNN_SEEDS
+    seeds, fanout GNN_FANOUT, padded to the cell's shape; labels on the
+    seeds only. Times the graph's CSR build and the sampling apart."""
+    from repro_torch.models import sampler as SM
+    n, e, d, c, _ = gnn_dims()["minibatch_lg"]
+    rng = np.random.default_rng(seed)
+    src = np.repeat(np.arange(REDDIT_NODES, dtype=np.int64), REDDIT_DEGREE)
+    dst = rng.integers(0, REDDIT_NODES, src.shape[0])
+    t = time.perf_counter()
+    graph = SM.CSRGraph.from_edges(np.stack([src, dst]), REDDIT_NODES)
+    csr_s = time.perf_counter() - t
+    seeds = rng.choice(REDDIT_NODES, GNN_SEEDS, replace=False)
+    t = time.perf_counter()
+    nodes, edges, seed_mask = SM.sample_subgraph(graph, seeds, GNN_FANOUT, rng,
+                                                 pad_nodes=n, pad_edges=e)
+    sample_s = time.perf_counter() - t
+    real, n_edges = int((nodes >= 0).sum()), int((edges[0] >= 0).sum())
+    hop1 = GNN_SEEDS * GNN_FANOUT[0]       # every fanout saturates: whole draws only
+    check(seed_mask.sum() == GNN_SEEDS and n_edges > hop1
+          and (n_edges - hop1) % GNN_FANOUT[1] == 0,
+          f"8c minibatch_lg: {seed_mask.sum()} seeds, {n_edges} edges")
+    gen = torch.Generator(dev).manual_seed(seed)
+    live = torch.from_numpy(nodes >= 0).to(dev)
+    labels = torch.randint(0, c, (n,), generator=gen, device=dev, dtype=torch.int32)
+    batch = {"node_feat": torch.randn((n, d), generator=gen, device=dev) * live[:, None],
+             "coords": torch.randn((n, 3), generator=gen, device=dev) * live[:, None],
+             "edges": torch.from_numpy(edges).to(dev),
+             "labels": torch.where(torch.from_numpy(seed_mask).to(dev), labels, -100)}
+    info = dict(sampler=dict(graph_edges=int(src.shape[0]), csr_s=csr_s, sample_s=sample_s,
+                             nodes=real, edges=n_edges))
+    log(f"[phase 8c] minibatch_lg sampler: a {REDDIT_NODES}-node graph of {src.shape[0]} "
+        f"edges (CSR {csr_s:.2f} s), {GNN_SEEDS} seeds at fanout {GNN_FANOUT}: {real} nodes, "
+        f"{n_edges} edges (pads to {n}, {e}) in {sample_s:.2f} s")
+    return batch, info
+
+
+def egnn_loss_grads(cfg, params_np: dict, batch: dict, device) -> dict:
+    """loss, metrics, every gradient leaf (on the CPU) and the serve outputs
+    of `cfg` on `device`, the parameters from numpy."""
+    from repro_torch import convert
+    from repro_torch.models import egnn as G
+    from repro_torch.train import tree
+    params = convert.egnn_params_from_numpy(params_np, cfg, device)
+    batch = {k: v.to(device) for k, v in batch.items()}
+    leaves = tree.leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    loss, met = G.loss_fn(params, batch, cfg)
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True, materialize_grads=True)
+    with torch.no_grad():
+        logits, x = G.serve_step(params, batch, cfg)
+    return dict(loss=float(loss.detach()),
+                metrics={k: float(v.detach()) for k, v in met.items()},
+                grads={p: g.detach().cpu() for (p, _), g in
+                       zip(tree.leaves_with_paths(params), grads)},
+                serve=(logits.cpu(), x.cpu()))
+
+
+def egnn_card_vs_cpu(name: str, cfg, batch: dict, seed: int, dev) -> dict:
+    """8b: loss, metrics and every gradient leaf within 6c's limits, serve
+    outputs within GNN_SERVE_TOL (rtol, and atol x max|CPU|), card against
+    CPU, from one numpy parameter tree."""
+    params_np = egnn_numpy_params(np.random.default_rng(seed), cfg)
+    n0 = launch_counts()
+    card = egnn_loss_grads(cfg, params_np, batch, dev)
+    card_launch = launched(n0)
+    cpu = egnn_loss_grads(cfg, params_np, batch, torch.device("cpu"))
+    for key in ("loss", *cpu["metrics"]):
+        g = card["loss"] if key == "loss" else card["metrics"][key]
+        c = cpu["loss"] if key == "loss" else cpu["metrics"][key]
+        check(abs(g - c) <= TRAIN_LOSS_RTOL * max(1.0, abs(c)),
+              f"8b {name} {key}: card {g} != CPU {c}")
+    worst, where = 0.0, ""
+    for path, gc_ in cpu["grads"].items():
+        r = float((card["grads"][path] - gc_).abs().max()) / (
+            TRAIN_GRAD_TOL * float(gc_.abs().max()) + 1e-6)
+        if r > worst:
+            worst, where = r, path
+    check(worst <= 1.0, f"8b {name}: gradient {where} at {worst:.3f} of the limit")
+    serve_worst = 0.0
+    for got, want in zip(card["serve"], cpu["serve"]):
+        lim = GNN_SERVE_TOL * (want.abs() + want.abs().max())
+        serve_worst = max(serve_worst, float(((got - want).abs() / lim).max()))
+    check(serve_worst <= 1.0, f"8b {name}: serve outputs at {serve_worst:.3f} of the limit")
+    check(card_launch.get("segment_sum", 0) > 0 and set(card_launch) == {"segment_sum"},
+          f"8b {name}: the card's loss and serve took {card_launch}")
+    log(f"[phase 8b] {name}: loss card {card['loss']:.6f} / CPU {cpu['loss']:.6f}; "
+        f"{len(cpu['grads'])} gradient leaves within {worst:.3f} of the limit (worst "
+        f"{where}); serve logits and coordinates within {serve_worst:.3f} of it; "
+        f"launches {card_launch}")
+    return dict(loss=card["loss"], loss_cpu=cpu["loss"], grad_worst=worst,
+                serve_worst=serve_worst, launches=card_launch)
+
+
+def egnn_restart(dev) -> dict:
+    """8b: `launch.train --arch egnn` on the card: a run failed at step
+    GNN_RESTART[1] (checkpointed there) and resumed to GNN_RESTART[0], against
+    an uninterrupted run; losses and every state leaf equal bit for bit."""
+    import shutil
+    from repro_torch.launch import train as launch
+    from repro_torch.train import tree
+    steps, fail = GNN_RESTART
+    root = Path(__file__).resolve().parent / "build" / "phase8_ckpt"
+    shutil.rmtree(root, ignore_errors=True)
+
+    def run(name, *extra):
+        return launch.run(launch.parse_args(
+            ["--arch", "egnn", "--steps", str(steps), "--ckpt-dir", str(root / name),
+             *extra]))
+    try:
+        run("resumed", "--ckpt-every", str(fail), "--fail-at-step", str(fail))
+        raise AssertionError("8b: the injected failure did not fire")
+    except RuntimeError as e:
+        check("injected failure" in str(e), f"8b: {e}")
+    resumed, hist_r = run("resumed", "--ckpt-every", str(fail))
+    whole, hist_w = run("whole", "--ckpt-every", str(steps))
+    check(resumed["params"]["embed"][0]["w"].device.type == "cuda",
+          "8b: launch.train did not train on the card")
+    check([h["loss"] for h in hist_r] == [h["loss"] for h in hist_w[fail:]],
+          f"8b: resumed losses {hist_r} != uninterrupted {hist_w[fail:]}")
+    diff = [p for (p, a), c in zip(tree.leaves_with_paths(resumed), tree.leaves(whole))
+            if not torch.equal(a, c)]
+    check(not diff, f"8b: the resumed EGNN state differs at {diff[:5]}")
+    shutil.rmtree(root, ignore_errors=True)
+    return dict(losses=[h["loss"] for h in hist_w], leaves=len(tree.leaves(whole)))
+
+
+def egnn_equivariance(dev) -> dict:
+    """8b: the SMOKE config, untrained weights on the card, its SMOKE batch
+    rotated (1.1 rad about z) and moved (+7): h within GNN_EQUI_TOL of the
+    original's, the coordinates of the rotated the rotated original's."""
+    from repro_torch.configs import egnn as C
+    from repro_torch.models import egnn as G
+    cfg, batch, _ = C._smoke()
+    params = G.init_params(torch.Generator(dev).manual_seed(0), cfg)
+    batch = {k: v.to(dev) for k, v in batch.items()}
+    theta = 1.1
+    q = torch.tensor([[np.cos(theta), -np.sin(theta), 0], [np.sin(theta), np.cos(theta), 0],
+                      [0, 0, 1]], dtype=torch.float32, device=dev)
+    with torch.no_grad():
+        h1, x1 = G.forward(params, batch, cfg)
+        h2, x2 = G.forward(params, dict(batch, coords=batch["coords"] @ q.T + 7.0), cfg)
+    rtol, atol = GNN_EQUI_TOL
+    torch.testing.assert_close(h2, h1, rtol=rtol, atol=atol)
+    torch.testing.assert_close(x2, x1 @ q.T + 7.0, rtol=rtol, atol=atol)
+    return dict(h=float((h1 - h2).abs().max()), x=float((x1 @ q.T + 7.0 - x2).abs().max()),
+                x_max=float(x1.abs().max()))
+
+
+def egnn_example(dev) -> dict:
+    """8b: examples/egnn_molecule_torch.py's run on the card (150 steps of
+    graph regression, then rotation + translation invariance)."""
+    import importlib.util
+    path = Path(__file__).resolve().parent / "examples" / "egnn_molecule_torch.py"
+    spec = importlib.util.spec_from_file_location("egnn_molecule_torch", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    r = mod.run(dev)
+    check(r["last"] < r["first"] and r["err"] < mod.INVARIANCE_TOL,
+          f"8b: the example's loss {r['first']} -> {r['last']}, invariance error {r['err']}")
+    return r
+
+
+def egnn_mesh(dev) -> dict:
+    """8b: forward under Mesh("data", GNN_MESH_ENTRIES x the card) == the
+    direct path: within GNN_MESH_TOL at the reference's own check (its
+    test_multidevice config: 2 layers, d_hidden 8, 20 nodes, 64 edges) and
+    at SMOKE; at full_graph_sm's full width the atol is GNN_MESH_TOL's x
+    max|direct| (4 layers amplify the values, and the psum's other
+    association rounds at their scale); then quantized_psum over
+    GNN_QPSUM_ENTRIES entries within the reference's bound
+    8 * 2 * max|v| / 127 of the exact sum."""
+    from repro_torch.configs import egnn as C
+    from repro_torch.distributed import Mesh, use_mesh
+    from repro_torch.distributed.compression import quantized_psum
+    from repro_torch.models import egnn as G
+    out = {}
+    rtol, atol = GNN_MESH_TOL
+    mesh = Mesh("data", (dev,) * GNN_MESH_ENTRIES)
+    rng = np.random.default_rng(0)
+    ref_batch = {"node_feat": torch.from_numpy(rng.standard_normal((20, 4)).astype(np.float32)),
+                 "coords": torch.from_numpy(rng.standard_normal((20, 3)).astype(np.float32)),
+                 "edges": torch.from_numpy(rng.integers(0, 20, (2, 64)).astype(np.int32))}
+    for name, cfg, batch, scaled in (
+            ("reference", G.EGNNConfig(n_layers=2, d_hidden=8, d_feat=4, n_classes=2),
+             ref_batch, False),
+            ("SMOKE", *C._smoke()[:2], False),
+            ("full_graph_sm", C.config_for("full_graph_sm"), gnn_batch("full_graph_sm", 3, dev)[0],
+             True)):
+        params = G.init_params(torch.Generator(dev).manual_seed(5), cfg)
+        batch = {k: v.to(dev) for k, v in batch.items()}
+        with torch.no_grad():
+            h, x = G.forward(params, batch, cfg)
+            n0 = launch_counts()
+            with use_mesh(mesh):
+                hm, xm = G.forward(params, batch, cfg)
+            n = launched(n0).get("segment_sum", 0)
+        check(n == 2 * cfg.n_layers * GNN_MESH_ENTRIES,
+              f"8b mesh {name}: {n} segment_sum launches, expected one a sum and entry")
+        for got, want in ((hm, h), (xm, x)):
+            torch.testing.assert_close(
+                got, want, rtol=rtol, atol=atol * (float(want.abs().max()) if scaled else 1.0),
+                msg=lambda m: f"8b mesh {name}: {m}")
+        out[name] = dict(h=float((hm - h).abs().max()), x=float((xm - x).abs().max()),
+                         h_max=float(h.abs().max()), x_max=float(x.abs().max()))
+    gen = torch.Generator(dev).manual_seed(4)
+    v = torch.randn((GNN_QPSUM_ENTRIES, 32), generator=gen, device=dev)
+    got = quantized_psum(list(v))
+    err = float((got - v.sum(0)).abs().max())
+    lim = GNN_QPSUM_ENTRIES * 2 * float(v.abs().max()) / 127
+    check(err < lim, f"8b quantized_psum: {err} >= {lim}")
+    out["quantized_psum"] = dict(err=err, bound=lim)
+    return out
+
+
+def phase8_checks(seed: int, dev) -> dict:
+    """8b: card == CPU at SMOKE and full_graph_sm, the restart through
+    launch.train, equivariance, the example twin, the data mesh and
+    quantized_psum."""
+    from repro_torch.configs import egnn as C
+    t = time.perf_counter()
+    out = {"SMOKE": egnn_card_vs_cpu("SMOKE", *C._smoke()[:2], seed, dev)}
+    fg = C.config_for("full_graph_sm")
+    out["full_graph_sm"] = egnn_card_vs_cpu("full_graph_sm", fg,
+                                            gnn_batch("full_graph_sm", seed, dev)[0], seed, dev)
+    out["restart"] = egnn_restart(dev)
+    log(f"[phase 8b] launch.train --arch egnn on the card: failed at step {GNN_RESTART[1]}, "
+        f"resumed to {GNN_RESTART[0]}: losses and all {out['restart']['leaves']} state "
+        f"leaves equal the uninterrupted run's bit for bit; losses {out['restart']['losses']}")
+    out["equivariance"] = egnn_equivariance(dev)
+    out["example"] = egnn_example(dev)
+    log(f"[phase 8b] equivariance at SMOKE (untrained): h within "
+        f"{out['equivariance']['h']:.3g}, x within {out['equivariance']['x']:.3g} (|x| up to "
+        f"{out['equivariance']['x_max']:.3g}; rtol, atol {GNN_EQUI_TOL}); the example twin: "
+        f"mse {out['example']['first']:.4f} -> {out['example']['last']:.4f}, invariance "
+        f"error {out['example']['err']:.2e} (< 1e-3)")
+    out["mesh"] = egnn_mesh(dev)
+    log(f"[phase 8b] Mesh('data', {GNN_MESH_ENTRIES} x {dev}) forward == direct: "
+        f"{ {k: v for k, v in out['mesh'].items() if k != 'quantized_psum'} } (rtol, atol "
+        f"{GNN_MESH_TOL}); quantized_psum over {GNN_QPSUM_ENTRIES} entries: error "
+        f"{out['mesh']['quantized_psum']['err']:.4g} < {out['mesh']['quantized_psum']['bound']:.4g}"
+        f"; 8b {time.perf_counter() - t:.1f}s")
+    return out
+
+
+def forbidden_kernels(names) -> list[str]:
+    """The kernel names among `names` that add with a scatter or atomics."""
+    return [k for k in names if any(f in k.lower() for f in GNN_FORBIDDEN)]
+
+
+def egnn_step_profile(step_fn) -> dict | None:
+    """One train step under torch.profiler: busy and idle share, segment_sum's
+    and the matmuls' shares, and every kernel's name (none may scatter)."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        step_fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t) * 1e3
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA and not e.is_user_annotation]
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3
+    if busy <= 0:
+        log("[phase 8c] the profiler saw no device time: shares not measured")
+        return None
+    bad = forbidden_kernels(e.key for e in kernels)
+    check(not bad, f"8c: a train step ran scatter or atomic kernels: {bad}")
+    seg = sum(e.self_device_time_total for e in kernels if "segment_sum" in e.key) / 1e3
+    mm = sum(e.self_device_time_total for e in kernels
+             if any(m in e.key.lower() for m in MATMUL_KEYS)) / 1e3
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
+    return dict(wall_ms=wall, busy_ms=busy, idle_share=1 - busy / wall,
+                segment_sum_share=seg / busy, matmul_share=mm / busy, kernels=len(kernels),
+                top_kernels=[(e.key[:80], e.self_device_time_total / 1e3) for e in top])
+
+
+def phase8_shape(shape: str, seed: int, dev, profile: bool = False) -> dict:
+    """8c: one GNN shape at full width, random weights from `seed`: a few
+    train steps through the registry's loss and make_train_step (AdamW, f32;
+    ms a step, edges a second, peak GiB above what earlier phases keep
+    resident, batch included; launches a step), one more under the profiler
+    if asked, then serve_step (ms, finite outputs)."""
+    from repro_torch.configs import registry as R
+    from repro_torch.kernels import _build
+    from repro_torch.models import egnn as G
+    from repro_torch.train import tree
+    from repro_torch.train.optimizer import OptimizerConfig
+    from repro_torch.train.trainer import make_train_step
+    arch = R.get_arch("egnn")
+    cfg = arch.config_for(shape)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()     # what earlier phases keep resident
+    batch, info = gnn_batch(shape, seed, dev)
+    n_edges = int(((batch["edges"][0] >= 0) & (batch["edges"][1] >= 0)).sum())
+    init_state, train_step = make_train_step(
+        arch.loss_fn(cfg), OptimizerConfig(name=arch.optimizer, lr=1e-3, warmup_steps=1,
+                                           decay_steps=100))
+    state = init_state(G.init_params(torch.Generator(dev).manual_seed(seed), cfg))
+    _build.reset_launches()      # the shape's training path starts here
+    losses, times = [], []
+    for _ in range(GNN_TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        state, met = train_step(state, batch)
+        losses.append(float(met["loss"]))
+        times.append((time.perf_counter() - t) * 1e3)
+    launches = {k: v for k, v in _build.LAUNCHES.items() if v}
+    check(all(math.isfinite(x) for x in losses), f"8c {shape}: losses {losses}")
+    check(set(launches) == {"segment_sum"} and launches["segment_sum"] % GNN_TRAIN_STEPS == 0,
+          f"8c {shape}: the steps launched {launches}")
+    peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+    ms = statistics.median(times[1:])
+    prof = None
+    if profile:
+        holder = {"state": state}
+
+        def one():
+            holder["state"], _ = train_step(holder["state"], batch)
+        prof = egnn_step_profile(one)
+        state = holder["state"]
+    params = state["params"]
+    for p in tree.leaves(params):
+        p.requires_grad_(False)
+    del state
+    gc.collect()
+    serve = arch.serve_fn(cfg, shape)
+    _build.reset_launches()
+    with torch.no_grad():
+        serve_ms = []
+        for _ in range(GNN_SERVE_REPS):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            logits, x = serve(params, batch)
+            torch.cuda.synchronize()
+            serve_ms.append((time.perf_counter() - t) * 1e3)
+    serve_launch = {k: v for k, v in _build.LAUNCHES.items() if v}
+    n, _, _, c, _ = gnn_dims()[shape]
+    check(tuple(logits.shape) == (n, c) and tuple(x.shape) == (n, 3)
+          and bool(torch.isfinite(logits).all()) and bool(torch.isfinite(x).all()),
+          f"8c {shape}: serve outputs {tuple(logits.shape)}, {tuple(x.shape)}, finite "
+          f"{bool(torch.isfinite(logits).all())}")
+    check(serve_launch.get("segment_sum", 0) == 2 * cfg.n_layers * GNN_SERVE_REPS
+          * len(range(0, batch["edges"].shape[1], cfg.edge_chunk)),
+          f"8c {shape}: serve launches {serve_launch}")
+    rec = dict(shape=shape, nodes=n, edges=int(batch["edges"].shape[1]), valid_edges=n_edges,
+               chunks=len(range(0, batch["edges"].shape[1], cfg.edge_chunk)),
+               edge_chunk=cfg.edge_chunk, ms_per_step=ms, edges_per_s=n_edges / ms * 1e3,
+               peak_gib=peak, losses=losses, launches=launches,
+               launches_per_step=launches.get("segment_sum", 0) // GNN_TRAIN_STEPS,
+               serve_ms=statistics.median(serve_ms), serve_launches=serve_launch,
+               profile=prof, **info)
+    log(f"[phase 8c] {shape} ({n} nodes, {n_edges} edges, {rec['chunks']} chunk(s) of "
+        f"{cfg.edge_chunk}): {ms:.1f} ms a train step ({rec['edges_per_s']:.4g} edges/s), "
+        f"peak {peak:.2f} GiB, losses {[round(v, 5) for v in losses]}, "
+        f"{rec['launches_per_step']} segment_sum launches a step; serve_step "
+        f"{rec['serve_ms']:.1f} ms" + (f"; profiled step: busy {prof['busy_ms']:.1f} of "
+                                       f"{prof['wall_ms']:.1f} ms (idle "
+                                       f"{prof['idle_share']:.1%}), segment_sum "
+                                       f"{prof['segment_sum_share']:.1%}, matmuls "
+                                       f"{prof['matmul_share']:.1%} of busy; top "
+                                       f"{prof['top_kernels'][:4]}" if prof else ""))
+    del params, batch, logits, x
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase8_wait(seed: int, dev=torch.device("cuda")) -> dict:
+    """Phase 8 beside phase 2's CPU worker (after phase 7's; phase 3's
+    operands leave ~27 GiB free): 8a's ragged cases, 8b, 8c at molecule,
+    full_graph_sm and minibatch_lg, then ogb_products (8a's kernel at
+    [E, 64], ~20 GiB; 8c's steps). Frees what it made."""
+    t_all = time.perf_counter()
+    out = {"small": phase8_kernel_small(dev)}
+    log(f"[phase 8a] {time.perf_counter() - t_all:.1f}s")
+    out["checks"] = phase8_checks(seed, dev)
+    out["shapes"] = {}
+    for shape in ("molecule", "full_graph_sm", "minibatch_lg"):
+        t = time.perf_counter()
+        out["shapes"][shape] = phase8_shape(shape, seed, dev, profile=shape == "minibatch_lg")
+        log(f"[phase 8c] {shape}: {time.perf_counter() - t:.1f}s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["ogb"] = phase8_ogb(seed, dev)
+    log(f"[phase 8] beside phase 2's worker {time.perf_counter() - t_all:.1f}s")
+    return out
+
+
+def phase8_ogb(seed: int, dev=torch.device("cuda")) -> dict:
+    """Phase 8's ogb_products half: 8a's kernel at [E, 64], then 8c's steps
+    and serve at 61.9M edges."""
+    t = time.perf_counter()
+    kern = phase8_kernel_ogb(seed, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[phase 8a] ogb_products [E, 64]: {time.perf_counter() - t:.1f}s")
+    t = time.perf_counter()
+    shape = phase8_shape("ogb_products", seed, dev, profile=True)
+    log(f"[phase 8c] ogb_products: {time.perf_counter() - t:.1f}s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(kernel=kern, shape=shape)
+
+
+def gnn_record(p8: dict) -> dict:
+    """The kernels line's segment_sum row: 8a's timing at ogb_products' [E, 64],
+    its launches in every 8c training run (launches_per_step beside), the
+    ragged cases' count."""
+    src, where = SOURCES["segment_sum"]
+    shapes = dict(p8["shapes"], ogb_products=p8["ogb"]["shape"])
+    return dict(p8["ogb"]["kernel"], route="cuda", source=src, replaces=where,
+                replaces_note="no Pallas kernel: the reference's XLA jax.ops.segment_sum "
+                              "calls in EGNN's layer (and its gathers' gradients)",
+                launches=sum(s["launches"].get("segment_sum", 0) for s in shapes.values()),
+                launches_path="8c: the train steps of molecule, full_graph_sm, "
+                              "minibatch_lg and ogb_products",
+                launches_per_step={k: s["launches_per_step"] for k, s in shapes.items()},
+                ragged_cases=p8["small"]["cases"], routes=p8["small"]["routes"],
+                gnn={k: {m: s[m] for m in ("ms_per_step", "edges_per_s", "peak_gib",
+                                           "serve_ms", "chunks")}
+                     for k, s in shapes.items()})
+
+
 SOURCES = {
     "coverage_gain": ("src/repro_torch/kernels/csrc/coverage_gain.cu",
                       "src/repro/kernels/coverage_gain.py:33"),
@@ -6033,12 +6752,17 @@ SOURCES = {
                           "src/repro/kernels/flash_attention.py:93"),
     "flash_backward_short": ("src/repro_torch/kernels/csrc/flash_backward_short.cu",
                              "src/repro/kernels/flash_attention.py:93"),
+    # no Pallas kernel: the XLA segment sums of the reference's EGNN layer
+    "segment_sum": ("src/repro_torch/kernels/csrc/segment_sum.cu",
+                    "src/repro/models/egnn.py:108"),
 }
 # the kernels of the tiering paths (phases 1-3); the LM phases check their own:
-# serving's three attention kernels (phase 4) and training's backward (phase 6)
+# serving's three attention kernels (phase 4) and training's backward (phase 6),
+# and phase 8 EGNN's segment sum (GNN_KERNELS)
 LM_KERNELS = ("flash_attention", "flash_decode", "flash_prefill")
 TRAIN_KERNELS = ("flash_backward", "flash_backward_tc", "flash_backward_short")
-TIERING_KERNELS = tuple(k for k in SOURCES if k not in LM_KERNELS + TRAIN_KERNELS)
+TIERING_KERNELS = tuple(k for k in SOURCES
+                        if k not in LM_KERNELS + TRAIN_KERNELS + GNN_KERNELS)
 
 
 def ptxas_lines(build_log: str) -> list[str]:
@@ -6090,7 +6814,7 @@ def main() -> int:
         log(f"[phase 0]   ptxas {ln}")
     log(f"[phase 0] {time.perf_counter() - t:.1f}s")
 
-    rec, p7 = tiering_phases(args.seed)
+    rec, p7, p8 = tiering_phases(args.seed)
     t = time.perf_counter()
     fa_small = phase4_kernel_small(cuda)
     small = phase4_decode_small(cuda)
@@ -6140,6 +6864,8 @@ def main() -> int:
     rec += recsys_records(p7, short_small, p6_launches)
     log(f"[phase 7] train: {time.perf_counter() - t:.1f}s; recsys_reduced "
         f"{json.dumps(RECSYS_REDUCED)}")
+    rec.append(gnn_record(p8))
+    log(f"[phase 8] gnn_reduced {json.dumps(GNN_REDUCED)}")
     log(f"total {time.perf_counter() - t_all:.1f}s")
     print(json.dumps({"kernels": rec}))
     print(card_line())
@@ -6159,7 +6885,7 @@ def production_phases(seed: int):
     p3["shards"] = phase3_shards(p3, counts)
     p3["sparse"] = phase3_sparse(p3, counts)
     check(all(counts[k] > 0 for k in TIERING_KERNELS) and len(counts) == len(SOURCES)
-          and all(counts[k] == 0 for k in LM_KERNELS + TRAIN_KERNELS),
+          and all(counts[k] == 0 for k in LM_KERNELS + TRAIN_KERNELS + GNN_KERNELS),
           f"a kernel never launched in phase 3, or an LM kernel did: {counts}")
     log(f"[phase 3] launches {dict(counts)}; {time.perf_counter() - t:.1f}s")
     t = time.perf_counter()
@@ -6181,11 +6907,12 @@ def production_phases(seed: int):
     return rec, p3, counts, solvers, telemetry, t_scale
 
 
-def tiering_phases(seed: int) -> tuple[list[dict], dict]:
+def tiering_phases(seed: int) -> tuple[list[dict], dict, dict]:
     """Phases 1-3, the tuning phase and phase 5, and the tiering kernels'
-    records; and phase 7's results but its training half. Phase 2's CPU
-    half runs in a worker process beside phase 3, phase 1's production
-    timings, the tuning phase and phase 7's card work (`phase7_wait`)."""
+    records; phase 7's results but its training half, and phase 8's but its
+    ogb_products half. Phase 2's CPU half runs in a worker process beside
+    phase 3, phase 1's production timings, the tuning phase and phase 7's
+    and phase 8's card work (`phase7_wait`, `phase8_wait`)."""
     from repro_torch import obs
     t = time.perf_counter()
     worst = phase1_small(torch.device("cuda"))
@@ -6201,6 +6928,7 @@ def tiering_phases(seed: int) -> tuple[list[dict], dict]:
         log(f"[phase 2] card half {time.perf_counter() - t:.1f}s")
         rec, p3, counts, solvers, telemetry, t_scale = production_phases(seed)
         p7 = phase7_wait(seed)
+        p8 = phase8_wait(seed)
         t = time.perf_counter()
         phase2_compare(p2, medium_counts)
         log(f"[phase 2] compared {time.perf_counter() - t:.1f}s")
@@ -6257,7 +6985,7 @@ def tiering_phases(seed: int) -> tuple[list[dict], dict]:
         f"fused_match {cx['fused_match_ms']:.3f} ms; {cx['eligible']:.4f} "
         f"eligible; max abs err {cx['max_abs_err']}")
     log(f"[phase 1] at scale: {t_scale + time.perf_counter() - t:.1f}s")
-    return rec, p7
+    return rec, p7, p8
 
 
 def phase5(p3: dict, medium) -> dict:

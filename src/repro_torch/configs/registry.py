@@ -1,5 +1,5 @@
-"""Architecture registry, the LM and recsys parts of
-`repro.configs.registry`.
+"""Architecture registry, the counterpart of `repro.configs.registry` (all
+but its tiering cells, `configs/tiering_scsk.py`).
 
 Each registered arch names its config, its cells, its serving functions and
 its training setup (loss, optimizer, microbatches, gradient accumulation
@@ -7,8 +7,8 @@ dtype, and the `smoke` batch). A cell's dimensions are plain numbers: the
 port runs on one device, so there are no PartitionSpecs. The LM family's
 cells (`train_4k`, `prefill_32k`, `decode_32k`, `long_500k`) and the recsys
 family's (`train_batch`, `serve_p99`, `serve_bulk`, `retrieval_cand`, and
-two-tower's `retrieval_cand_tiered`) are ported; the GNN family (EGNN) is
-not yet.
+two-tower's `retrieval_cand_tiered`) and the GNN family's (EGNN's four graph
+shapes, `GNN_SHAPES`) are ported.
 """
 from __future__ import annotations
 
@@ -31,7 +31,7 @@ class Cell:
 @dataclasses.dataclass
 class ArchSpec:
     name: str
-    family: str                     # lm | recsys
+    family: str                     # lm | recsys | gnn
     shapes: tuple[str, ...]
     skips: dict[str, str]
     config_for: Callable[[str], Any]
@@ -48,7 +48,7 @@ class ArchSpec:
 ARCHS: dict[str, ArchSpec] = {}
 _ARCH_MODULES = ["gemma2_2b", "gemma3_12b", "internlm2_1_8b", "kimi_k2_1t_a32b",
                  "llama4_maverick_400b_a17b", "bert4rec", "bst", "deepfm",
-                 "two_tower_retrieval"]
+                 "two_tower_retrieval", "egnn"]
 _LOADED = False
 
 
@@ -160,3 +160,31 @@ def register_recsys(name: str, cfg, *, cell_for, loss_fn, serve_fn, smoke,
         name=name, family="recsys", shapes=RECSYS_SHAPES + extra_shapes, skips={},
         config_for=lambda shape: cfg, cell_for=cell_for, serve_fn=serve_fn,
         loss_fn=loss_fn, optimizer="adamw", smoke=smoke))
+
+
+# =============================================================================
+# GNN family glue (EGNN)
+# =============================================================================
+
+GNN_SHAPES = ("full_graph_sm", "minibatch_lg", "ogb_products", "molecule")
+
+GNN_DIMS = {
+    # nodes, edges (padded to a multiple of 512), d_feat, n_classes, task
+    "full_graph_sm": (2708, 10752, 1433, 7, "node_class"),
+    "minibatch_lg": (180224, 196608, 602, 41, "node_class"),
+    "ogb_products": (2449029, 61859328, 100, 47, "node_class"),
+    "molecule": (3840, 8192, 16, 1, "graph_reg"),
+}
+
+
+def gnn_cell(cfg, shape: str) -> Cell:
+    """The shape's inputs: node_feat, coords, edges, and labels
+    (node_class) or graph_ids with 128 targets (graph_reg)."""
+    n, e, d, c, task = GNN_DIMS[shape]
+    dims = {"node_feat": (n, d), "coords": (n, 3), "edges": (2, e)}
+    if task == "node_class":
+        dims["labels"] = (n,)
+    else:
+        dims["graph_ids"] = (n,)
+        dims["targets"] = (128,)
+    return Cell("train", dims)

@@ -98,6 +98,13 @@ def recsys_params_from_numpy(tree: dict, cfg, device=None) -> dict:
     return tensors_from_numpy(tree, getattr(torch, cfg.dtype), device)
 
 
+def egnn_params_from_numpy(tree: dict, cfg, device=None) -> dict:
+    """The port's EGNN parameters from the reference's `init_params` tree as
+    numpy arrays (embed, layers [phi_e, phi_x, phi_h], readout; the MLP
+    lists kept as lists), in `cfg.dtype` on `device`."""
+    return tensors_from_numpy(tree, getattr(torch, cfg.dtype), device)
+
+
 def train_state_from_numpy(state: dict, device=None) -> dict:
     """The port's train state {params, opt, ef, step} from a reference train
     state as numpy (`jax.tree.map(np.asarray, state)`): AdamW's m and v,

@@ -4,9 +4,9 @@ of `repro.distributed.compression`: an error-feedback transformation
 sparsification, whose residual lives in the train state. It reproduces the
 convergence behaviour of a compressed all-reduce on one device.
 
-The reference's wire format, `quantized_psum` (an int8 all-reduce inside a
-data-parallel shard_map), waits with the rest of the training side of
-`distributed/`.
+`quantized_psum` is the reference's wire format, an int8 all-reduce, on the
+port's one-controller mesh: it takes each entry's tensor and sums them on
+the first entry.
 """
 from __future__ import annotations
 
@@ -62,3 +62,20 @@ def compress_grads(cfg: CompressionConfig, grads, err_state):
     comp, ef = tree.unzip(out, 2)
     return comp, {"ef": ef}
 
+
+def quantized_psum(parts: list[torch.Tensor]) -> torch.Tensor:
+    """The int8 all-reduce of the reference's `quantized_psum`, over the
+    entries' tensors `parts` (one each, any devices): one grid for all,
+    scale = max over entries of (max|x| / 127 + 1e-12); each entry rounded
+    to int8 on it; the int8 values summed as int32 in entry order on the
+    first entry's device; the sum times scale, f32. 4x fewer bytes than an
+    f32 sum would move between devices."""
+    dev = parts[0].device
+    scale = torch.stack([(torch.max(torch.abs(x.float())) / 127.0 + 1e-12).to(dev)
+                         for x in parts]).max()
+    total = None
+    for x in parts:
+        q = torch.clamp(torch.round(x.float() / scale.to(x.device)), -127, 127).to(torch.int8)
+        q = q.to(dev).to(torch.int32)
+        total = q if total is None else total + q
+    return total.to(torch.float32) * scale

@@ -6,7 +6,8 @@ partition gains) asks for the ambient mesh here instead of threading one
 through every call; the launcher, `chip_smoke.py` and the tests set it with
 `use_mesh`. With no mesh set, `current_mesh()` is a one-entry mesh with no
 `"shard"` or `"model"` axis, so every caller takes its direct path. The MoE
-FFN shards its experts over a `"model"` mesh (`model_axis_in`).
+FFN shards its experts over a `"model"` mesh (`model_axis_in`); EGNN splits
+its edges over the data axes of a larger one (`data_axes`).
 
 A mesh is a small frozen value: one axis name and an ordered tuple of
 `torch.device`s. One process drives all of them, as the reference's one
@@ -14,8 +15,8 @@ controller drives its `shard_map` programs; an entry may repeat a device
 (four logical entries on `cuda:0`), and then the entries' work runs in
 series on that device's stream.
 
-The reference's `shard_hint` and `data_axes` serve the transformer's SPMD
-layout and are not ported with the fleet's shard axis.
+The reference's `shard_hint` serves the transformer's SPMD layout and is not
+ported yet.
 """
 from __future__ import annotations
 
@@ -52,6 +53,14 @@ def current_mesh() -> Mesh:
 def model_axis_in(mesh: Mesh) -> str | None:
     """`"model"` when `mesh` is a model (expert-parallel) mesh, else None."""
     return "model" if mesh.axis == "model" else None
+
+
+def data_axes(mesh: Mesh | None = None) -> tuple[str, ...]:
+    """The data-parallel axes of `mesh` (default: the ambient one): its axis
+    unless that is `"model"`, as the reference keeps every axis but
+    `"model"`."""
+    mesh = current_mesh() if mesh is None else mesh
+    return () if mesh.axis == "model" else (mesh.axis,)
 
 
 @contextlib.contextmanager

@@ -662,3 +662,31 @@ def flash_backward_short(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         dv[b0:b0 + n] = _split_product("bhrk,bhrd->bhkd", split_tf32_raw(p),
                                        split_tf32_raw(dor)).permute(0, 2, 1, 3)
     return dq, dk, dv
+
+
+def segment_sum(rows: torch.Tensor, perm: torch.Tensor, offsets: torch.Tensor,
+                out0: torch.Tensor | None = None) -> torch.Tensor:
+    """out[n] = out0[n] + rows[perm[offsets[n]]] + ... + rows[perm[offsets[n+1] - 1]]
+    as [N, F] (out0 None: zeros), each segment's rows added one at a time,
+    left to right, in `rows`' dtype: the arithmetic of `csrc/segment_sum.cu`.
+
+    Step k adds every segment's k-th row (the segments longest first, so the
+    ones still adding are a prefix), so the order within a segment is the
+    plan's on either device and the card's kernel equals this bit for bit;
+    on the CPU it also equals `index_add_` over rows[perm] in that order."""
+    n, f = offsets.shape[0] - 1, rows.shape[1]
+    out = (torch.zeros((n, f), dtype=rows.dtype, device=rows.device) if out0 is None
+           else out0.clone())
+    if n == 0 or perm.shape[0] == 0:
+        return out
+    off = offsets.long()
+    counts = off[1:] - off[:-1]
+    order = torch.sort(counts, descending=True, stable=True).indices
+    starts, longest = off[:-1][order], int(counts.max())
+    # live[k]: the segments with more than k rows, a prefix of `order`
+    live = (n - torch.cumsum(torch.bincount(counts, minlength=longest + 1), 0)).tolist()
+    idx = perm.long()
+    for k in range(longest):
+        seg = order[:live[k]]
+        out[seg] += rows[idx[starts[:live[k]] + k]]
+    return out

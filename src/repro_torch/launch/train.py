@@ -5,11 +5,13 @@ trainer with the arch's optimizer, checkpoint/restart (a relaunch resumes
 from the newest committed checkpoint under `--ckpt-dir/<arch>`), the
 straggler policy and optional gradient compression. An LM trains on the
 reference's numpy token stream (`synthetic_lm_batches`, labels = tokens),
-a recsys arch (deepfm, bst, bert4rec, two-tower-retrieval) on its SMOKE
-batch repeated, as the reference's launcher does. Parameters are random
-from seed 0 on the device (`transformer.init_params`, `recsys.*_init`: the
-reference's distributions, not its numbers). The card unless `--device`
-names another. The GNN family (egnn) is not ported.
+a recsys arch (deepfm, bst, bert4rec, two-tower-retrieval) or egnn on its
+SMOKE batch repeated, as the reference's launcher does. Parameters are
+random from seed 0 on the device (`transformer.init_params`,
+`recsys.*_init`, `egnn.init_params`: the reference's distributions, not its
+numbers). The card unless `--device` names another. `--fail-at-step N`
+raises after step N's checkpoint (a restart's first half, for tests and
+`chip_smoke.py`); `run` returns the final state and the steps' metrics.
 """
 from __future__ import annotations
 
@@ -17,10 +19,6 @@ import argparse
 import os
 
 import numpy as np
-
-
-# the reference's other trainable archs, whose models the port has not yet
-UNPORTED = {"egnn": "gnn"}
 
 
 def synthetic_lm_batches(cfg, batch: int, seq: int, seed: int = 0):
@@ -31,7 +29,7 @@ def synthetic_lm_batches(cfg, batch: int, seq: int, seed: int = 0):
                "labels": toks.astype(np.int32)}
 
 
-def main() -> None:
+def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="internlm2-1.8b")
     ap.add_argument("--steps", type=int, default=100)
@@ -44,23 +42,25 @@ def main() -> None:
     ap.add_argument("--lr", type=float, default=3e-4)
     ap.add_argument("--device", default=None,
                     help="cpu, cuda, ...; the card when not given")
-    args = ap.parse_args()
+    ap.add_argument("--fail-at-step", type=int, default=-1,
+                    help="raise after this step's checkpoint (restart tests)")
+    return ap.parse_args(argv)
 
+
+def run(args: argparse.Namespace):
+    """Train as `args` say; (the final state, each step's metrics)."""
     import torch
 
     from repro_torch.configs import registry as R
     from repro_torch.device import resolve_device
     from repro_torch.distributed.compression import CompressionConfig
+    from repro_torch.models import egnn as G
     from repro_torch.models import recsys as M
     from repro_torch.models import transformer as T
     from repro_torch.train.optimizer import OptimizerConfig
     from repro_torch.train.trainer import DriverConfig, TrainingDriver, \
         make_train_step
 
-    if args.arch in UNPORTED:
-        raise NotImplementedError(
-            f"{args.arch} is a {UNPORTED[args.arch]} arch: the EGNN model and its "
-            "training are not ported yet (ROADMAP queue 1, item 9c)")
     arch = R.get_arch(args.arch)
     cfg, smoke_batch, kind = arch.smoke()
     assert kind == "train", f"{args.arch} has no training smoke path"
@@ -76,6 +76,8 @@ def main() -> None:
         gen = torch.Generator(device).manual_seed(0)
         if arch.family == "lm":
             return T.init_params(gen, cfg)
+        if arch.family == "gnn":
+            return G.init_params(gen, cfg)
         init = {"deepfm": M.deepfm_init, "bst": M.bst_init, "bert4rec": M.bert4rec_init,
                 "two-tower-retrieval": M.twotower_init}[args.arch]
         return init(gen, cfg)
@@ -86,11 +88,16 @@ def main() -> None:
 
     driver = TrainingDriver(init_state, train_step, DriverConfig(
         ckpt_dir=os.path.join(args.ckpt_dir, args.arch),
-        ckpt_every=args.ckpt_every, max_steps=args.steps))
+        ckpt_every=args.ckpt_every, max_steps=args.steps,
+        fail_at_step=args.fail_at_step))
     batches = (synthetic_lm_batches(cfg, args.batch, args.seq) if arch.family == "lm"
                else repeat(smoke_batch))
-    state, history = driver.run(params_init, batches)
+    return driver.run(params_init, batches)
 
+
+def main(argv: list[str] | None = None) -> None:
+    args = parse_args(argv)
+    state, history = run(args)
     print(f"[train] {args.arch}: {len(history)} steps this run, "
           f"loss {history[0]['loss']:.4f} -> {history[-1]['loss']:.4f}")
 

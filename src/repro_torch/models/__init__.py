@@ -4,8 +4,10 @@
 expert parallelism over a `"model"` mesh); the recsys family (`recsys`:
 DeepFM, BST, BERT4Rec, two-tower retrieval) on row-shardable embedding
 tables (`embedding`), and the tiered two-tower retrieval
-(`tiered_retrieval`)."""
-from repro_torch.models import (common, embedding, moe, recsys,  # noqa: F401
-                                 tiered_retrieval, transformer)
+(`tiered_retrieval`); the E(n)-equivariant GNN (`egnn`) on the deterministic
+segment-sum kernel, and its neighbour sampler (`sampler`)."""
+from repro_torch.models import (common, egnn, embedding, moe, recsys,  # noqa: F401
+                                 sampler, tiered_retrieval, transformer)
 
-__all__ = ["common", "embedding", "moe", "recsys", "tiered_retrieval", "transformer"]
+__all__ = ["common", "egnn", "embedding", "moe", "recsys", "sampler", "tiered_retrieval",
+           "transformer"]

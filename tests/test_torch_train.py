@@ -387,20 +387,22 @@ def test_launcher_resumes_after_a_kill(tmp_path):
 
 
 @pytest.mark.parametrize("arch", ["deepfm", "egnn"])
-def test_launcher_refuses_the_families_not_ported(arch, monkeypatch):
-    """The reference's recsys and EGNN archs train there; the port's
-    launcher trains the recsys ones (registered in the port's registry) and
-    refuses EGNN, naming the ROADMAP item that ports it."""
+def test_launcher_refuses_the_families_not_ported(arch, monkeypatch, tmp_path, capsys):
+    """The launcher refuses no family the reference trains any more (the
+    name is this test's from when it refused EGNN): each arch is registered
+    with the reference's family, and egnn, the last ported (family "gnn"),
+    trains 2 steps on the CPU into a temporary --ckpt-dir."""
     from repro.configs import registry as jregistry
     from repro_torch.configs import registry as tregistry
     from repro_torch.launch import train as launch
-    assert set(launch.UNPORTED) == {n for n, a in jregistry.all_archs().items()
-                                    if a.family == "gnn"}
-    if jregistry.get_arch(arch).family == "recsys":
-        assert arch not in launch.UNPORTED
-        assert tregistry.get_arch(arch).family == "recsys"
+    family = {"deepfm": "recsys", "egnn": "gnn"}[arch]
+    assert jregistry.get_arch(arch).family == tregistry.get_arch(arch).family == family
+    trained = {n for n, a in jregistry.all_archs().items() if a.smoke()[2] == "train"}
+    assert trained == set(tregistry.ARCHS)
+    if arch != "egnn":
         return
-    assert jregistry.get_arch(arch).family == launch.UNPORTED[arch]
-    monkeypatch.setattr(sys, "argv", ["train", "--arch", arch, "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="item 9c"):
-        launch.main()
+    monkeypatch.setattr(sys, "argv", ["train", "--arch", arch, "--device", "cpu", "--steps",
+                                      "2", "--ckpt-dir", str(tmp_path)])
+    launch.main()
+    assert capsys.readouterr().out.strip().startswith("[train] egnn: 2 steps this run, loss ")
+    assert ckpt.latest_step(str(tmp_path / "egnn")) == 2
