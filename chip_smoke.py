@@ -22,12 +22,14 @@ a non-zero exit):
      timings and the tuning phase, compared before phase 5), through the
      normal entry points:
      a. the main path: mine -> greedy/optpes -> verify/coverage -> deploy +
-        serve 2000 requests (each batch == serve_reference) -> warm-started
-        sweep;
+        serve 1024 requests (each batch == serve_reference) -> warm-started
+        sweep (64 selections);
      b. per-shard budgets: greedy/optpes with budget_split="traffic" over 4
-        shards, a partitioned sweep, a warm refit onto the test weights;
-        then the sparse greedy round over padded doc-id lists against the
-        dense greedy step on the same problem (32 selections).
+        shards, a partitioned sweep, a warm refit onto the test weights,
+        each of 64 selections; then the sparse greedy round over padded
+        doc-id lists against the dense greedy step on the same problem (32
+        selections). The cuts fit the script in its limit (REDUCED
+        "medium_cpu_half"); both devices run them.
      c. the paper's other solvers through `pipe.solve`: lazy (Alg. 1),
         agnostic (§5.1), isk1/isk2 (Alg. 3; 3 outer iterations of at most
         32), stochastic (§3.2, m = 2048), flow-popularity, flow-max and
@@ -144,7 +146,7 @@ a non-zero exit):
      the order a, e-a, f-a, d (with f-c), b, e-b, c (with f-b), e-c (with
      f-b):
      a. `medium`, on the card and then on the CPU: greedy (64 selections)
-        under the re-tiering loop (`RetieringController`, rotate, 8 windows
+        under the re-tiering loop (`RetieringController`, rotate, 6 windows
         of 512 queries, a Theorem 3.1 check after every swap), then a
         traffic-split greedy on a 4-shard fleet (2 Tier-1 replicas, the
         result cache) under the same loop. Every WindowReport field but
@@ -171,7 +173,7 @@ a non-zero exit):
         exit 0.
      e. live document ingestion and corpus-versioned swaps:
         a. `medium`, on the card and on the CPU (a worker process started
-           with phase 5), each arm on a fresh copy of phase 2's data: `run_ingest` (rotate, 6 windows of 512
+           with phase 5), each arm on a fresh copy of phase 2's data: `run_ingest` (rotate, 4 windows of 512
            queries, 64 arrivals a window, verify) on the engine (global
            budget), on a traffic-split 2-shard fleet (2 Tier-1 and 2 Tier-2
            replicas) rolling, and on the same fleet stop-the-world; solves
@@ -199,9 +201,9 @@ a non-zero exit):
         gathered on the first entry); each fused call's launches counted
         from 0:
         a. `medium`, on the card and on 4 CPU entries (the worker, after
-           5e-a's half): shards x replicas in {1, 2, 4}^2, 2 batches of 512
+           5e-a's half): shards x replicas in {1, 2, 4}^2, a batch of 512
            each, a rolling swap through the Tier-2 fallback, the result
-           cache mid-rollout, 3 ingest corpus versions by `swap_corpus`;
+           cache mid-rollout, 2 ingest corpus versions by `swap_corpus`;
            every fused batch == a host-path twin fleet's == serve_reference,
            stats, BatchTraces and replicas equal to the twin's, tables
            dropped with their generation and corpus version; a 4-shard
@@ -334,6 +336,22 @@ a non-zero exit):
         reddit-sized graph, ogb_products at 61.9M edges in chunks of 2^22;
         one step of minibatch_lg and of ogb_products under the profiler
         (busy and idle shares; no scatter or atomic kernel on the path).
+  9. the "model"-axis solver path and the dry run, beside phase 2's CPU
+     worker after phase 8, phase 3's operands resident; every cut in
+     P9_REDUCED:
+     a. the `tiering-scsk` arch's `solve_fn` (configs/tiering_scsk.py) on
+        phase 3's operands: 32 selections of the dense round, of optpes (k
+        4096) and of the sparse round, and serve_route on phase 3's batch,
+        each direct, on Mesh(("model",), 4 x cuda:0) and on a 2 x 2
+        ("data", "model") mesh (each mesh's incidence blocks cut once,
+        `distributed.place`, and dropped after it): orders, covered words
+        and match sets == the direct run's, an order split allowed only at
+        an FP32 near-tie of the f/g ratio (relative gap <= 2^-20, logged);
+        ms per selection and launches of every path;
+     b. the meta-device dry run (`launch.dryrun`) of tiering-scsk's five
+        shapes and gemma2-2b's train_4k on both production meshes, every
+        cell "ok"; internlm2-1.8b's train_4k parameter and optimizer bytes
+        on a one-entry mesh == phase 6d's trainer state on the card.
 The last lines are the kernels' JSON record, the card line, and the
 contract line {"ok": true, "device": {...}}.
 
@@ -384,6 +402,14 @@ MEDIUM_STEPS = 64
 # sparse round, cut to their first 32 selections (ISK: 3 outer iterations of
 # at most 32); both devices run the same cuts (REDUCED["medium_solvers"])
 MEDIUM_SOLVER_STEPS = 32
+# phase 2's CPU half is cut to fit the script's limit: 2a's sweep and 2b's
+# solves, sweep and refit stop at 64 selections, and 2a serves 1024
+# requests (2a's greedy and optpes still run to their budget: 7d holds the
+# card's build_tiered_index to the CPU's optpes, and greedy's full budget
+# is what the agnostic baseline must not beat); both devices run the same
+# cuts
+MEDIUM_CUT_STEPS = 64
+MEDIUM_REQUESTS = 1024
 REDUCED = {
     "clauses": "2^16 token singletons and pairs (solve_dense_m has 2^17)",
     "docs": "2^20 (solve_dense_m 2^23, serve_route 2^22; 2^20 is the low "
@@ -400,11 +426,22 @@ REDUCED = {
                       "it), and these step-bound runs were ~101 s of it; "
                       "halved, they pay for phase 6f (35.0 s) and 6b's D-256 "
                       "rows",
+    "medium_cpu_half": "phase 2a: the 2-budget sweep stops at 64 selections "
+                       "(its budgets took 186 and 264), 1024 served requests "
+                       "(2000); 2b: greedy, optpes, the sweep and the warm "
+                       "refit stop at 64 selections (280, 280, 186 + 264 and "
+                       "228). On an H100 host the uncut CPU half took 34.2 s "
+                       "of 2a sweep, 58.6 s of 2b solves, 37.4 s of sweep and "
+                       "38.8 s of refit, the cut one 13.5, 12.9, 20.9 and 8.1 "
+                       "s (114 s saved); the card's wait for it after phase 8 "
+                       "fell from 152.5 s to 3.4 s after phase 9",
     "lazy": "stops at 30 s of wall clock (max_steps=128)",
     "stream": "phase 5b: 6 rotate windows of 4096 queries, refits of at most "
-              "128 selections, 3 windows apart; 5a (medium): 8 windows of "
-              "512, solves and refits of at most 64 selections, 2 windows "
-              "apart (128 every window took 105 s on 8 CPU cores)",
+              "128 selections, 3 windows apart; 5a (medium): 6 windows of "
+              "512 (8 until the chip script was cut to fit its limit: 5a "
+              "took 108.9 s, its CPU half 85.0; cut, 93.1 and 72.7 s), "
+              "solves and refits of at most 64 selections, 2 windows apart "
+              "(128 every window took 105 s on 8 CPU cores)",
     "ingest": "phase 5e-b: 2 windows of 4096 queries with ~4096 arrivals "
               "each, refits off (5b times them); 5e-c: one block, its "
               "tiering derived by ClauseTiering.from_selection over the doc "
@@ -412,12 +449,16 @@ REDUCED = {
               "IngestController (the problem's 8 GiB of clause bits, and "
               "with_doc_block's grown copy, do not fit beside 5c's fleet); "
               "5e-a "
-              "(medium): 6 windows of 512 queries, 64 arrivals a window, "
-              "solves and refits of at most 64 selections",
+              "(medium): 4 windows of 512 queries (6 until the cut: the "
+              "worker's three arms ran 88.9 s, cut 56.5 s), 64 arrivals a "
+              "window, solves and refits of at most 64 selections",
     "mesh": "phase 5f: shard_mesh(4) puts 4 entries on the one card (the "
-            "gather copies nothing, entries run in series); 5f-a (medium): 2 "
-            "batches of 512 per shards x replicas, 3 ingest versions; 5f-b "
-            "serves 5c's and 5e-c's batches again, fused",
+            "gather copies nothing, entries run in series); 5f-a (medium): 1 "
+            "batch of 512 per shards x replicas, 2 ingest versions (2 and 3 "
+            "until the cut; the worker's 5f-a ran 53.2 s beside 5a's CPU "
+            "half and is now phase 5's longest path: phase 5 took 211.7 s "
+            "uncut, 192.3 s cut); 5f-b serves 5c's and 5e-c's batches again, "
+            "fused",
 }
 # the other ported LMs at full width (phase 4c), each with its
 # decode batch and its layers on the card (None: all): internlm2's B=8 x
@@ -736,8 +777,9 @@ def phase1_small(device) -> float:
 
 # -- phase 2: the main path through the normal entry points (medium) ----------
 
-def run_pipeline(pipe, n_requests: int = 2000, batch: int = 128) -> dict:
-    """The quickstart / launch.serve sequence on a mined pipeline."""
+def run_pipeline(pipe, n_requests: int = MEDIUM_REQUESTS, batch: int = 128) -> dict:
+    """The quickstart / launch.serve sequence on a mined pipeline (its sweep
+    cut to MEDIUM_CUT_STEPS selections)."""
     out: dict = {}
     t = time.perf_counter()
     for solver in ("greedy", "optpes"):
@@ -768,7 +810,7 @@ def run_pipeline(pipe, n_requests: int = 2000, batch: int = 128) -> dict:
     out["stats"] = engine.stats.to_dict()
     n = pipe.corpus.n_docs
     t = time.perf_counter()
-    out["sweep"] = pipe.sweep([n // 4, n // 2], "greedy")
+    out["sweep"] = pipe.sweep([n // 4, n // 2], "greedy", max_steps=MEDIUM_CUT_STEPS)
     out["sweep_s"] = time.perf_counter() - t
     return out
 
@@ -823,9 +865,10 @@ def run_partitioned(pipe, n_shards: int = 4, steps: int = MEDIUM_SOLVER_STEPS) -
     from repro_torch.data import incidence
     out: dict = {}
     split = dict(budget_split="traffic", n_shards=n_shards)
+    cut = dict(max_steps=MEDIUM_CUT_STEPS)
     t = time.perf_counter()
     for solver in ("greedy", "optpes"):
-        r = pipe.solve(solver, budget_frac=0.5, **split).result
+        r = pipe.solve(solver, budget_frac=0.5, **split, **cut).result
         check(np.all(r.extra["g_part"] <= r.extra["caps"]),
               f"partitioned {solver} overfills a shard: {r.extra}")
         out[solver] = r
@@ -835,7 +878,7 @@ def run_partitioned(pipe, n_shards: int = 4, steps: int = MEDIUM_SOLVER_STEPS) -
     out["solve_s"] = time.perf_counter() - t
     n = pipe.corpus.n_docs
     t = time.perf_counter()
-    out["sweep"] = pipe.sweep([n // 4, n // 2], "greedy", **split)
+    out["sweep"] = pipe.sweep([n // 4, n // 2], "greedy", **split, **cut)
     for r in out["sweep"]:
         check(np.all(r.extra["g_part"] <= r.extra["caps"]),
               "partitioned sweep overfills a shard")
@@ -843,14 +886,14 @@ def run_partitioned(pipe, n_shards: int = 4, steps: int = MEDIUM_SOLVER_STEPS) -
 
     # warm refit onto the test weights: the traffic split is re-allocated
     # and the warm state trimmed of clauses touching over-cap shards
-    prev = pipe.solve("greedy", budget_frac=0.5, **split).result
+    prev = pipe.solve("greedy", budget_frac=0.5, **split, **cut).result
     test_w = pipe.log.test_weights
     new = pipe.partition_constraint(float(int(n * 0.5)), "traffic", n_shards,
                                     weights=np.asarray(test_w, np.float64))
     _, dropped = tc.trim_state(pipe.problem.with_weights(test_w), prev.state,
                                new)
     t = time.perf_counter()
-    r = pipe.refit(test_w, state=prev.state).result
+    r = pipe.refit(test_w, state=prev.state, **cut).result
     out["refit_s"] = time.perf_counter() - t
     check(np.array_equal(r.extra["caps"], new.caps.astype(np.float64)),
           "refit did not re-allocate the caps from the new weights")
@@ -1039,9 +1082,18 @@ def phase2_host(data) -> dict:
     production timings)."""
     from repro_torch import api
     torch.set_num_threads(HOST_THREADS)
+    seconds = {}
+    t = time.perf_counter()
     cpu_pipe = api.TieringPipeline.from_data(data, device="cpu")
-    out = dict(main=run_pipeline(cpu_pipe), part=run_partitioned(cpu_pipe))
+    out = dict(main=run_pipeline(cpu_pipe))
+    seconds["2a"] = time.perf_counter() - t
+    t = time.perf_counter()
+    out["part"] = run_partitioned(cpu_pipe)
+    seconds["2b"] = time.perf_counter() - t
+    t = time.perf_counter()
     out["solvers"] = run_solvers(api.TieringPipeline.from_data(data, device="cpu"))
+    seconds["2c"] = time.perf_counter() - t
+    out["seconds"] = seconds
     return out
 
 
@@ -1056,20 +1108,27 @@ def phase2(counts, pool, scale: str = "medium", device=None) -> dict:
     mine_s = time.perf_counter() - t
     log(f"[phase 2] {scale}: {pipe.summary()}  mine {mine_s:.1f}s")
     host = pool.apply_async(phase2_host, (pipe.data,))
+    seconds = {}
+    t = time.perf_counter()
     _build.reset_launches()
     gpu = run_pipeline(pipe)
     counts.update(_build.LAUNCHES)
     check(all(counts[k] > 0 for k in MAIN_KERNELS),
           f"a kernel of the main path never launched: {counts}")
+    seconds["2a"] = time.perf_counter() - t
+    t = time.perf_counter()
     _build.reset_launches()
     gpu_part = run_partitioned(pipe)
     add_counts(counts, _build.LAUNCHES)
+    seconds["2b"] = time.perf_counter() - t
+    t = time.perf_counter()
     # a fresh pipeline: run_partitioned's refit left the test weights in pipe
     fresh = api.TieringPipeline.from_data(pipe.data, device=pipe.device)
     gpu_solvers = run_solvers(fresh)
+    seconds["2c"] = time.perf_counter() - t
     return dict(gpu=gpu, part=gpu_part, solvers=gpu_solvers, problem=fresh.problem,
                 budget=float(int(pipe.corpus.n_docs * 0.5)), data=pipe.data,
-                host=host)
+                host=host, seconds=seconds)
 
 
 def phase2_compare(p2: dict, counts: dict) -> None:
@@ -1080,6 +1139,8 @@ def phase2_compare(p2: dict, counts: dict) -> None:
     log(f"[phase 2] waited {time.perf_counter() - t:.1f}s for the CPU half "
         f"(in a worker process since phase 2 began)")
     cpu, cpu_part, cpu_solvers = host["main"], host["part"], host["solvers"]
+    log(f"[phase 2] seconds, card half / CPU half: " + ", ".join(
+        f"{k} {p2['seconds'][k]:.1f} / {host['seconds'][k]:.1f}" for k in host["seconds"]))
     for solver in ("greedy", "optpes"):
         g, c = gpu[solver], cpu[solver]
         check(g.order == c.order, f"{solver} order differs from the CPU run")
@@ -1469,7 +1530,7 @@ def phase3_sparse(p3: dict, counts: dict) -> dict:
         f"g={res['g_used']:.0f}, == dense greedy (orders and covered docs); "
         f"{dt:.2f}s, per selection sparse {res['sparse_s'] / n * 1e3:.3f} ms vs "
         f"dense {res['dense_s'] / n * 1e3:.3f} ms; launches {dict(_build.LAUNCHES)}")
-    return dict(ids=ids, covered_d=res["covered_d"], selections=len(res["order"]),
+    return dict(ids=ids, short=short, covered_d=res["covered_d"], selections=len(res["order"]),
                 sparse_ms=res["sparse_s"] / n * 1e3,
                 dense_ms=res["dense_s"] / n * 1e3)
 
@@ -1623,7 +1684,7 @@ def phase3_telemetry(p3: dict) -> dict:
 
 # -- phase 5: streaming re-tiering and the sharded fleet ----------------------
 
-STREAM_WINDOWS, STREAM_QPW = 8, 512     # 5a: `medium`, card == CPU
+STREAM_WINDOWS, STREAM_QPW = 6, 512     # 5a: `medium`, card == CPU
 STREAM_STEPS, STREAM_HOLD = 64, 2       # 5a: selections per solve, refit spacing
 PROD_WINDOWS = 6                        # 5b: rotate windows of SERVE_B queries
 FLEET_SHARDS = 8                        # 5c: 1 replica per tier
@@ -1976,7 +2037,7 @@ def phase5_fleet(postings, n_docs: int, p5: dict) -> dict:
 
 # -- phase 5e: live document ingestion and corpus-versioned swaps ------------
 
-INGEST_WINDOWS, INGEST_QPW = 6, 512     # 5e-a: `medium`, card == CPU
+INGEST_WINDOWS, INGEST_QPW = 4, 512     # 5e-a: `medium`, card == CPU
 INGEST_ARRIVALS = 64.0                  # 5e-a: mean docs a window
 INGEST_PROD_WINDOWS = 2                 # 5e-b: windows of SERVE_B queries
 INGEST_PROD_RATE = 4096.0               # 5e-b/c: mean docs a block (~128 words)
@@ -2039,7 +2100,10 @@ def medium_ingest_host(data) -> dict:
     """5e-a's CPU half, for a worker process started with phase 5: the
     card's half and 5a run meanwhile, so it takes half of the cores."""
     torch.set_num_threads(max(1, (os.cpu_count() or 2) // 2))
-    return medium_ingest(data, torch.device("cpu"))
+    t = time.perf_counter()
+    out = medium_ingest(data, torch.device("cpu"))
+    out["worker_s"] = time.perf_counter() - t
+    return out
 
 
 def phase5_ingest_medium(data, host: dict,
@@ -2310,8 +2374,8 @@ def phase5_fleet_corpus(p5c: dict, p5e: dict, p5: dict) -> dict:
 
 MESH_ENTRIES = 4                        # 5f: shard_mesh(4): 4 entries on cuda:0
 MESH_SHAPES = [(s, r) for s in (1, 2, 4) for r in (1, 2, 4)]
-MESH_BATCHES, MESH_B = 2, 512           # 5f-a: batches of each shards x replicas
-MESH_VERSIONS = 3                       # 5f-a: ingest corpus versions
+MESH_BATCHES, MESH_B = 1, 512           # 5f-a: batches of each shards x replicas
+MESH_VERSIONS = 2                       # 5f-a: ingest corpus versions
 
 
 def digest(sets) -> str:
@@ -2521,7 +2585,10 @@ def mesh_medium_host(data) -> dict:
     """5f-a's CPU half (4 CPU entries), for the worker process started with
     phase 5."""
     torch.set_num_threads(max(1, (os.cpu_count() or 2) // 2))
-    return mesh_medium(data, torch.device("cpu"))
+    t = time.perf_counter()
+    out = mesh_medium(data, torch.device("cpu"))
+    out["worker_s"] = time.perf_counter() - t
+    return out
 
 
 def phase5_mesh_medium(data, host: dict, card=torch.device("cuda")) -> dict:
@@ -5051,6 +5118,8 @@ def phase6_trainer(seed: int, dev, cfg, steps: int, tag: str, opt: dict) -> dict
         init_state, train_step = make_train_step(
             R.lm_loss(cfg), OptimizerConfig(**opt), n_micro=TRAIN_MICRO)
     state = init_state(params)
+    state_bytes = {k: sum(x.numel() * x.element_size() for x in tree.leaves(state[key]))
+                   for k, key in (("params", "params"), ("opt", "opt"))}
     # one batch of the reference's token stream for every step: the loss of
     # a batch the model keeps seeing must fall (on fresh random tokens the
     # copy task moves it by less than the batches' own spread in 5 steps)
@@ -5089,7 +5158,8 @@ def phase6_trainer(seed: int, dev, cfg, steps: int, tag: str, opt: dict) -> dict
     res = dict(losses=losses, step_s=step_s, ms_per_step=timed * 1e3,
                tokens_per_s=tokens / timed, peak_gib=peak, init_s=init_s,
                share_of_peak=share, launches=launches, launches_per_step=want // steps,
-               profile=prof, params=n_params, optimizer=opt, reduced=TRAIN_REDUCED)
+               profile=prof, params=n_params, optimizer=opt, reduced=TRAIN_REDUCED,
+               state_bytes=state_bytes)
     log(f"{tag} {cfg.name} ({n_params} params, {cfg.n_layers} layers) trainer: median "
         f"{timed * 1e3:.1f} ms a step of {tokens} tokens ({tokens / timed:.1f} tokens/s), "
         f"{share:.1%} of the bf16 peak ((6NT + attention FLOPs) / (t x 989 TFLOP/s)); "
@@ -6726,6 +6796,274 @@ def gnn_record(p8: dict) -> dict:
                      for k, s in shapes.items()})
 
 
+# -- phase 9: the "model"-axis solver path and the dry run ---------------------
+
+P9_STEPS = 32                 # 9a: selections of each solver on each mesh
+# 9a: W-split f sums round once per entry, the direct one once: the orders
+# may differ only where two clauses' f/g ratios lie within this relative gap
+P9_NEAR_TIE = 2.0 ** -20
+P9_DRYRUN = (("tiering-scsk", None), ("gemma2-2b", ("train_4k",)))
+P9_REDUCED = {
+    "operands": "phase 3's deployment (2^16 clauses, 2^20 docs, 2^20 queries: "
+                "solve_dense_m has 2^17 clauses and 2^23 docs, solve_sparse_xl 2^20 "
+                "and 2^28); the sparse round over its clauses with |m(c)| <= 4096",
+    "selections": f"9a: {P9_STEPS} selections of the dense round, of optpes (k 4096) "
+                  f"and of the sparse round on each mesh; serve_route phase 3's batch of "
+                  f"{SERVE_B} queries against the 2^16 candidate clauses, 3 times",
+    "meshes": "4 entries on the one card: Mesh(('model',), 4 x cuda:0) and a 2 x 2 "
+              "('data', 'model') mesh; the entries run in series, so the times show "
+              "the split's arithmetic and launches, not four cards' overlap or links",
+    "dryrun": "9b: tiering-scsk's five shapes and gemma2-2b's train_4k on both "
+              "production meshes (the CLI's --arch all is the same code over every "
+              "arch), and internlm2-1.8b's train_4k state on a one-entry mesh",
+}
+
+
+def p9_first_split(problem, want: list[int], got: list[int], what: str):
+    """None when the orders are equal; else (index, relative f/g gap) where
+    they first differ, which must be an FP32 near-tie of the direct path's
+    ratios (fault 1's rule)."""
+    from repro_torch.core.greedy import ratio_of
+    i = next((i for i, (x, y) in enumerate(zip(want, got)) if x != y), None)
+    if i is None:
+        check(len(want) == len(got), f"9a {what}: {len(got)} selections, direct {len(want)}")
+        return None
+    st = problem.state_for(want[:i])
+    r = ratio_of(problem.f_gains(st.covered_q), problem.g_gains(st.covered_d))
+    a, b = float(r[want[i]]), float(r[got[i]])
+    gap = abs(a - b) / max(abs(a), abs(b), 1e-30)
+    check(gap <= P9_NEAR_TIE, f"9a {what}: order differs from the direct path at "
+          f"{i} ({want[i]} vs {got[i]}), ratio gap {gap:.3g} above {P9_NEAR_TIE:.3g}")
+    return i, gap
+
+
+def p9_timed(fn):
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t) * 1e3
+
+
+def p9_dense(p3: dict) -> dict:
+    """The registry's dense round, P9_STEPS times from the empty state (g
+    used is the covered docs' count)."""
+    from repro_torch.configs.tiering_scsk import solve_fn
+    from repro_torch.core import bitset
+    problem = p3["problem"]
+    fn = solve_fn("solve_dense_m")
+    b = dict(clause_query_bits=problem.clause_query_bits,
+             clause_doc_bits=problem.clause_doc_bits, query_weights=problem.query_weights,
+             covered_q=torch.zeros_like(problem.clause_query_bits[0]),
+             covered_d=torch.zeros_like(problem.clause_doc_bits[0]),
+             selected=torch.zeros(problem.n_clauses, dtype=torch.bool, device=problem.device),
+             g_used=torch.zeros((), device=problem.device),
+             budget=torch.tensor(p3["budget"], device=problem.device))
+    order, ms = [], []
+    for _ in range(P9_STEPS):
+        (cq, cd, sel, j), dt = p9_timed(lambda: fn(b))
+        order.append(int(j))
+        ms.append(dt)
+        b.update(covered_q=cq, covered_d=cd, selected=sel,
+                 g_used=bitset.popcount(cd).to(torch.float32))
+    return dict(order=order, covered_q=b["covered_q"], covered_d=b["covered_d"], ms=ms)
+
+
+def p9_optpes(p3: dict) -> dict:
+    """The registry's Opt/Pes round (k 4096) from the empty state with the
+    exact singleton gains as its bounds, until P9_STEPS selections."""
+    from repro_torch.configs.tiering_scsk import solve_fn
+    problem = p3["problem"]
+    fn = solve_fn("solve_optpes_l")
+    zq = torch.zeros_like(problem.clause_query_bits[0])
+    zd = torch.zeros_like(problem.clause_doc_bits[0])
+    fg0, gg0 = problem.f_gains(zq), problem.g_gains(zd)[:, None]
+    b = dict(clause_query_bits=problem.clause_query_bits,
+             clause_doc_bits=problem.clause_doc_bits, query_weights=problem.query_weights,
+             covered_q=zq, covered_d=zd,
+             selected=torch.zeros(problem.n_clauses, dtype=torch.bool, device=problem.device),
+             g_used=torch.zeros((), device=problem.device),
+             budget=torch.tensor(p3["budget"], device=problem.device),
+             fbar=fg0, flow=fg0.clone(), gbar=gg0, glow=gg0.clone())
+    order, ms, rounds, t_sel = [], [], 0, 0.0
+    while len(order) < P9_STEPS and rounds < 50 * P9_STEPS:
+        (rs, did, anyf, j), dt = p9_timed(lambda: fn(b))
+        rounds += 1
+        t_sel += dt
+        b.update(covered_q=rs.covered_q, covered_d=rs.covered_d, selected=rs.selected,
+                 g_used=rs.g_part[0], fbar=rs.fbar, flow=rs.flow, gbar=rs.gbar,
+                 glow=rs.glow)
+        if not anyf:
+            break
+        if did:
+            order.append(j)
+            ms.append(t_sel)
+            t_sel = 0.0
+    return dict(order=order, covered_q=b["covered_q"], covered_d=b["covered_d"], ms=ms,
+                rounds=rounds)
+
+
+def p9_sparse(p3: dict) -> dict:
+    """The registry's sparse round over phase 3's padded id lists (the
+    clauses with more than SPARSE_M docs start selected), P9_STEPS
+    selections or its stop."""
+    from repro_torch.configs.tiering_scsk import solve_fn
+    problem, sp = p3["problem"], p3["sparse"]
+    fn = solve_fn("solve_sparse_xl")
+    b = dict(clause_doc_ids=sp["ids"], clause_query_bits=problem.clause_query_bits,
+             query_weights=problem.query_weights,
+             covered_q=torch.zeros_like(problem.clause_query_bits[0]),
+             covered_d=torch.zeros_like(problem.clause_doc_bits[0]),
+             selected=~sp["short"], g_used=torch.zeros((), device=problem.device),
+             budget=torch.tensor(p3["budget"], device=problem.device))
+    order, ms = [], []
+    for _ in range(P9_STEPS):
+        (cq, cd, sel, g, j, stop), dt = p9_timed(lambda: fn(b))
+        if stop:
+            break
+        order.append(j)
+        ms.append(dt)
+        b.update(covered_q=cq, covered_d=cd, selected=sel, g_used=g)
+    return dict(order=order, covered_q=b["covered_q"], covered_d=b["covered_d"], ms=ms)
+
+
+def p9_route(p3: dict, inputs: dict) -> dict:
+    """The registry's serve_route on phase 3's last serve batch, 3 times
+    (the same answer each time)."""
+    from repro_torch.configs.tiering_scsk import solve_fn
+    ms = []
+    for _ in range(3):
+        (match, elig), dt = p9_timed(lambda: solve_fn("serve_route")(inputs))
+        ms.append(dt)
+    return dict(match=match, eligible=elig, ms=ms)
+
+
+def phase9_solvers(p3: dict, dev=torch.device("cuda")) -> dict:
+    """9a: the tiering-scsk cells' solve_fn on phase 3's production operands,
+    direct and on two meshes of four entries of the card. Each mesh's blocks
+    are cut once (`distributed.place`: a [C/dp, W/model] copy of each
+    incidence matrix an entry, 16 GiB on the card beside phase 3's
+    operands) and dropped before the next mesh."""
+    from repro_torch import distributed
+    from repro_torch.core import bitset
+    from repro_torch.distributed import Mesh, plan
+    from repro_torch.kernels import _build
+    problem = p3["problem"]
+    inputs = dict(tokens=p3["tokens"], clause_vocab_bits=serve_route_inputs(p3)["cl"],
+                  postings=p3["engine"].postings_t2,
+                  tier1_mask=bitset.to_tensor(bitset.np_pack(
+                      p3["engine"]._live.tiering.tier1_docs), dev))
+    runs = (("dense", lambda: p9_dense(p3)), ("optpes", lambda: p9_optpes(p3)),
+            ("sparse", lambda: p9_sparse(p3)), ("serve_route", lambda: p9_route(p3, inputs)))
+    meshes = (("direct", None), ("model4", Mesh(("model",), (dev,) * 4)),
+              ("2x2", Mesh(("data", "model"), (dev,) * 4, (2, 2))))
+    out: dict = {"paths": {}, "launches": {}, "splits": {}}
+    for mname, mesh in meshes:
+        torch.cuda.reset_peak_memory_stats()
+        for name, run in runs:
+            _build.reset_launches()
+            if mesh is None:
+                res = run()
+            else:
+                with distributed.use_mesh(mesh):
+                    res = run()
+            got = {k: v for k, v in _build.LAUNCHES.items() if v}
+            out["launches"][f"{name}/{mname}"] = got
+            for k, v in got.items():
+                out.setdefault("launches_total", {}).setdefault(k, 0)
+                out["launches_total"][k] += v
+            out["paths"][f"{name}/{mname}"] = res
+        out.setdefault("peak_gib", {})[mname] = torch.cuda.max_memory_allocated() / 2 ** 30
+        for t in (problem.clause_query_bits, problem.clause_doc_bits, p3["sparse"]["ids"]):
+            plan.release(t)
+        gc.collect()
+        torch.cuda.empty_cache()
+    for name, _ in runs:
+        want = out["paths"][f"{name}/direct"]
+        for mname, _ in meshes[1:]:
+            got = out["paths"][f"{name}/{mname}"]
+            what = f"{name} on {mname}"
+            if name == "serve_route":
+                check(torch.equal(got["match"], want["match"])
+                      and torch.equal(got["eligible"], want["eligible"]),
+                      f"9a {what}: match sets differ from the direct run")
+                continue
+            split = p9_first_split(problem, want["order"], got["order"], what)
+            out["splits"][f"{name}/{mname}"] = split
+            if split is None:
+                check(torch.equal(got["covered_q"], want["covered_q"])
+                      and torch.equal(got["covered_d"], want["covered_d"]),
+                      f"9a {what}: covered words differ from the direct run")
+        check(len(want.get("order", [1])) > 0, f"9a {name}: no selection")
+    for key, res in out["paths"].items():
+        res["ms_per_selection"] = statistics.median(res["ms"])
+    for name, want_k in (("dense", ("bit_matvec", "coverage_gain")),
+                         ("optpes", ("bit_matvec", "coverage_gain")),
+                         ("sparse", ("bit_matvec", "sparse_gain")),
+                         ("serve_route", ("clause_match", "tier_match"))):
+        for mname, _ in meshes:
+            got = out["launches"][f"{name}/{mname}"]
+            check(all(got.get(k, 0) > 0 for k in want_k),
+                  f"9a {name}/{mname}: launched none of {want_k}: {got}")
+    log("[phase 9a] tiering-scsk solve_fn on phase 3's operands, direct / "
+        "Mesh(('model',), 4 x cuda:0) / 2 x 2 ('data', 'model'); ms per selection "
+        "(serve_route: per batch of 4096 queries): " + "; ".join(
+            f"{name} " + " / ".join(f"{out['paths'][f'{name}/{m}']['ms_per_selection']:.3f}"
+                                    for m, _ in meshes) for name, _ in runs))
+    log(f"[phase 9a] orders, covered words and match sets == the direct run's but at "
+        f"near-ties (index, relative f/g gap): {json.dumps(out['splits'])}; selections "
+        f"{ {k: len(v['order']) for k, v in out['paths'].items() if 'order' in v} }; "
+        f"optpes rounds {out['paths']['optpes/direct']['rounds']}; peak GiB "
+        f"{ {k: round(v, 2) for k, v in out['peak_gib'].items()} }; launches "
+        f"{json.dumps(out['launches'])}; reduced {json.dumps(P9_REDUCED)}")
+    for res in out["paths"].values():
+        for k in ("covered_q", "covered_d", "match", "eligible"):
+            res.pop(k, None)
+    return out
+
+
+def phase9_dryrun() -> dict:
+    """9b: the meta-device dry run (`launch.dryrun`) of tiering-scsk's five
+    shapes and gemma2-2b's train_4k on both production meshes, every cell
+    "ok"; internlm2-1.8b's train_4k state bytes on a one-entry mesh, which
+    phase 6d's trainer must hold on the card."""
+    from repro_torch.configs import registry as R
+    from repro_torch.distributed import Mesh
+    from repro_torch.launch import dryrun
+    cells = []
+    for mesh_name in dryrun.MESHES:
+        for name, shapes in P9_DRYRUN:
+            arch = R.get_arch(name)
+            for shape in shapes or arch.shapes:
+                rec = dryrun.run_cell(arch, shape, mesh_name, None)
+                check(rec["status"] == "ok", f"9b {name} x {shape} ({mesh_name}): "
+                      f"{rec.get('error')}")
+                cells.append({k: rec[k] for k in (
+                    "arch", "shape", "mesh", "flops", "param_bytes_per_entry",
+                    "opt_bytes_per_entry", "input_bytes_per_entry", "roofline",
+                    "dominant")})
+    one = Mesh(("data", "model"), (torch.device("meta"),), (1, 1))
+    _, rec = dryrun.build_step(R.get_arch("internlm2-1.8b"), "train_4k", one)
+    state = dict(params=rec["param_bytes_per_entry"], opt=rec["opt_bytes_per_entry"])
+    log(f"[phase 9b] dry run on meta: " + "; ".join(
+        f"{c['arch']} x {c['shape']} ({c['mesh']}) {c['flops']:.4g} FLOPs, per entry "
+        f"{(c['param_bytes_per_entry'] + c['opt_bytes_per_entry']) / 2 ** 30:.3f} GiB "
+        f"state + {c['input_bytes_per_entry'] / 2 ** 30:.3f} GiB inputs, {c['dominant']}"
+        for c in cells) + f"; internlm2-1.8b train_4k on one entry: {state}")
+    return dict(cells=cells, internlm2_state=state)
+
+
+def phase9(p3: dict) -> dict:
+    """Phase 9 beside phase 2's CPU worker, after phase 8: 9a and 9b."""
+    t = time.perf_counter()
+    out = {"solvers": phase9_solvers(p3)}
+    log(f"[phase 9a] {time.perf_counter() - t:.1f}s")
+    t = time.perf_counter()
+    out["dryrun"] = phase9_dryrun()
+    log(f"[phase 9b] {time.perf_counter() - t:.1f}s")
+    return out
+
+
 SOURCES = {
     "coverage_gain": ("src/repro_torch/kernels/csrc/coverage_gain.cu",
                       "src/repro/kernels/coverage_gain.py:33"),
@@ -6814,7 +7152,7 @@ def main() -> int:
         log(f"[phase 0]   ptxas {ln}")
     log(f"[phase 0] {time.perf_counter() - t:.1f}s")
 
-    rec, p7, p8 = tiering_phases(args.seed)
+    rec, p7, p8, p9 = tiering_phases(args.seed)
     t = time.perf_counter()
     fa_small = phase4_kernel_small(cuda)
     small = phase4_decode_small(cuda)
@@ -6849,6 +7187,12 @@ def main() -> int:
     finally:
         pool.terminate()
         pool.join()
+    held = next(r for r in bwd if r["name"] == "flash_backward_tc")["lm_train"]["state_bytes"]
+    check(held == p9["dryrun"]["internlm2_state"],
+          f"9b: the dry run's internlm2-1.8b train_4k bytes on one entry "
+          f"{p9['dryrun']['internlm2_state']} != phase 6d's trainer state {held}")
+    log(f"[phase 9b] the dry run's internlm2-1.8b train_4k parameter and optimizer "
+        f"bytes on a one-entry mesh == phase 6d's trainer state on the card: {held}")
     for r in bwd:
         src, tpu = SOURCES[r["name"]]
         r.update(route="cuda", source=src, replaces=tpu,
@@ -6907,12 +7251,12 @@ def production_phases(seed: int):
     return rec, p3, counts, solvers, telemetry, t_scale
 
 
-def tiering_phases(seed: int) -> tuple[list[dict], dict, dict]:
+def tiering_phases(seed: int) -> tuple[list[dict], dict, dict, dict]:
     """Phases 1-3, the tuning phase and phase 5, and the tiering kernels'
-    records; phase 7's results but its training half, and phase 8's but its
-    ogb_products half. Phase 2's CPU half runs in a worker process beside
-    phase 3, phase 1's production timings, the tuning phase and phase 7's
-    and phase 8's card work (`phase7_wait`, `phase8_wait`)."""
+    records; phase 7's results but its training half, phase 8's, and phase
+    9's. Phase 2's CPU half runs in a worker process beside phase 3, phase
+    1's production timings, the tuning phase and phase 7's, phase 8's and
+    phase 9's card work (`phase7_wait`, `phase8_wait`, `phase9`)."""
     from repro_torch import obs
     t = time.perf_counter()
     worst = phase1_small(torch.device("cuda"))
@@ -6929,6 +7273,7 @@ def tiering_phases(seed: int) -> tuple[list[dict], dict, dict]:
         rec, p3, counts, solvers, telemetry, t_scale = production_phases(seed)
         p7 = phase7_wait(seed)
         p8 = phase8_wait(seed)
+        p9 = phase9(p3)
         t = time.perf_counter()
         phase2_compare(p2, medium_counts)
         log(f"[phase 2] compared {time.perf_counter() - t:.1f}s")
@@ -6969,7 +7314,9 @@ def tiering_phases(seed: int) -> tuple[list[dict], dict, dict]:
                                    for n, v in solvers.items()
                                    if isinstance(v, dict) and "launches" in v},
                  launches_phase5={path: n.get(r["name"], 0)
-                                  for path, n in p5.items()})
+                                  for path, n in p5.items()},
+                 launches_phase9={path: n.get(r["name"], 0)
+                                  for path, n in p9["solvers"]["launches"].items()})
         prof = [x for x in telemetry["rows"] if x["op"] == r["name"]]
         if prof:
             r["profiler"] = prof[0]
@@ -6985,7 +7332,7 @@ def tiering_phases(seed: int) -> tuple[list[dict], dict, dict]:
         f"fused_match {cx['fused_match_ms']:.3f} ms; {cx['eligible']:.4f} "
         f"eligible; max abs err {cx['max_abs_err']}")
     log(f"[phase 1] at scale: {t_scale + time.perf_counter() - t:.1f}s")
-    return rec, p7, p8
+    return rec, p7, p8, p9
 
 
 def phase5(p3: dict, medium) -> dict:
@@ -7001,13 +7348,15 @@ def phase5(p3: dict, medium) -> dict:
         gpu = phase5_medium(medium)
         log(f"[phase 5] a: {time.perf_counter() - t:.1f}s")
         t = time.perf_counter()
-        ing_medium = phase5_ingest_medium(medium, host.get(timeout=900))
+        ing_host = host.get(timeout=900)
+        ing_medium = phase5_ingest_medium(medium, ing_host)
         log(f"[phase 5e] a: {time.perf_counter() - t:.1f}s (the CPU half in "
-            f"a worker process since phase 5 began)")
+            f"a worker process since phase 5 began: {ing_host['worker_s']:.1f}s)")
         t = time.perf_counter()
-        mesh_med = phase5_mesh_medium(medium, mesh_host.get(timeout=900))
+        mesh_h = mesh_host.get(timeout=900)
+        mesh_med = phase5_mesh_medium(medium, mesh_h)
         log(f"[phase 5f] a: {time.perf_counter() - t:.1f}s (the CPU half in "
-            f"the worker after 5e-a's)")
+            f"the worker after 5e-a's: {mesh_h['worker_s']:.1f}s)")
         t = time.perf_counter()
         finish_launchers(procs)
         log(f"[phase 5] d: waited {time.perf_counter() - t:.1f}s for the "

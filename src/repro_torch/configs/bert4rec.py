@@ -43,4 +43,5 @@ def _smoke():
 
 R.register_recsys("bert4rec", CONFIG, cell_for=_cell,
                   loss_fn=lambda cfg: (lambda p, b: M.bert4rec_loss(p, b, cfg)),
-                  serve_fn=_serve, smoke=_smoke)
+                  serve_fn=_serve, smoke=_smoke,
+                  init=M.bert4rec_init, param_specs=M.bert4rec_specs, f32_inputs=())

@@ -36,4 +36,5 @@ def _smoke():
 
 R.register_recsys("bst", CONFIG, cell_for=_cell,
                   loss_fn=lambda cfg: (lambda p, b: M.bst_loss(p, b, cfg)),
-                  serve_fn=_serve, smoke=_smoke)
+                  serve_fn=_serve, smoke=_smoke,
+                  init=M.bst_init, param_specs=M.bst_specs, f32_inputs=("labels",))

@@ -37,4 +37,5 @@ def _smoke():
 
 R.register_recsys("deepfm", CONFIG, cell_for=_cell,
                   loss_fn=lambda cfg: (lambda p, b: M.deepfm_loss(p, b, cfg)),
-                  serve_fn=_serve, smoke=_smoke)
+                  serve_fn=_serve, smoke=_smoke,
+                  init=M.deepfm_init, param_specs=M.deepfm_specs, f32_inputs=("labels",))

@@ -9,6 +9,7 @@ the static padding of the neighbour sampler in `models/sampler.py` (fanout
 import numpy as np
 
 from repro_torch.configs import registry as R
+from repro_torch.distributed import sharding
 from repro_torch.models import egnn as G
 
 SMOKE = G.EGNNConfig(n_layers=2, d_hidden=16, d_feat=8, n_classes=3)
@@ -35,4 +36,11 @@ R.register(R.ArchSpec(
     cell_for=lambda shape: R.gnn_cell(config_for(shape), shape),
     serve_fn=lambda cfg, shape: (lambda p, b: G.serve_step(p, b, cfg)),
     loss_fn=lambda cfg: (lambda p, b: G.loss_fn(p, b, cfg)),
-    optimizer="adamw", smoke=_smoke, smoke_cfg=SMOKE))
+    optimizer="adamw", smoke=_smoke, smoke_cfg=SMOKE,
+    abstract_params=lambda cfg: R.abstract(G.init_params, cfg),
+    param_specs=lambda cfg: sharding.replicated(R.abstract(G.init_params, cfg)),
+    abstract_cell=lambda shape, mesh: R.dims_cell(
+        R.gnn_cell(config_for(shape), shape), mesh,
+        f32=("node_feat", "coords", "targets"),
+        replicated=("node_feat", "coords", "labels", "graph_ids", "targets"),
+        dim1=("edges",))))

@@ -50,4 +50,7 @@ def _smoke():
 
 R.register_recsys("two-tower-retrieval", CONFIG, cell_for=_cell,
                   loss_fn=lambda cfg: (lambda p, b: M.twotower_loss(p, b, cfg)),
-                  serve_fn=_serve, smoke=_smoke, extra_shapes=("retrieval_cand_tiered",))
+                  serve_fn=_serve, smoke=_smoke,
+                  init=M.twotower_init, param_specs=M.twotower_specs,
+                  f32_inputs=("item_logq", "cand_emb", "tier1_emb"),
+                  extra_shapes=("retrieval_cand_tiered",))

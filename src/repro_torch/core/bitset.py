@@ -152,11 +152,14 @@ def from_indices(idx: torch.Tensor, n_bits: int,
     keep = (idx >= 0) & (idx < w * WORD)
     if valid is not None:
         keep &= valid.reshape(-1)
-    idx = idx[keep]
-    if not unique:
-        idx = torch.unique(idx)
     out = torch.zeros(w, dtype=torch.int64, device=idx.device)
-    out.index_add_(0, idx >> 5, torch.ones_like(idx) << (idx & 31))
+    if unique:
+        # a dropped index adds 0 to word 0: no data-dependent shape, no sync
+        out.index_add_(0, torch.where(keep, idx >> 5, 0),
+                       torch.where(keep, torch.ones_like(idx) << (idx & 31), 0))
+    else:
+        idx = torch.unique(idx[keep])
+        out.index_add_(0, idx >> 5, torch.ones_like(idx) << (idx & 31))
     return _as_int32(out)
 
 
@@ -189,8 +192,9 @@ def pack_tokens(tokens: torch.Tensor, n_bits: int) -> torch.Tensor:
         t = torch.where(dup, -1, t)
     valid = t >= 0
     rows = torch.arange(b, device=t.device).unsqueeze(1).expand(b, ell)
-    word = (rows * w + (t >> 5))[valid]
-    bit = (torch.ones_like(t) << (t & 31))[valid]
+    # a padding slot adds 0 to word 0: no data-dependent shape, no sync
+    word = torch.where(valid, rows * w + (t >> 5), 0).reshape(-1)
+    bit = torch.where(valid, torch.ones_like(t) << (t & 31), 0).reshape(-1)
     # distinct powers of two per word: their sum is their OR
     out = torch.zeros(b * w, dtype=torch.int64, device=t.device)
     out.index_add_(0, word, bit)

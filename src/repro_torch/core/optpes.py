@@ -27,6 +27,7 @@ from repro_torch.core.problem import SCSKProblem, SolverResult
 from repro_torch.core.registry import register_solver
 from repro_torch.core.state import SolverState
 from repro_torch.core.trace import Trace
+from repro_torch.device import host_values
 
 NEG = float("-inf")
 
@@ -55,11 +56,35 @@ def top_k_stable(values: torch.Tensor, k: int):
 
 def _subset_gains(problem: SCSKProblem, constraint, covered_q, covered_d,
                   top_idx):
-    """Exact f gains [K] and per-partition g gains [K, P] for K gathered rows."""
+    """Exact f gains [K] and per-partition g gains [K, P] for K gathered rows.
+
+    Over a `"model"` mesh (`ExecutionPlan.model_fused`) the incidence
+    matrices are (data rows x model words)-sharded: each entry
+    owner-selects the rows from its block and computes f partials
+    (`bit_matvec`) and g partials (`coverage_gain`) over its word slice,
+    and one combine over every entry sums them (`distributed.model_gains`),
+    where the direct gather `A[top_idx]` would be the reference's
+    whole-matrix all-gather. Partitioned constraints take the direct path,
+    as in the reference: their word ranges do not line up with the mesh's
+    model slices (their `partition_gain` fuses over a `"shard"` mesh)."""
+    from repro_torch import distributed
+    if constraint.n_parts == 1 and distributed.current_plan().model_fused:
+        x = problem.uncovered_weights(covered_q)[:, None]
+        fg, gg = distributed.model_gains(
+            problem.clause_query_bits, x, problem.clause_doc_bits, covered_d,
+            top_idx)
+        return fg, gg[:, None]
     fg = problem.f_gains(covered_q, rows=problem.clause_query_bits[top_idx])
     _, gg_part = constraint.gains(problem, covered_d,
                                   rows=problem.clause_doc_bits[top_idx])
     return fg, gg_part
+
+
+def _row(mat: torch.Tensor, j: int) -> torch.Tensor:
+    """Row `j` owner-local on a `"model"` mesh (`distributed.owner_row`:
+    no whole-matrix gather), `mat[j]` off it."""
+    from repro_torch import distributed
+    return distributed.owner_row(mat, j, w_axis="model")
 
 
 def optpes_round(problem: SCSKProblem, rs: RoundState, constraint, *,
@@ -92,21 +117,21 @@ def optpes_round(problem: SCSKProblem, rs: RoundState, constraint, *,
     exact_feas = valid & (~rs.selected[top_idx]) \
         & constraint.feasible(rs.g_part, gg_part) & (fg > 0.0)
     exact_ratio = torch.where(exact_feas, ratio_of(fg, gg), NEG)
-    bi = torch.argmax(exact_ratio)
-    r_star = exact_ratio[bi]
+    bi = torch.argmax(exact_ratio).reshape(1)    # a [1] index: no host read
+    r_star = exact_ratio[bi][0]
 
     refreshed = torch.zeros_like(rs.selected)
     refreshed[top_idx] = valid
     opt2 = torch.where(feasible & ~refreshed,
                        ratio_of(rs.fbar, rs.glow.sum(-1)), NEG)
     do_select = (r_star > NEG) & (r_star >= opt2.max())
-    did, any_feasible, j = torch.stack(
-        [do_select.long(), feasible.any().long(), top_idx[bi]]).tolist()
+    did, any_feasible, j = host_values(torch.stack(
+        [do_select.long(), feasible.any().long(), top_idx[bi][0]]))
 
     if did:
-        fg_s, gg_s = fg[bi], gg_part[bi]
-        rs.covered_q = rs.covered_q | problem.clause_query_bits[j]
-        rs.covered_d = rs.covered_d | problem.clause_doc_bits[j]
+        fg_s, gg_s = fg[bi][0], gg_part[bi][0]
+        rs.covered_q = rs.covered_q | _row(problem.clause_query_bits, j)
+        rs.covered_d = rs.covered_d | _row(problem.clause_doc_bits, j)
         rs.selected[j] = True
         rs.g_part = constraint.value(problem, rs.covered_d)
         # eq. (14) lower-bound updates for every candidate, per partition

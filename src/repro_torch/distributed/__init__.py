@@ -14,15 +14,24 @@
     entries; `data_axes` names a mesh's data-parallel axes (EGNN splits its
     edges over them).
 
-The rest of the reference's training side (`sharding`, `shard_hint`, the
-other model-axis helpers) is not part of this package yet.
+  * `plan` also holds the solvers' `"model"`-axis fusion: `place` cuts a
+    matrix into its entries' (data rows x model words) blocks once;
+    `axis_rank`, `owner_select`, `owner_row` and `model_gains` compute on
+    those blocks and combine on the first entry;
+  * `sharding` — the port's PartitionSpec `P`, `add_fsdp`,
+    `opt_state_specs`, and each entry's block shape and bytes under a spec
+    (`entry_bytes`), which the dry run records; `shard_hint` (in
+    `mesh_context`) is an identity: the port places no activation by spec.
 """
 from repro_torch.distributed.mesh_context import (      # noqa: F401
-    Mesh, current_mesh, data_axes, model_axis_in, use_mesh)
+    Mesh, current_mesh, data_axes, model_axis_in, shard_hint, use_mesh)
 from repro_torch.distributed.plan import (              # noqa: F401
-    SHARD_AXIS, ExecutionPlan, blocks, current_plan, mesh_fused, shard_mesh)
+    MODEL_AXIS, SHARD_AXIS, ExecutionPlan, axis_rank, blocks, current_plan,
+    mesh_fused, model_gains, owner_row, owner_select, place, shard_mesh)
 
 __all__ = [
-    "ExecutionPlan", "Mesh", "SHARD_AXIS", "blocks", "current_mesh",
-    "current_plan", "data_axes", "mesh_fused", "model_axis_in", "shard_mesh", "use_mesh",
+    "ExecutionPlan", "MODEL_AXIS", "Mesh", "SHARD_AXIS", "axis_rank", "blocks",
+    "current_mesh", "current_plan", "data_axes", "mesh_fused", "model_axis_in",
+    "model_gains", "owner_row", "owner_select", "place", "shard_hint", "shard_mesh",
+    "use_mesh",
 ]

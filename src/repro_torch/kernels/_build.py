@@ -192,3 +192,10 @@ def aligned16(*ts: torch.Tensor) -> bool:
 def on_cpu(*ts: torch.Tensor | None) -> bool:
     """True when every given tensor lies on the CPU (the plain path)."""
     return all(t is None or t.device.type == "cpu" for t in ts)
+
+
+def on_meta(*ts: torch.Tensor | None) -> bool:
+    """True when every given tensor is a meta tensor: the dry run
+    (`launch.dryrun`) propagates shapes through the plain version. Never
+    true for a CPU or CUDA tensor."""
+    return all(t is None or t.device.type == "meta" for t in ts)

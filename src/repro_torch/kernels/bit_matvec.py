@@ -21,7 +21,7 @@ def bit_matvec(a_bits: torch.Tensor, x: torch.Tensor, *,
                warps: int = DEFAULT_WARPS) -> torch.Tensor:
     """int32 words a_bits [C, W], f32 x [W*32, R] -> f32 [C, R]."""
     check_warps(warps)
-    if _build.on_cpu(a_bits, x):
+    if _build.on_cpu(a_bits, x) or _build.on_meta(a_bits, x):
         return ref.bit_matvec(a_bits, x)
     _build.require(a_bits, "a_bits", torch.int32, 2)
     _build.require(x, "x", torch.float32, 2, a_bits.device)

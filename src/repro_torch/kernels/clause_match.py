@@ -105,7 +105,7 @@ def clause_match(query_bits: torch.Tensor, clause_bits: torch.Tensor, *,
     b, k = query_bits.shape[0], clause_bits.shape[0]
     if b == 0 or k == 0:
         return torch.zeros(b, dtype=torch.bool, device=query_bits.device)
-    if _build.on_cpu(query_bits, clause_bits):
+    if _build.on_cpu(query_bits, clause_bits) or _build.on_meta(query_bits, clause_bits):
         return ref.clause_match(query_bits, clause_bits)
     _build.require(query_bits, "query_bits", torch.int32, 2)
     _build.require(clause_bits, "clause_bits", torch.int32, 2, query_bits.device)

@@ -18,7 +18,7 @@ def coverage_gain(a_bits: torch.Tensor, mask: torch.Tensor, *,
                   warps: int = DEFAULT_WARPS) -> torch.Tensor:
     """int32 words a_bits [C, W], mask [W] -> int32 [C]."""
     check_warps(warps)
-    if _build.on_cpu(a_bits, mask):
+    if _build.on_cpu(a_bits, mask) or _build.on_meta(a_bits, mask):
         return ref.coverage_gain(a_bits, mask)
     _build.require(a_bits, "a_bits", torch.int32, 2)
     _build.require(mask, "mask", torch.int32, 1, a_bits.device)

@@ -191,6 +191,10 @@ def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return ref.flash_attention(q, k, v, causal=causal, window=window,
                                    softcap=softcap, q_offset=q_offset,
                                    kv_len=kv_len)
+    if _build.on_meta(q, k, v):
+        # the dry run: every route's shapes by the f32 plain version
+        return ref.flash_attention(q, k, v, causal=causal, window=window,
+                                   softcap=softcap, q_offset=q_offset, kv_len=kv_len)
     if q.device.type != "cuda":
         raise ValueError(f"q must be a CUDA tensor (or every operand on the "
                          f"CPU), got device {q.device}")

@@ -201,6 +201,8 @@ def flash_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"lse must be [B, Hq, S] = {(b, hq, s)}, got {tuple(lse.shape)}")
     kernel = route(q, k, v, lse)
     kw = dict(causal=causal, window=window, softcap=softcap)
+    if _build.on_meta(q, k, v, o, do, lse):
+        return ref.flash_attention_bwd(q, k, v, o, do, **kw)   # the dry run: shapes
     if _build.on_cpu(q, k, v, o, do, lse):
         if kernel == "flash_backward_tc":
             return ref.flash_backward_tc(q, k, v, o, do, lse, **kw)

@@ -111,6 +111,10 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return ref.flash_attention(q, k, v, causal=causal, window=window,
                                    softcap=softcap, q_offset=q_offset,
                                    kv_len=kv_len)
+    if _build.on_meta(q, k, v):
+        # the dry run: every route's shapes by the f32 plain version
+        return ref.flash_attention(q, k, v, causal=causal, window=window,
+                                   softcap=softcap, q_offset=q_offset, kv_len=kv_len)
     b, sq, hq, d = q.shape
     _, skv, hkv, _ = k.shape
     if sq != 1:

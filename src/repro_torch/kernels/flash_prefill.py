@@ -59,6 +59,10 @@ def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"lse_out must be a contiguous float32 {(b, hq, sq)} tensor on "
                          f"{q.device}, got {lse_out.dtype} {tuple(lse_out.shape)} on "
                          f"{lse_out.device}")
+    if _build.on_meta(q, k, v):
+        # the dry run: every route's shapes by the f32 plain version
+        return ref.flash_attention(q, k, v, causal=causal, window=window,
+                                   softcap=softcap, q_offset=q_offset, kv_len=kv_len)
     if _build.on_cpu(q, k, v):
         return ref.flash_prefill(q, k, v, causal=causal, window=window,
                                  softcap=softcap, q_offset=q_offset,

@@ -29,7 +29,7 @@ def tier_match(t1: torch.Tensor, t2: torch.Tensor, sel: torch.Tensor | None,
     with ids in [-1, V). Returns int32 words [B, W]; all-ones for a query
     with no valid token.
     """
-    if _build.on_cpu(t1, t2, sel, tokens):
+    if _build.on_cpu(t1, t2, sel, tokens) or _build.on_meta(t1, t2, sel, tokens):
         return ref.tier_match(t1, t2, sel, tokens)
     _build.require(t2, "t2", torch.int32, 2)
     dev = t2.device

@@ -39,7 +39,7 @@ def partition_gain(a_bits: torch.Tensor, mask: torch.Tensor, bounds, *,
     check_warps(warps)
     c, w = a_bits.shape
     bounds = check_bounds(bounds, w)
-    if _build.on_cpu(a_bits, mask):
+    if _build.on_cpu(a_bits, mask) or _build.on_meta(a_bits, mask):
         return ref.partition_gain(a_bits, mask, bounds)
     _build.require(a_bits, "a_bits", torch.int32, 2)
     _build.require(mask, "mask", torch.int32, 1, a_bits.device)

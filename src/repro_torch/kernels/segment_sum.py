@@ -44,6 +44,11 @@ def segment_sum(rows: torch.Tensor, perm: torch.Tensor, offsets: torch.Tensor,
     added left to right (the kernel's contract; no autograd)."""
     if _build.on_cpu(rows, perm, offsets, out0):
         return ref.segment_sum(rows, perm, offsets, out0)
+    if _build.on_meta(rows, perm, offsets, out0):
+        # the dry run: the result's shape (the plain version's loop runs
+        # over the segments' lengths, which meta tensors do not hold)
+        return torch.empty((offsets.shape[0] - 1, rows.shape[1]), dtype=rows.dtype,
+                           device="meta")
     _build.require(rows, "rows", torch.float32, 2)
     _build.require(perm, "perm", torch.int32, 1, rows.device)
     _build.require(offsets, "offsets", torch.int32, 1, rows.device)
@@ -101,7 +106,8 @@ def plan(index: torch.Tensor, n_segments: int,
     keys, order = torch.sort(key, stable=True)
     bounds = torch.arange(n_segments + 1, dtype=torch.int32, device=idx.device)
     offsets = torch.searchsorted(keys, bounds).to(torch.int32)
-    m = int(offsets[-1])
+    # on meta (the dry run: shapes only) every row counts as valid
+    m = idx.shape[0] if offsets.is_meta else int(offsets[-1])
     every = m == idx.shape[0]
     return SegmentPlan(index=torch.where(valid, idx, torch.zeros_like(idx)),
                        valid=None if every else valid,

@@ -26,7 +26,7 @@ def smem_route(w: int) -> bool:
 
 def sparse_gain(doc_ids: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     """int32 doc_ids [C, M] (-1 padded), int32 words mask [W] -> int32 [C]."""
-    if _build.on_cpu(doc_ids, mask):
+    if _build.on_cpu(doc_ids, mask) or _build.on_meta(doc_ids, mask):
         return ref.sparse_gain(doc_ids, mask)
     _build.require(doc_ids, "doc_ids", torch.int32, 2)
     _build.require(mask, "mask", torch.int32, 1, doc_ids.device)

@@ -62,6 +62,10 @@ def run(args: argparse.Namespace):
         make_train_step
 
     arch = R.get_arch(args.arch)
+    if arch.loss_fn is None:
+        raise ValueError(f"{args.arch} has no loss to train (its cells are "
+                         f"{arch.family} rounds, run by its serve_fn); "
+                         f"launch.train takes an arch with a loss_fn")
     cfg, smoke_batch, kind = arch.smoke()
     assert kind == "train", f"{args.arch} has no training smoke path"
     device = resolve_device(args.device)

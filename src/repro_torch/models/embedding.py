@@ -29,6 +29,12 @@ import torch.nn.functional as F
 from repro_torch.distributed import mesh_context
 
 
+def table_spec():
+    """A table's PartitionSpec: rows over `"model"`."""
+    from repro_torch.distributed.sharding import P
+    return P("model", None)
+
+
 def _gather(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """table[idx] with a bit-reproducible backward on the table's device."""
     if table.device.type == "cuda":

@@ -81,7 +81,10 @@ def capacity_slots(topk_e: torch.Tensor, lo: int, e_local: int, cap_e: int):
     local = (e_flat >= lo) & (e_flat < lo + e_local)
     e_loc = torch.where(local, e_flat - lo, torch.full_like(e_flat, e_local))
     order = torch.sort(e_loc, stable=True).indices
-    counts = torch.bincount(e_loc, minlength=e_local + 1)
+    # bincount by an integer scatter-add: the same counts, and shapes that
+    # do not depend on the data (the dry run runs this on meta tensors)
+    counts = torch.zeros(e_local + 1, dtype=e_loc.dtype, device=e_loc.device
+                         ).scatter_add_(0, e_loc, torch.ones_like(e_loc))
     starts = torch.cumsum(counts, 0) - counts
     rank = torch.empty_like(e_flat)
     rank[order] = torch.arange(e_flat.numel(), device=e_flat.device) - starts[e_loc[order]]

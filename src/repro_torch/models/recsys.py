@@ -26,6 +26,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.distributed import mesh_context
+from repro_torch.distributed.sharding import P
 from repro_torch.models import common, embedding
 
 CANDIDATE_CHUNK = 65535   # BST's candidates scored at a time: one attention launch each
@@ -66,6 +67,30 @@ def deepfm_init(gen: torch.Generator, cfg: DeepFMConfig) -> dict:
         "mlp": common.mlp_params(gen, (cfg.n_fields * cfg.embed_dim,) + cfg.mlp_dims + (1,)),
         "bias": torch.zeros((), device=gen.device),
     }
+
+
+def deepfm_specs(cfg: DeepFMConfig) -> dict:
+    """PartitionSpecs of `deepfm_init`'s tree: the tables row-sharded over
+    `"model"` (`embedding.table_spec`), the rest replicated."""
+    return {
+        "emb": embedding.table_spec(),
+        "lin": embedding.table_spec(),
+        "mlp": _mlp_specs(len(cfg.mlp_dims) + 1),
+        "bias": P(),
+    }
+
+
+def _mlp_specs(n: int) -> list[dict]:
+    return [{"w": P(None, None), "b": P(None)} for _ in range(n)]
+
+
+def _block_specs() -> dict:
+    """A transformer block's specs: column-parallel wq/wk/wv/ff1,
+    row-parallel wo/ff2 over `"model"`."""
+    return {"wq": P(None, "model"), "wk": P(None, "model"),
+            "wv": P(None, "model"), "wo": P("model", None),
+            "ln1": P(None), "ln2": P(None),
+            "ff1": P(None, "model"), "ff2": P("model", None)}
 
 
 def _field_offsets(cfg: DeepFMConfig, device) -> torch.Tensor:
@@ -158,6 +183,15 @@ def bst_init(gen: torch.Generator, cfg: BSTConfig) -> dict:
     }
 
 
+def bst_specs(cfg: BSTConfig) -> dict:
+    return {
+        "item_emb": embedding.table_spec(),
+        "pos_emb": P(None, None),
+        "blocks": [_block_specs() for _ in range(cfg.n_blocks)],
+        "mlp": _mlp_specs(len(cfg.mlp_dims) + 1),
+    }
+
+
 def bst_logits(params: dict, hist: torch.Tensor, target: torch.Tensor,
                cfg: BSTConfig) -> torch.Tensor:
     """hist [B, L] item ids (-1 pad), target [B] item id -> [B]."""
@@ -218,6 +252,15 @@ def bert4rec_init(gen: torch.Generator, cfg: Bert4RecConfig) -> dict:
         "pos_emb": _normal(gen, (cfg.seq_len, d), 0.01),
         "blocks": [_tx_block_init(gen, d) for _ in range(cfg.n_blocks)],
         "out_norm": torch.zeros(d, device=gen.device),
+    }
+
+
+def bert4rec_specs(cfg: Bert4RecConfig) -> dict:
+    return {
+        "item_emb": embedding.table_spec(),
+        "pos_emb": P(None, None),
+        "blocks": [_block_specs() for _ in range(cfg.n_blocks)],
+        "out_norm": P(None),
     }
 
 
@@ -325,6 +368,15 @@ def twotower_init(gen: torch.Generator, cfg: TwoTowerConfig) -> dict:
         "item_emb": _normal(gen, (cfg.n_item_fields * cfg.vocab_per_field, cfg.field_dim), 0.01),
         "user_mlp": common.mlp_params(gen, (du,) + cfg.tower_dims),
         "item_mlp": common.mlp_params(gen, (di,) + cfg.tower_dims),
+    }
+
+
+def twotower_specs(cfg: TwoTowerConfig) -> dict:
+    return {
+        "user_emb": embedding.table_spec(),
+        "item_emb": embedding.table_spec(),
+        "user_mlp": _mlp_specs(len(cfg.tower_dims)),
+        "item_mlp": _mlp_specs(len(cfg.tower_dims)),
     }
 
 

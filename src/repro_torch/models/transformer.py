@@ -34,6 +34,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
+from repro_torch.distributed import mesh_context
 from repro_torch.models import common, moe as moe_lib
 
 
@@ -180,6 +181,36 @@ def init_params(gen: torch.Generator, cfg: TransformerConfig) -> dict:
     return params
 
 
+def param_specs(cfg: TransformerConfig) -> dict:
+    """PartitionSpecs matching `init_params`' tree (megatron-style tensor
+    parallelism over `"model"`; `sharding.add_fsdp` puts FSDP over the data
+    axes on top). The port's own training does not place by them: the dry
+    run (`launch.dryrun`) counts each mesh entry's bytes under them."""
+    from repro_torch.distributed.sharding import P
+    attn = {"wq": P(None, None, "model"), "wk": P(None, None, "model"),
+            "wv": P(None, None, "model"), "wo": P(None, "model", None)}
+    if cfg.moe is not None:
+        ffn = {"gate": P(None, None, None),
+               "w1": P(None, "model", None, None),
+               "w3": P(None, "model", None, None),
+               "w2": P(None, "model", None, None)}
+    else:
+        ffn = {"w1": P(None, None, "model"), "w3": P(None, None, "model"),
+               "w2": P(None, "model", None)}
+    specs = {
+        "embed": P(None, "model"),
+        "layers": {"attn": attn, "ffn": ffn,
+                   "ln1": P(None, None), "ln2": P(None, None)},
+        "final_norm": P(None),
+    }
+    if cfg.qk_norm:
+        specs["layers"]["qnorm"] = P(None, None)
+        specs["layers"]["knorm"] = P(None, None)
+    if not cfg.tie_embeddings:
+        specs["unembed"] = P(None, "model")
+    return specs
+
+
 _NORMS = ("ln1", "ln2", "qnorm", "knorm", "final_norm")
 
 
@@ -314,10 +345,14 @@ def forward(params: dict, tokens: torch.Tensor, cfg: TransformerConfig
 
 def _layer(cfg: TransformerConfig, lp: dict, h: torch.Tensor, window: int | None,
            positions: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """One layer of `forward`: (the residual stream after it, its aux loss)."""
-    h = h + _attention_block(cfg, lp, h, window, positions=positions)
+    """One layer of `forward`: (the residual stream after it, its aux loss).
+    The reference pins the residual stream to token sharding after each
+    block (`mesh_context.shard_hint`, an identity here)."""
+    dp = mesh_context.data_axes()
+    h = mesh_context.shard_hint(
+        h + _attention_block(cfg, lp, h, window, positions=positions), dp, None, None)
     ffn, aux = _ffn_block(cfg, lp, h)
-    return h + ffn, aux
+    return mesh_context.shard_hint(h + ffn, dp, None, None), aux
 
 
 def unembed_matrix(params: dict, cfg: TransformerConfig) -> torch.Tensor:

@@ -152,22 +152,25 @@ def test_block_dim_helper():
 
 
 def test_cpu_path_launches_nothing_and_other_devices_raise():
-    """CPU tensors take the plain version (no launch counted); a tensor on
-    any other non-CUDA device is refused rather than computed some other
-    way."""
+    """CPU tensors take the plain version (no launch counted); operands
+    spread over the CPU and another non-CUDA device are refused rather
+    than computed some other way. Operands all on meta (the dry run) only
+    propagate shapes, and launch nothing either."""
     _build.reset_launches()
     a = torch.zeros((4, 2), dtype=torch.int32)
     ops.coverage_gain(a, a[0])
     ops.bit_matvec(a, torch.zeros((64, 1)))
     ops.clause_match(a, a)
     ops.match_batch(a, torch.zeros((3, 2), dtype=torch.int32))
-    assert all(v == 0 for v in _build.LAUNCHES.values())
     meta = torch.empty((4, 2), dtype=torch.int32, device="meta")
+    assert ops.coverage_gain(meta, meta[0]).shape == (4,)
+    assert ops.bit_matvec(meta, torch.empty((64, 1), device="meta")).is_meta
+    assert all(v == 0 for v in _build.LAUNCHES.values())
     with pytest.raises(ValueError, match="CUDA"):
-        ops.coverage_gain(meta, meta[0])
+        ops.coverage_gain(meta, a[0])
     with pytest.raises(ValueError, match="CUDA"):
-        ops.clause_match(meta, meta)
+        ops.clause_match(meta, a)
     with pytest.raises(ValueError, match="CUDA"):
-        ops.match_batch(meta, torch.empty((3, 2), dtype=torch.int32, device="meta"))
+        ops.match_batch(meta, torch.zeros((3, 2), dtype=torch.int32))
     with pytest.raises(ValueError, match="CUDA"):
-        ops.bit_matvec(meta, torch.empty((64, 1), device="meta"))
+        ops.bit_matvec(meta, torch.zeros((64, 1)))

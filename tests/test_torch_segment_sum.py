@@ -125,11 +125,14 @@ def test_plain_version_on_segments_longest_first():
 
 
 def test_cuda_operands_never_take_the_plain_version():
-    """A tensor off the CPU goes to the kernel's checks, never to ref."""
+    """Operands off the CPU go to the kernel's checks, never to ref; all
+    on meta (the dry run) they only propagate the result's shape."""
     p = S.plan(torch.tensor([0, 1], dtype=torch.int32), 2)
     meta = torch.empty((2, 4), device="meta")
     with pytest.raises(ValueError, match="CUDA tensor"):
-        S.segment_sum(meta, p.perm.to("meta"), p.offsets.to("meta"))
+        S.segment_sum(meta, p.perm, p.offsets)
+    out = S.segment_sum(meta, p.perm.to("meta"), p.offsets.to("meta"))
+    assert out.is_meta and out.shape == (2, 4)
 
 
 def test_gradcheck_sum_rows_and_gather_rows_f64():

@@ -398,7 +398,9 @@ def test_launcher_refuses_the_families_not_ported(arch, monkeypatch, tmp_path, c
     family = {"deepfm": "recsys", "egnn": "gnn"}[arch]
     assert jregistry.get_arch(arch).family == tregistry.get_arch(arch).family == family
     trained = {n for n, a in jregistry.all_archs().items() if a.smoke()[2] == "train"}
-    assert trained == set(tregistry.ARCHS)
+    tregistry._load_all()
+    assert set(jregistry.all_archs()) == set(tregistry.ARCHS)
+    assert trained == {n for n, a in tregistry.ARCHS.items() if a.smoke()[2] == "train"}
     if arch != "egnn":
         return
     monkeypatch.setattr(sys, "argv", ["train", "--arch", arch, "--device", "cpu", "--steps",
