@@ -309,18 +309,24 @@ a non-zero exit):
         phase 2's worker, the CPU's optpes Tier-1 ids and top-100s == the
         card's.
   8. the GNN family (EGNN) on `csrc/segment_sum.cu`, a segment sum that adds
-     each node's edges in ascending edge order (no atomics); all of it
+     each node's rows in the plan's order (no atomics) by two routes: gather
+     (through a perm) and stream (rows already in segment order, EGNN's
+     edges laid out by destination, summed over a node range); all of it
      beside phase 2's CPU worker after phase 7's card work, phase 3's
      operands resident; every cut in GNN_REDUCED:
      a. segment_sum against its plain version on the CPU copy, bit for bit
-        (and against the CPU's index_add_), on ragged cases: F 1-128 on both
-        routes (a thread a node up to F 8, a warp a node above), empty
-        segments, every edge into one node, -1 pads, out0, no edges; a
-        repeat identical; 3 chunks continued through out0 == one call;
-        `sum_rows` / `gather_rows` and their gradients == the direct calls;
-        then at ogb_products' [E, 64] against the plain version on the card,
-        timed beside its byte bound, the plain version, `index_add_` and
-        `index_put_(accumulate=True)`;
+        (and against the CPU's index_add_), on ragged cases through both
+        routes: F 1-256 (a thread a node up to F 8, a warp or half-warp a
+        node above), empty segments, hub nodes longer than a stage, -1 pads,
+        out0, no edges; a repeat identical; stream == gather; 3 chunks
+        continued through out0 == one call; node ranges (unaligned F 3
+        starts, empty ranges) in place on a running sum == one call;
+        `sum_rows` / `gather_rows` and their gradients == the direct calls
+        on both kinds of plan; then at ogb_products' [E, 64] both routes
+        against the plain version on the card, timed beside their byte
+        bounds, the plain version, `index_add_` and
+        `index_put_(accumulate=True)`, with one 2^22-row chunk in place over
+        its node range and the gather and copy floors;
      b. card == CPU at SMOKE and at full_graph_sm's full width (loss, every
         gradient leaf, serve logits and coordinates), one numpy parameter
         tree through `convert.egnn_params_from_numpy`; `launch.train --arch
@@ -6107,24 +6113,36 @@ def recsys_records(p7: dict, short_small: dict, p6_launches: dict) -> list[dict]
 
 # -- phase 8: the GNN family (EGNN) ----------------------------------------------
 
-GNN_KERNELS = ("segment_sum",)
+# the segment sum's two routes: "segment_sum" gathers through a perm (the sums
+# by src, pooling), "segment_sum_stream" streams rows already in segment order
+# (EGNN's sums by dst, its edges laid out by destination)
+GNN_KERNELS = ("segment_sum", "segment_sum_stream")
 # 8a: ragged cases of segment_sum against its plain version (name, N, E, F, kind):
 # random edges, many empty segments, every edge into one node, -1-padded
 # edges, a non-zero out0, chunked against unchunked; F 1, 3, 5 (the thread
-# route), 64, 100, 128 (the warp route), 9 and 33 (its edges)
+# layout), 64, 100, 128 (the warp layout), 9 and 33 (its edges); each through
+# both routes (the stream route on the valid rows put in segment order). The
+# hubs at F 64 and F 3 are segments longer than a stage (32 KB) of the stream
+# route
 SEG_CASES = [
     ("random", 24, 64, 1, "random"), ("random", 24, 64, 3, "random"),
     ("random", 100, 700, 5, "random"), ("random", 1000, 7000, 64, "random"),
     ("random", 37, 300, 100, "random"), ("random", 513, 4099, 128, "random"),
     ("random", 50, 333, 9, "random"), ("random", 50, 333, 33, "random"),
     ("empty", 5000, 300, 64, "random"), ("empty", 5000, 300, 3, "random"),
-    ("hub", 10, 5000, 64, "hub"), ("hub", 10, 5000, 1, "hub"),
+    ("hub", 10, 5000, 64, "hub"), ("hub", 10, 5000, 1, "hub"), ("hub", 7, 40000, 3, "hub"),
     ("padded", 200, 2048, 64, "pad"), ("padded", 200, 2048, 3, "pad"),
     ("out0", 300, 2500, 64, "out0"), ("out0", 300, 2500, 5, "out0"),
     ("no edges", 40, 0, 64, "random"), ("no edges", 40, 0, 3, "out0"),
+    ("wide", 64, 900, 256, "out0"), ("long rows", 3000, 200000, 64, "random"),
 ]
+# 8a: the stream route over node ranges: the sorted rows cut at these row
+# offsets (odd ones: F 3 rows start 12 bytes apart, so a chunk's first row is
+# not 16-byte aligned), each cut continuing a running sum in place
+SEG_RANGE_CUTS = (0, 1, 7, 333, 1001, 1002, 2047)
 SEG_CHUNKS = 3                  # 8a: the chunked case's contiguous edge chunks
 SEG_REPS = 10                   # 8a: timed launches at ogb_products' [E, 64]
+SEG_FLOOR_PARTS = 4             # 8a: the floors' buffer holds a quarter of the rows
 GNN_SERVE_TOL = 1e-4            # 8b: serve outputs, rtol and atol x max|CPU|
 GNN_MESH_TOL = (1e-4, 1e-5)     # 8b: the 4-entry data mesh against direct (rtol, atol)
 GNN_EQUI_TOL = (2e-3, 1e-2)     # 8b: rotation + translation (rtol, atol), untrained
@@ -6182,71 +6200,142 @@ def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
     return a.shape == b.shape and torch.equal(bits(a), bits(b))
 
 
+def in_segment_order(rows, idx, n: int):
+    """The valid rows of a SEG_CASES case in segment order (stably) and their
+    sorted plan, beside the permuted plan of `idx`: (permuted plan, rows in
+    order, sorted index, sorted plan)."""
+    from repro_torch.kernels import segment_sum as S
+    p = S.plan(idx, n)
+    srt = rows[p.perm.long()].contiguous()
+    key = p.index[p.perm.long()]
+    return p, srt, key, S.sorted_plan(key, n)
+
+
 def phase8_kernel_small(dev) -> dict:
-    """8a: segment_sum on SEG_CASES against its plain version on the CPU copy,
-    bit for bit (the plan built on the card equal to the CPU's), each call's
-    launch counted; a repeat gives the same bits; SEG_CHUNKS contiguous
-    chunks continued through out0 equal one call; `sum_rows` and
-    `gather_rows` and their gradients equal the direct calls."""
+    """8a: segment_sum on SEG_CASES through both routes against its plain
+    version on the CPU copy, bit for bit (the plans built on the card equal
+    to the CPU's), each call's launch counted; a repeat gives the same bits;
+    the stream route on the rows in segment order equals the gather route;
+    SEG_CHUNKS contiguous chunks continued through out0 equal one call; the
+    stream route over node ranges (SEG_RANGE_CUTS, empty ranges too) in place
+    on a running sum equals one call; `sum_rows` and `gather_rows` and their
+    gradients on both kinds of plan equal the direct calls."""
     from repro_torch.kernels import _build, ref
     from repro_torch.kernels import segment_sum as S
     gen = torch.Generator().manual_seed(8)
     routes = set()
+    ranges = 0
+
+    def counted(kernel, calls, fn):
+        n0 = _build.LAUNCHES[kernel]
+        out = fn()
+        torch.cuda.synchronize()
+        check(_build.LAUNCHES[kernel] == n0 + calls,
+              f"8a: {_build.LAUNCHES[kernel] - n0} {kernel} launches for {calls} calls")
+        return out
+
     for name, n, e, f, kind in SEG_CASES:
+        tag = f"8a {name} N {n} E {e} F {f}"
         rows, idx, out0 = seg_case(gen, n, e, f, kind, dev)
         p, pc = S.plan(idx, n), S.plan(idx.cpu(), n)
         check(torch.equal(p.perm.cpu(), pc.perm) and torch.equal(p.offsets.cpu(), pc.offsets),
-              f"8a {name} F {f}: the card's plan differs from the CPU's")
-        n0 = _build.LAUNCHES["segment_sum"]
-        got = S.segment_sum(rows, p.perm, p.offsets, out0)
-        again = S.segment_sum(rows, p.perm, p.offsets, out0)
-        torch.cuda.synchronize()
-        check(_build.LAUNCHES["segment_sum"] == n0 + 2,
-              f"8a {name} F {f}: {_build.LAUNCHES['segment_sum'] - n0} launches for 2 calls")
-        want = ref.segment_sum(rows.cpu(), pc.perm, pc.offsets,
-                               None if out0 is None else out0.cpu())
-        check(same_bits(got, want), f"8a {name} N {n} E {e} F {f}: kernel != plain, max "
-              f"diff {float((got.cpu() - want).abs().max()) if got.numel() else 0.0}")
-        check(same_bits(got, again), f"8a {name} F {f}: two calls differ")
+              f"{tag}: the card's plan differs from the CPU's")
+        got, again = counted("segment_sum", 2, lambda: (
+            S.segment_sum(rows, p.perm, p.offsets, out0),
+            S.segment_sum(rows, p.perm, p.offsets, out0)))
+        o0 = None if out0 is None else out0.cpu()
+        want = ref.segment_sum(rows.cpu(), pc.perm, pc.offsets, o0)
+        check(same_bits(got, want), f"{tag}: gather kernel != plain, max diff "
+              f"{float((got.cpu() - want).abs().max()) if got.numel() else 0.0}")
+        check(same_bits(got, again), f"{tag}: two gather calls differ")
         if e:
-            want_add = (torch.zeros((n, f)) if out0 is None else out0.cpu().clone()) \
+            want_add = (torch.zeros((n, f)) if out0 is None else o0.clone()) \
                 .index_add_(0, pc.index[pc.perm.long()].long(), rows.cpu()[pc.perm.long()])
-            check(same_bits(got, want_add), f"8a {name} F {f}: kernel != the CPU's index_add_")
-        routes.add(S.route(f))
+            check(same_bits(got, want_add), f"{tag}: kernel != the CPU's index_add_")
+        routes.add(("gather", S.route(f)))
         if e >= SEG_CHUNKS:
             acc = out0
             for c in torch.arange(e, device=dev).chunk(SEG_CHUNKS):
                 pp = S.plan(idx[c], n)
                 acc = S.segment_sum(rows[c].contiguous(), pp.perm, pp.offsets, acc)
-            check(same_bits(acc, got), f"8a {name} F {f}: chunked != unchunked")
-    # the autograd Functions: sum_rows' backward is a gather, gather_rows' a
-    # segment sum by the same plan; both equal the direct calls bit for bit
-    rows, idx, out0 = seg_case(gen, 300, 2500, 64, "pad", dev)
+            check(same_bits(acc, got), f"{tag}: chunked != unchunked")
+        # the stream route: the same rows in segment order, one call
+        _, srt, key, sp = in_segment_order(rows, idx, n)
+        spc = S.sorted_plan(key.cpu(), n)
+        check(torch.equal(sp.offsets.cpu(), spc.offsets) and torch.equal(sp.bounds.cpu(),
+                                                                       spc.bounds),
+              f"{tag}: the card's sorted plan differs from the CPU's")
+        st, st2 = counted("segment_sum_stream", 2, lambda: (
+            S.segment_sum(srt, None, sp.offsets, out0, bounds=sp.bounds),
+            S.segment_sum(srt, None, sp.offsets, out0, bounds=sp.bounds)))
+        want_s = ref.segment_sum(srt.cpu(), None, spc.offsets, o0, spc.bounds)
+        check(same_bits(st, want_s), f"{tag}: stream kernel != plain, max diff "
+              f"{float((st.cpu() - want_s).abs().max()) if st.numel() else 0.0}")
+        check(same_bits(st, st2), f"{tag}: two stream calls differ")
+        check(same_bits(st, got), f"{tag}: stream route != gather route")
+        routes.add(("stream", S.route(f)))
+        # node ranges: each cut of the sorted rows in place on a running sum
+        m = srt.shape[0]
+        cuts = sorted({min(c, m) for c in SEG_RANGE_CUTS} | {m})
+        run = (torch.zeros((n, f), device=dev) if out0 is None else out0.clone())
+        run_c = run.cpu().clone()
+        for c0, c1 in zip(cuts, cuts[1:] + [m]):
+            cp, cpc = S.sorted_plan(key[c0:c1], n), S.sorted_plan(key[c0:c1].cpu(), n)
+            rc = srt[c0:c1]
+            counted("segment_sum_stream", 1, lambda: S.segment_sum(
+                rc, None, cp.offsets, run, bounds=cp.bounds, out=run))
+            ref.segment_sum(rc.cpu(), None, cpc.offsets, run_c, cpc.bounds, out=run_c)
+            check(same_bits(run, run_c), f"{tag}: the range [{c0}, {c1}) != plain")
+            ranges += 1
+        check(same_bits(run, st), f"{tag}: {len(cuts)} ranges in place != one call")
+    # the autograd Functions on both plans: sum_rows' backward is a gather,
+    # gather_rows' a segment sum by the same plan; both equal the direct calls
+    rows, idx, _ = seg_case(gen, 300, 2500, 64, "pad", dev)
     out0 = torch.randn((300, 64), generator=gen).to(dev)
-    p = S.plan(idx, 300)
-    r, o = rows.clone().requires_grad_(), out0.clone().requires_grad_()
-    y = S.sum_rows(r, p, o)
-    g = torch.randn(y.shape, generator=gen).to(dev)
-    gr, go = torch.autograd.grad(y, (r, o), g)
-    check(same_bits(y, S.segment_sum(rows, p.perm, p.offsets, out0)), "8a: sum_rows != direct")
+    p, srt, key, sp = in_segment_order(rows, idx, 300)
     keep = (idx >= 0)[:, None]
-    check(same_bits(gr, torch.where(keep, g[idx.clamp(min=0).long()], 0.0))
-          and same_bits(go, g), "8a: sum_rows' gradient != the gather")
+    for plan_, r_in, ix in ((p, rows, idx), (sp, srt, key)):
+        what = "sorted" if plan_.perm is None else "permuted"
+        r, o = r_in.clone().requires_grad_(), out0.clone().requires_grad_()
+        y = S.sum_rows(r, plan_, o)
+        g = torch.randn(y.shape, generator=gen).to(dev)
+        gr, go = torch.autograd.grad(y, (r, o), g)
+        check(same_bits(y, S._sum(r_in, plan_, out0)), f"8a: sum_rows != direct ({what})")
+        kp = keep if plan_.perm is not None else torch.ones_like(ix, dtype=torch.bool)[:, None]
+        check(same_bits(gr, torch.where(kp, g[ix.clamp(min=0).long()], 0.0))
+              and same_bits(go, g), f"8a: sum_rows' gradient != the gather ({what})")
+        run = out0.clone()
+        with torch.no_grad():
+            check(S.sum_rows(r_in, plan_, run, inplace=True) is run and same_bits(run, y),
+                  f"8a: sum_rows in place != sum_rows ({what})")
+        table = torch.randn((300, 64), generator=gen).to(dev).requires_grad_()
+        z = S.gather_rows(table, plan_)
+        gz = torch.randn(z.shape, generator=gen).to(dev)
+        (gt,) = torch.autograd.grad(z, table, gz)
+        check(same_bits(z, torch.where(kp, table.detach()[ix.clamp(min=0).long()], 0.0)),
+              f"8a: gather_rows != table[index] ({what})")
+        check(same_bits(gt, S._sum(gz, plan_, None)),
+              f"8a: gather_rows' gradient != segment_sum by the plan ({what})")
+    # gather_pair (EGNN's dst and src gathers of one table): one gradient,
+    # the sums by the second plan and then the first's rows in place
     table = torch.randn((300, 64), generator=gen).to(dev).requires_grad_()
-    z = S.gather_rows(table, p)
-    gz = torch.randn(z.shape, generator=gen).to(dev)
-    (gt,) = torch.autograd.grad(z, table, gz)
-    check(same_bits(z, torch.where(keep, table.detach()[idx.clamp(min=0).long()], 0.0)),
-          "8a: gather_rows != table[index]")
-    check(same_bits(gt, S.segment_sum(gz, p.perm, p.offsets)),
-          "8a: gather_rows' gradient != segment_sum by the plan")
-    check(routes == {"thread", "warp"}, f"8a: routes taken {routes}")
+    za, zb = S.gather_pair(table, sp, p)
+    ga = torch.randn(za.shape, generator=gen).to(dev)
+    gb = torch.randn(zb.shape, generator=gen).to(dev)
+    (gt,) = torch.autograd.grad((za, zb), table, (ga, gb))
+    want = S._sum(gb, p, None)
+    check(same_bits(za, S.gather_rows(table, sp)) and same_bits(zb, S.gather_rows(table, p))
+          and same_bits(gt, S._sum(ga, sp, want, want)),
+          "8a: gather_pair or its gradient != the direct calls")
+    want_routes = {(r, lay) for r in ("gather", "stream") for lay in ("thread", "warp")}
+    check(routes == want_routes, f"8a: routes taken {routes}")
     log(f"[phase 8a] segment_sum == its plain version (and the CPU's index_add_) bit for "
-        f"bit on {len(SEG_CASES)} ragged cases (F 1-128, empty segments, one hub node, "
-        f"-1 pads, out0, no edges; routes {sorted(routes)}), repeats identical, "
-        f"{SEG_CHUNKS} chunks == one call; sum_rows / gather_rows and their gradients == "
-        f"the direct calls")
-    return dict(cases=len(SEG_CASES), routes=sorted(routes))
+        f"bit on {len(SEG_CASES)} ragged cases through both routes (F 1-256, empty "
+        f"segments, hub nodes longer than a stage, -1 pads, out0, no edges; "
+        f"{sorted(routes)}), repeats identical, stream == gather, {SEG_CHUNKS} chunks == "
+        f"one call, {ranges} node ranges in place == one call; sum_rows / gather_rows / "
+        f"gather_pair and their gradients == the direct calls on both plans")
+    return dict(cases=len(SEG_CASES), ranges=ranges, routes=sorted(map(list, routes)))
 
 
 def ogb_edges(seed: int, dev) -> torch.Tensor:
@@ -6265,16 +6354,23 @@ def gnn_dims() -> dict:
 
 
 def phase8_kernel_ogb(seed: int, dev) -> dict:
-    """8a at ogb_products' [E, 64] (the layer's message sum): the kernel
-    against its plain version on the card (bit for bit; the plain version's
-    order is the plan's on either device), a repeat identical, then timed
-    beside its byte bound, the plain version and the library's two calls that
-    compute the same sum with atomics (`index_add_`, `index_put_` with
-    accumulate; pad rows zeroed and sent to node 0 so all compute one
-    function)."""
+    """8a at ogb_products' [E, 64] (the layer's message sum), both routes:
+    each kernel against its plain version on the card (bit for bit; the
+    plain version's order is the plan's on either device), a repeat
+    identical, then timed beside its byte bound, the plain version and the
+    library's two calls that compute the same sum with atomics (`index_add_`,
+    `index_put_` with accumulate; pad rows zeroed and sent to node 0 so all
+    compute one function). The gather route reads the rows through the dst
+    plan's perm (uniform random edges); the stream route takes the same rows
+    as if laid out in dst order (the sorted plan of the sorted dst), whole
+    and as one 2^22-row chunk in place over its node range. Beside them the
+    two floors over the same rows, in SEG_FLOOR_PARTS parts: a gather by the
+    same perm (`index_select` into a buffer) and a contiguous copy."""
+    from repro_torch.configs import registry as R
     from repro_torch.kernels import _build, ref
     from repro_torch.kernels import segment_sum as S
     n, e = gnn_dims()["ogb_products"][:2]
+    chunk = R.get_arch("egnn").config_for("ogb_products").edge_chunk
     f = 64
     edges = ogb_edges(seed, dev)
     dst = edges[1].clone()
@@ -6287,43 +6383,116 @@ def phase8_kernel_ogb(seed: int, dev) -> dict:
     p = S.plan(dst, n, valid)
     torch.cuda.synchronize()
     plan_ms = (time.perf_counter() - t) * 1e3
+    key = torch.sort(torch.where(valid, dst, n)).values
+    sp = S.sorted_plan(key, n, key < n)
     m = p.perm.shape[0]
-    n0 = _build.LAUNCHES["segment_sum"]
+    n0 = dict(_build.LAUNCHES)
     got = S.segment_sum(rows, p.perm, p.offsets)
     again = S.segment_sum(rows, p.perm, p.offsets)
     want = ref.segment_sum(rows, p.perm, p.offsets)
+    st = S.segment_sum(rows, None, sp.offsets, bounds=sp.bounds)
+    st_again = S.segment_sum(rows, None, sp.offsets, bounds=sp.bounds)
     torch.cuda.synchronize()
-    check(_build.LAUNCHES["segment_sum"] == n0 + 2, "8a ogb: launches")
-    check(same_bits(got, want), f"8a ogb [E, 64]: kernel != plain, max diff "
+    check(_build.LAUNCHES["segment_sum"] == n0["segment_sum"] + 2
+          and _build.LAUNCHES["segment_sum_stream"] == n0["segment_sum_stream"] + 2,
+          "8a ogb: launches")
+    check(same_bits(got, want), f"8a ogb [E, 64]: gather kernel != plain, max diff "
           f"{float((got - want).abs().max())}")
-    check(same_bits(got, again), "8a ogb [E, 64]: two calls differ")
+    check(same_bits(got, again), "8a ogb [E, 64]: two gather calls differ")
     del want, again
+    want = ref.segment_sum(rows, None, sp.offsets, None, sp.bounds)
+    check(same_bits(st, want), f"8a ogb [E, 64]: stream kernel != plain, max diff "
+          f"{float((st - want).abs().max())}")
+    check(same_bits(st, st_again), "8a ogb [E, 64]: two stream calls differ")
+    del want, st_again
+    # one chunk in the middle of the sorted rows, in place on a running sum
+    c0 = (e // chunk // 2) * chunk
+    cp = S.sorted_plan(key[c0:c0 + chunk], n, key[c0:c0 + chunk] < n)
+    rc = rows[c0:c0 + chunk]
+    run = torch.randn((n, f), generator=gen, device=dev)
+    run0 = run.clone()
+    S.segment_sum(rc, None, cp.offsets, run, bounds=cp.bounds, out=run)
+    want = ref.segment_sum(rc, None, cp.offsets, run0, cp.bounds, out=run0.clone())
+    check(same_bits(run, want), "8a ogb: the chunk in place != plain")
+    lo, hi = cp.bounds.tolist()
+    check(torch.equal(run[:lo], run0[:lo]) and torch.equal(run[hi:], run0[hi:]),
+          "8a ogb: the chunk wrote outside its node range")
+    del want, run0
     idx64 = torch.where(valid, dst, 0).long()
+    skey64 = torch.where(key < n, key, 0).long()
     out = torch.zeros((n, f), device=dev)
     lib_add = torch.zeros((n, f), device=dev).index_add_(0, idx64, rows)
     lib_put = torch.zeros((n, f), device=dev).index_put_((idx64,), rows, accumulate=True)
     lib_err = max(float((lib_add - got).abs().max()), float((lib_put - got).abs().max()))
     lib_bits = same_bits(lib_add, torch.zeros((n, f), device=dev).index_add_(0, idx64, rows))
-    del lib_add, lib_put
+    del lib_add, lib_put, got, st
     ms = time_ms(lambda: S.segment_sum(rows, p.perm, p.offsets), SEG_REPS)
     plain_ms = time_ms(lambda: ref.segment_sum(rows, p.perm, p.offsets), 2)
     add_ms = time_ms(lambda: out.zero_().index_add_(0, idx64, rows), SEG_REPS)
     put_ms = time_ms(lambda: out.zero_().index_put_((idx64,), rows, accumulate=True), SEG_REPS)
+    s_ms = time_ms(lambda: S.segment_sum(rows, None, sp.offsets, bounds=sp.bounds, out=out),
+                   SEG_REPS)
+    s_plain_ms = time_ms(lambda: ref.segment_sum(rows, None, sp.offsets, None, sp.bounds), 2)
+    s_add_ms = time_ms(lambda: out.zero_().index_add_(0, skey64, rows), SEG_REPS)
+    s_put_ms = time_ms(lambda: out.zero_().index_put_((skey64,), rows, accumulate=True),
+                       SEG_REPS)
+    c_ms = time_ms(lambda: S.segment_sum(rc, None, cp.offsets, run, bounds=cp.bounds,
+                                         out=run), SEG_REPS)
+    part = -(-m // SEG_FLOOR_PARTS)
+    buf = torch.empty((part, f), device=dev)
+    perm64 = p.perm.long()
+
+    def floor(gather: bool):
+        for a in range(0, m, part):
+            b = min(m, a + part)
+            if gather:
+                torch.index_select(rows, 0, perm64[a:b], out=buf[:b - a])
+            else:
+                buf[:b - a].copy_(rows[a:b])
+    gather_floor_ms = time_ms(lambda: floor(True), 5)
+    copy_floor_ms = time_ms(lambda: floor(False), 5)
+    del buf, perm64
     nbytes = m * f * 4 + m * 4 + (n + 1) * 4 + n * f * 4
     b_ms, b_by = bound(nbytes)
-    rec = dict(name="segment_sum", shape=f"E={e} ({m} valid), N={n}, F={f}", ms=ms,
-               plain_ms=plain_ms, library_ms=add_ms, library=f"index_add_ {add_ms:.3f} ms "
-               f"(atomics), index_put_(accumulate=True) {put_ms:.3f} ms",
-               index_put_ms=put_ms, bound_ms=b_ms, bound_by=b_by, max_abs_err=0.0,
-               library_max_abs_diff=lib_err, library_repeat_identical=lib_bits,
-               plan_ms=plan_ms, bytes=nbytes)
+    s_lo, s_hi = sp.bounds.tolist()
+    s_bytes = m * f * 4 + (s_hi - s_lo + 1) * 4 + (s_hi - s_lo) * f * 4
+    sb_ms, sb_by = bound(s_bytes)
+    mc = int(cp.counts().sum())
+    c_bytes = mc * f * 4 + (hi - lo + 1) * 4 + 2 * (hi - lo) * f * 4
+    cb_ms, cb_by = bound(c_bytes)
+    gf_ms = bound(2 * m * f * 4 + m * 8)[0]
+    cf_ms = bound(2 * m * f * 4)[0]
+    gather = dict(name="segment_sum", shape=f"E={e} ({m} valid), N={n}, F={f}", ms=ms,
+                  plain_ms=plain_ms, library_ms=add_ms, library=f"index_add_ {add_ms:.3f} "
+                  f"ms (atomics), index_put_(accumulate=True) {put_ms:.3f} ms",
+                  index_put_ms=put_ms, bound_ms=b_ms, bound_by=b_by, max_abs_err=0.0,
+                  library_max_abs_diff=lib_err, library_repeat_identical=lib_bits,
+                  plan_ms=plan_ms, bytes=nbytes, gather_floor_ms=gather_floor_ms,
+                  gather_floor_bound_ms=gf_ms, floor_share=gather_floor_ms / ms,
+                  route_note="gather route: the dst plan's perm over uniform random edges")
+    stream = dict(name="segment_sum_stream", shape=f"E={e} ({m} valid) in dst order, N={n}, "
+                  f"F={f}", ms=s_ms, plain_ms=s_plain_ms, library_ms=s_add_ms,
+                  library=f"index_add_ {s_add_ms:.3f} ms (atomics, sorted index), "
+                  f"index_put_(accumulate=True) {s_put_ms:.3f} ms", index_put_ms=s_put_ms,
+                  bound_ms=sb_ms, bound_by=sb_by, max_abs_err=0.0, bytes=s_bytes,
+                  copy_floor_ms=copy_floor_ms, copy_floor_bound_ms=cf_ms,
+                  floor_share=copy_floor_ms / s_ms,
+                  chunk=dict(shape=f"{mc} rows over nodes [{lo}, {hi}), in place", ms=c_ms,
+                             bound_ms=cb_ms, bound_by=cb_by, bytes=c_bytes),
+                  route_note="stream route: the rows as if laid out in dst order")
     log(f"[phase 8a] segment_sum at ogb_products' [E, 64] ({m} valid of {e} edges onto "
-        f"{n} nodes): {ms:.3f} ms (bound {b_ms:.3f} ms by {b_by}, {b_ms / ms:.1%}), plain "
-        f"{plain_ms:.3f} ms, index_add_ {add_ms:.3f} ms, index_put_(accumulate=True) "
-        f"{put_ms:.3f} ms; == plain bit for bit, repeat identical; the atomics' result "
-        f"within {lib_err:.3g} of it (two index_add_ calls identical: {lib_bits}); the "
-        f"plan (two sorts' worth) {plan_ms:.1f} ms")
-    return rec
+        f"{n} nodes): gather route {ms:.3f} ms (bound {b_ms:.3f} ms by {b_by}, "
+        f"{b_ms / ms:.1%}; the gather floor {gather_floor_ms:.3f} ms, {gather_floor_ms / ms:.1%}"
+        f" of it), plain {plain_ms:.3f} ms, index_add_ {add_ms:.3f} ms, "
+        f"index_put_(accumulate=True) {put_ms:.3f} ms; stream route in dst order {s_ms:.3f} "
+        f"ms (bound {sb_ms:.3f} ms, {sb_ms / s_ms:.1%}; the copy floor {copy_floor_ms:.3f} "
+        f"ms), plain {s_plain_ms:.3f} ms, index_add_ {s_add_ms:.3f} ms, index_put_ "
+        f"{s_put_ms:.3f} ms; one {chunk}-row chunk over nodes [{lo}, {hi}) in place "
+        f"{c_ms:.3f} ms (bound {cb_ms:.3f} ms, {cb_ms / c_ms:.1%}); both == plain bit for "
+        f"bit, repeats identical; the atomics' result within {lib_err:.3g} of it (two "
+        f"index_add_ calls identical: {lib_bits}); the plan (two sorts' worth) "
+        f"{plan_ms:.1f} ms")
+    return dict(gather=gather, stream=stream)
 
 
 def egnn_numpy_params(rng, cfg) -> dict:
@@ -6454,7 +6623,7 @@ def egnn_card_vs_cpu(name: str, cfg, batch: dict, seed: int, dev) -> dict:
         lim = GNN_SERVE_TOL * (want.abs() + want.abs().max())
         serve_worst = max(serve_worst, float(((got - want).abs() / lim).max()))
     check(serve_worst <= 1.0, f"8b {name}: serve outputs at {serve_worst:.3f} of the limit")
-    check(card_launch.get("segment_sum", 0) > 0 and set(card_launch) == {"segment_sum"},
+    check(set(card_launch) == set(GNN_KERNELS) and all(card_launch.values()),
           f"8b {name}: the card's loss and serve took {card_launch}")
     log(f"[phase 8b] {name}: loss card {card['loss']:.6f} / CPU {cpu['loss']:.6f}; "
         f"{len(cpu['grads'])} gradient leaves within {worst:.3f} of the limit (worst "
@@ -6566,9 +6735,9 @@ def egnn_mesh(dev) -> dict:
             n0 = launch_counts()
             with use_mesh(mesh):
                 hm, xm = G.forward(params, batch, cfg)
-            n = launched(n0).get("segment_sum", 0)
-        check(n == 2 * cfg.n_layers * GNN_MESH_ENTRIES,
-              f"8b mesh {name}: {n} segment_sum launches, expected one a sum and entry")
+            n = launched(n0)
+        check(n == {"segment_sum_stream": 2 * cfg.n_layers * GNN_MESH_ENTRIES},
+              f"8b mesh {name}: launches {n}, expected one stream sum a sum and entry")
         for got, want in ((hm, h), (xm, x)):
             torch.testing.assert_close(
                 got, want, rtol=rtol, atol=atol * (float(want.abs().max()) if scaled else 1.0),
@@ -6639,11 +6808,14 @@ def egnn_step_profile(step_fn) -> dict | None:
     bad = forbidden_kernels(e.key for e in kernels)
     check(not bad, f"8c: a train step ran scatter or atomic kernels: {bad}")
     seg = sum(e.self_device_time_total for e in kernels if "segment_sum" in e.key) / 1e3
+    seg_ms = {r: sum(e.self_device_time_total for e in kernels
+                     if f"segment_sum_{r}" in e.key) / 1e3 for r in ("gather", "stream")}
     mm = sum(e.self_device_time_total for e in kernels
              if any(m in e.key.lower() for m in MATMUL_KEYS)) / 1e3
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
     return dict(wall_ms=wall, busy_ms=busy, idle_share=1 - busy / wall,
-                segment_sum_share=seg / busy, matmul_share=mm / busy, kernels=len(kernels),
+                segment_sum_share=seg / busy, segment_sum_ms=seg_ms, matmul_share=mm / busy,
+                kernels=len(kernels),
                 top_kernels=[(e.key[:80], e.self_device_time_total / 1e3) for e in top])
 
 
@@ -6681,7 +6853,8 @@ def phase8_shape(shape: str, seed: int, dev, profile: bool = False) -> dict:
         times.append((time.perf_counter() - t) * 1e3)
     launches = {k: v for k, v in _build.LAUNCHES.items() if v}
     check(all(math.isfinite(x) for x in losses), f"8c {shape}: losses {losses}")
-    check(set(launches) == {"segment_sum"} and launches["segment_sum"] % GNN_TRAIN_STEPS == 0,
+    check(set(launches) == set(GNN_KERNELS)
+          and all(v % GNN_TRAIN_STEPS == 0 for v in launches.values()),
           f"8c {shape}: the steps launched {launches}")
     peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
     ms = statistics.median(times[1:])
@@ -6714,24 +6887,28 @@ def phase8_shape(shape: str, seed: int, dev, profile: bool = False) -> dict:
           and bool(torch.isfinite(logits).all()) and bool(torch.isfinite(x).all()),
           f"8c {shape}: serve outputs {tuple(logits.shape)}, {tuple(x.shape)}, finite "
           f"{bool(torch.isfinite(logits).all())}")
-    check(serve_launch.get("segment_sum", 0) == 2 * cfg.n_layers * GNN_SERVE_REPS
-          * len(range(0, batch["edges"].shape[1], cfg.edge_chunk)),
+    # serving sums by dst only: the stream route, two sums a layer and chunk
+    check(serve_launch == {"segment_sum_stream": 2 * cfg.n_layers * GNN_SERVE_REPS
+                           * len(range(0, batch["edges"].shape[1], cfg.edge_chunk))},
           f"8c {shape}: serve launches {serve_launch}")
     rec = dict(shape=shape, nodes=n, edges=int(batch["edges"].shape[1]), valid_edges=n_edges,
                chunks=len(range(0, batch["edges"].shape[1], cfg.edge_chunk)),
                edge_chunk=cfg.edge_chunk, ms_per_step=ms, edges_per_s=n_edges / ms * 1e3,
                peak_gib=peak, losses=losses, launches=launches,
-               launches_per_step=launches.get("segment_sum", 0) // GNN_TRAIN_STEPS,
+               launches_per_step={k: launches.get(k, 0) // GNN_TRAIN_STEPS
+                                  for k in GNN_KERNELS},
                serve_ms=statistics.median(serve_ms), serve_launches=serve_launch,
                profile=prof, **info)
     log(f"[phase 8c] {shape} ({n} nodes, {n_edges} edges, {rec['chunks']} chunk(s) of "
         f"{cfg.edge_chunk}): {ms:.1f} ms a train step ({rec['edges_per_s']:.4g} edges/s), "
         f"peak {peak:.2f} GiB, losses {[round(v, 5) for v in losses]}, "
-        f"{rec['launches_per_step']} segment_sum launches a step; serve_step "
+        f"segment_sum launches a step {rec['launches_per_step']}; serve_step "
         f"{rec['serve_ms']:.1f} ms" + (f"; profiled step: busy {prof['busy_ms']:.1f} of "
                                        f"{prof['wall_ms']:.1f} ms (idle "
                                        f"{prof['idle_share']:.1%}), segment_sum "
-                                       f"{prof['segment_sum_share']:.1%}, matmuls "
+                                       f"{prof['segment_sum_share']:.1%} (gather "
+                                       f"{prof['segment_sum_ms']['gather']:.1f} ms, stream "
+                                       f"{prof['segment_sum_ms']['stream']:.1f} ms), matmuls "
                                        f"{prof['matmul_share']:.1%} of busy; top "
                                        f"{prof['top_kernels'][:4]}" if prof else ""))
     del params, batch, logits, x
@@ -6777,23 +6954,28 @@ def phase8_ogb(seed: int, dev=torch.device("cuda")) -> dict:
     return dict(kernel=kern, shape=shape)
 
 
-def gnn_record(p8: dict) -> dict:
-    """The kernels line's segment_sum row: 8a's timing at ogb_products' [E, 64],
-    its launches in every 8c training run (launches_per_step beside), the
-    ragged cases' count."""
-    src, where = SOURCES["segment_sum"]
+def gnn_record(p8: dict) -> list[dict]:
+    """The kernels line's segment_sum rows, one a route: 8a's timings at
+    ogb_products' [E, 64], each route's launches in every 8c training run
+    (launches_per_step beside), the ragged cases' count."""
     shapes = dict(p8["shapes"], ogb_products=p8["ogb"]["shape"])
-    return dict(p8["ogb"]["kernel"], route="cuda", source=src, replaces=where,
-                replaces_note="no Pallas kernel: the reference's XLA jax.ops.segment_sum "
-                              "calls in EGNN's layer (and its gathers' gradients)",
-                launches=sum(s["launches"].get("segment_sum", 0) for s in shapes.values()),
-                launches_path="8c: the train steps of molecule, full_graph_sm, "
-                              "minibatch_lg and ogb_products",
-                launches_per_step={k: s["launches_per_step"] for k, s in shapes.items()},
-                ragged_cases=p8["small"]["cases"], routes=p8["small"]["routes"],
-                gnn={k: {m: s[m] for m in ("ms_per_step", "edges_per_s", "peak_gib",
-                                           "serve_ms", "chunks")}
-                     for k, s in shapes.items()})
+    out = []
+    for kn, r in (("segment_sum", "gather"), ("segment_sum_stream", "stream")):
+        src, where = SOURCES[kn]
+        out.append(dict(
+            p8["ogb"]["kernel"][r], route="cuda", source=src, replaces=where,
+            replaces_note="no Pallas kernel: the reference's XLA jax.ops.segment_sum "
+                          "calls in EGNN's layer (and its gathers' gradients)",
+            launches=sum(s["launches"].get(kn, 0) for s in shapes.values()),
+            launches_path="8c: the train steps of molecule, full_graph_sm, "
+                          "minibatch_lg and ogb_products",
+            launches_per_step={k: s["launches_per_step"][kn] for k, s in shapes.items()},
+            ragged_cases=p8["small"]["cases"], ragged_ranges=p8["small"]["ranges"],
+            routes=p8["small"]["routes"],
+            gnn={k: {m: s[m] for m in ("ms_per_step", "edges_per_s", "peak_gib",
+                                       "serve_ms", "chunks")}
+                 for k, s in shapes.items()}))
+    return out
 
 
 # -- phase 9: the "model"-axis solver path and the dry run ---------------------
@@ -7093,6 +7275,8 @@ SOURCES = {
     # no Pallas kernel: the XLA segment sums of the reference's EGNN layer
     "segment_sum": ("src/repro_torch/kernels/csrc/segment_sum.cu",
                     "src/repro/models/egnn.py:108"),
+    "segment_sum_stream": ("src/repro_torch/kernels/csrc/segment_sum.cu",
+                           "src/repro/models/egnn.py:108"),
 }
 # the kernels of the tiering paths (phases 1-3); the LM phases check their own:
 # serving's three attention kernels (phase 4) and training's backward (phase 6),
@@ -7208,7 +7392,7 @@ def main() -> int:
     rec += recsys_records(p7, short_small, p6_launches)
     log(f"[phase 7] train: {time.perf_counter() - t:.1f}s; recsys_reduced "
         f"{json.dumps(RECSYS_REDUCED)}")
-    rec.append(gnn_record(p8))
+    rec += gnn_record(p8)
     log(f"[phase 8] gnn_reduced {json.dumps(GNN_REDUCED)}")
     log(f"total {time.perf_counter() - t_all:.1f}s")
     print(json.dumps({"kernels": rec}))

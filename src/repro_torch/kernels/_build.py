@@ -33,7 +33,7 @@ FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 KERNELS = ("coverage_gain", "bit_matvec", "clause_match", "tier_match",
            "partition_gain", "sparse_gain", "flash_attention", "flash_decode",
            "flash_prefill", "flash_backward", "flash_backward_tc",
-           "flash_backward_short", "segment_sum")
+           "flash_backward_short", "segment_sum", "segment_sum_stream")
 LAUNCHES: dict[str, int] = {k: 0 for k in KERNELS}
 MAX_GRID_Z = 65535   # gridDim.z at most: a wrapper launches a larger batch in slices
 
@@ -58,6 +58,7 @@ _SIGNATURES = {
     "flash_backward_short_launch": [_P] * 8 + [_I64] * 6 + [_PI64, _INT] + [_I64] * 7
                                    + [_F32, _F32, _INT, _INT, _I64, _P],
     "segment_sum_launch": [_P] * 5 + [_I64, _I64, _INT, _P],
+    "segment_sum_stream_launch": [_P] * 5 + [_I64, _P],
 }
 
 _lib: ctypes.CDLL | None = None

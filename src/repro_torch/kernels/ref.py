@@ -664,21 +664,46 @@ def flash_backward_short(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return dq, dk, dv
 
 
-def segment_sum(rows: torch.Tensor, perm: torch.Tensor, offsets: torch.Tensor,
-                out0: torch.Tensor | None = None) -> torch.Tensor:
+def segment_sum(rows: torch.Tensor, perm: torch.Tensor | None, offsets: torch.Tensor,
+                out0: torch.Tensor | None = None, bounds: torch.Tensor | None = None,
+                out: torch.Tensor | None = None) -> torch.Tensor:
     """out[n] = out0[n] + rows[perm[offsets[n]]] + ... + rows[perm[offsets[n+1] - 1]]
     as [N, F] (out0 None: zeros), each segment's rows added one at a time,
     left to right, in `rows`' dtype: the arithmetic of `csrc/segment_sum.cu`.
+    With perm None the rows lie in segment order (segment n is rows
+    offsets[n] .. offsets[n+1] - 1). With `bounds` ([n_lo, n_hi)) only those
+    segments are summed and written: into `out` when given (in place; it may
+    be out0), else into a copy of out0 (or zeros). Without `bounds` every
+    segment is, into `out` or a new tensor.
 
     Step k adds every segment's k-th row (the segments longest first, so the
     ones still adding are a prefix), so the order within a segment is the
     plan's on either device and the card's kernel equals this bit for bit;
     on the CPU it also equals `index_add_` over rows[perm] in that order."""
     n, f = offsets.shape[0] - 1, rows.shape[1]
-    out = (torch.zeros((n, f), dtype=rows.dtype, device=rows.device) if out0 is None
-           else out0.clone())
-    if n == 0 or perm.shape[0] == 0:
-        return out
+    lo, hi = (0, n) if bounds is None else (int(bounds[0]), int(bounds[1]))
+    hi = max(lo, hi)
+    acc = (torch.zeros((hi - lo, f), dtype=rows.dtype, device=rows.device) if out0 is None
+           else out0[lo:hi].clone())
+    if out is None:
+        out = acc if bounds is None else (
+            torch.zeros((n, f), dtype=rows.dtype, device=rows.device) if out0 is None
+            else out0.clone())
+    off = offsets[lo:hi + 1].long()
+    if hi > lo and (perm is None or perm.shape[0]):
+        counts = off[1:] - off[:-1]
+        order = torch.sort(counts, descending=True, stable=True).indices
+        starts, longest = off[:-1][order], int(counts.max())
+        # live[k]: the segments with more than k rows, a prefix of `order`
+        live = (hi - lo - torch.cumsum(torch.bincount(counts, minlength=longest + 1),
+                                       0)).tolist()
+        idx = None if perm is None else perm.long()
+        for k in range(longest):
+            at = starts[:live[k]] + k
+            acc[order[:live[k]]] += rows[at if idx is None else idx[at]]
+    if out is not acc:
+        out[lo:hi] = acc
+    return out
     off = offsets.long()
     counts = off[1:] - off[:-1]
     order = torch.sort(counts, descending=True, stable=True).indices

@@ -4,25 +4,32 @@ of `repro.models.egnn`.
 Message passing as the reference's: gather by edge -> message MLP -> segment
 sums onto the nodes; the coordinates move equivariantly, x_i += mean over
 incoming edges of (x_i - x_j) * phi_x(m_ij). The gathers and sums go through
-`kernels.segment_sum` (`gather_rows`, `sum_rows`), whose sums add each
-node's edges in ascending edge order on either device (`csrc/segment_sum.cu`
-on the card), forward and backward, so a training step repeats its bits and
-a resumed run equals an uninterrupted one. One `EdgePlan` per batch (the
-stable sorts of the edges by `dst` and by `src`) serves every layer.
+`kernels.segment_sum` (`gather_pair`, `sum_rows`), whose sums add each
+node's rows in the plan's order on either device (`csrc/segment_sum.cu` on
+the card), forward and backward, so a training step repeats its bits and a
+resumed run equals an uninterrupted one. One `EdgePlan` per batch serves
+every layer: each mesh entry's edges stably sorted by dst (invalid edges
+last), then a permuted plan by src for each chunk.
 
 Batch layout (the reference's): node_feat [N, F] f32, coords [N, 3] f32,
 edges [2, E] int32 (src, dst; -1 padded), labels [N] int32 (-100 pad) or
 graph_ids [N] + targets [G].
 
-Edges are taken in contiguous chunks of `cfg.edge_chunk`, each continuing
-the node sums through `out0`, so the chunks add the same rows in the same
-order as one sum would, bit for bit (only the MLP rows, computed in GEMMs of
-another height, may round otherwise). With more than one chunk each chunk's
-edge rows are checkpointed and recomputed in the backward, and the sums sit
-outside the checkpoint, so neither a chunk's tensors nor the running sums
-are kept: at ogb_products' 61.9M edges one [E, 64] f32 tensor is 15.8 GB, a
-chunk's saved tensors about 2.1 KB an edge. Each layer is checkpointed, as
-the reference's `jax.checkpoint`.
+The edge rows lie in destination order, so every sum by dst is a sorted plan
+(`segment_sum.sorted_plan`: the kernel streams the rows, no gather) and each
+node adds its incoming edges in ascending original edge order, as the
+reference's sum does. Edges are taken in contiguous chunks of
+`cfg.edge_chunk` in that order; a chunk covers a contiguous node range and
+its sums continue the running sums in place over that range only, so the
+chunks add the same rows in the same order as one sum would, bit for bit
+(only the MLP rows, computed in GEMMs of another height, may round
+otherwise). The sums by src (the gradients of the src gathers) follow the
+sorted row order, the same on either device. With more than one chunk each
+chunk's edge rows are checkpointed and recomputed in the backward, and the
+sums sit outside the checkpoint, so neither a chunk's tensors nor the
+running sums are kept: at ogb_products' 61.9M edges one [E, 64] f32 tensor
+is 15.8 GB, a chunk's saved tensors about 2.1 KB an edge. Each layer is
+checkpointed, as the reference's `jax.checkpoint`.
 
 Under `use_mesh(mesh)` whose axis is a data axis (`data_axes`: any but
 `"model"`), with more than one entry and E % entries == 0 (the reference's
@@ -78,8 +85,9 @@ def init_params(gen: torch.Generator, cfg: EGNNConfig) -> dict:
 
 @dataclasses.dataclass(frozen=True)
 class Chunk:
-    """A contiguous run of edges on one device: its plans by dst and by src
-    (both with the edge valid only where src >= 0 and dst >= 0)."""
+    """A contiguous run of edges in dst order on one device: its sorted plan
+    by dst and its permuted plan by src (both with the edge valid only where
+    src >= 0 and dst >= 0)."""
     dst: S.SegmentPlan
     src: S.SegmentPlan
 
@@ -93,7 +101,9 @@ class EdgePlan:
 
 
 def edge_plan(edges: torch.Tensor, n_nodes: int, cfg: EGNNConfig) -> EdgePlan:
-    """The plan of edges [2, E] over n_nodes under the ambient mesh."""
+    """The plan of edges [2, E] over n_nodes under the ambient mesh: each
+    entry's contiguous block of edges stably sorted by dst, invalid edges
+    last, then cut into chunks."""
     mesh = mesh_context.current_mesh()
     e = edges.shape[1]
     if mesh_context.data_axes(mesh) and mesh.size > 1 and e % mesh.size == 0:
@@ -103,12 +113,16 @@ def edge_plan(edges: torch.Tensor, n_nodes: int, cfg: EGNNConfig) -> EdgePlan:
         spans = [(0, e, edges.device)]
     entries, deg = [], None
     for lo, hi, dev in spans:
+        blk = edges[:, lo:hi].to(dev)
+        valid = (blk[0] >= 0) & (blk[1] >= 0)
+        dst, order = torch.sort(torch.where(valid, blk[1], n_nodes), stable=True)
+        src, valid = blk[0][order], valid[order]
         chunks = []
-        for c0 in range(lo, hi, cfg.edge_chunk) or [lo]:
-            blk = edges[:, c0:min(c0 + cfg.edge_chunk, hi)].to(dev)
-            valid = (blk[0] >= 0) & (blk[1] >= 0)
-            chunks.append(Chunk(dst=S.plan(blk[1], n_nodes, valid),
-                                src=S.plan(blk[0], n_nodes, valid)))
+        for c0 in range(0, hi - lo, cfg.edge_chunk) or [0]:
+            c = slice(c0, c0 + cfg.edge_chunk)
+            by_src = S.plan(src[c], n_nodes, valid[c])
+            # every row of the chunk is valid where its src plan keeps no mask
+            chunks.append(Chunk(dst=S.sorted_plan(dst[c], n_nodes, by_src.valid), src=by_src))
             counts = chunks[-1].dst.counts().to(edges.device)
             deg = counts if deg is None else deg + counts
         entries.append((dev, tuple(chunks)))
@@ -117,10 +131,12 @@ def edge_plan(edges: torch.Tensor, n_nodes: int, cfg: EGNNConfig) -> EdgePlan:
 
 def _edge_rows(lp: dict, h, x, ch: Chunk, cfg: EGNNConfig):
     """One chunk's edge messages m [C, dh] and coordinate updates [C, 3]."""
-    dx = S.gather_rows(x, ch.dst) - S.gather_rows(x, ch.src)
+    # the gathered rows are temporaries: each [C, 64] pair is freed once
+    # concatenated, before the MLP runs
+    dx = torch.sub(*S.gather_pair(x, ch.dst, ch.src))
     dist2 = torch.sum(dx * dx, dim=-1, keepdim=True)
-    m = common.mlp(lp["phi_e"], torch.cat(
-        [S.gather_rows(h, ch.dst), S.gather_rows(h, ch.src), dist2], dim=-1), last_act=True)
+    m = common.mlp(lp["phi_e"], torch.cat([*S.gather_pair(h, ch.dst, ch.src), dist2], dim=-1),
+                   last_act=True)
     if ch.dst.valid is not None:
         m = torch.where(ch.dst.valid[:, None], m, torch.zeros((), dtype=m.dtype,
                                                               device=m.device))
@@ -132,13 +148,14 @@ def _layer(lp: dict, h, x, plan: EdgePlan, cfg: EGNNConfig):
     parts = []
     for dev, chunks in plan.entries:
         hh, xx = h.to(dev), x.to(dev)
-        agg = xup = None          # the chunks' rows added on in edge order
+        agg = xup = None          # the chunks' rows added on in place, in dst order
         for ch in chunks:
             if len(chunks) > 1 and torch.is_grad_enabled():
                 m, upd = checkpoint(_edge_rows, lp, hh, xx, ch, cfg, use_reentrant=False)
             else:
                 m, upd = _edge_rows(lp, hh, xx, ch, cfg)
-            agg, xup = S.sum_rows(m, ch.dst, agg), S.sum_rows(upd, ch.dst, xup)
+            agg = S.sum_rows(m, ch.dst, agg, inplace=True)
+            xup = S.sum_rows(upd, ch.dst, xup, inplace=True)
         parts.append((agg, xup))
     agg, xup = parts[0]
     for a, u in parts[1:]:                  # the psum, in entry order

@@ -158,6 +158,80 @@ def test_chunks_continue_the_sums():
             _close(x2.numpy(), x1.numpy(), 1e-5)
 
 
+@pytest.mark.parametrize("chunk,entries", [(1 << 22, 1), (7, 1), (64, 1), (13, 2)])
+def test_edge_plan_lays_the_edges_out_by_destination(chunk, entries):
+    """Each entry's block of edges stably sorted by dst, invalid edges last,
+    then cut into chunks: the dst plans are sorted plans over contiguous,
+    ordered node ranges, the src plans permuted plans of the same rows, and
+    each node's incoming edges keep ascending original edge order."""
+    _, tcfg = _cfgs(n_layers=2, d_hidden=8, d_feat=5, n_classes=4)
+    cfg = dataclasses.replace(tcfg, edge_chunk=chunk)
+    _, tb = _batch(n=50, e=300, d=5, c=4, pad=9, seed=4)
+    edges = tb["edges"]
+    mesh = Mesh("data", (torch.device("cpu"),) * entries) if entries > 1 else None
+    if mesh is None:
+        plan = TG.edge_plan(edges, 50, cfg)
+    else:
+        with use_mesh(mesh):
+            plan = TG.edge_plan(edges, 50, cfg)
+    assert len(plan.entries) == entries
+    step = 300 // entries
+    deg = torch.zeros(50, dtype=torch.int64)
+    for r, (_, chunks) in enumerate(plan.entries):
+        blk = edges[:, r * step:(r + 1) * step]
+        valid = (blk[0] >= 0) & (blk[1] >= 0)
+        ids = np.arange(r * step, (r + 1) * step)[valid.numpy()]
+        want_ids = ids[np.argsort(blk[1].numpy()[valid.numpy()], kind="stable")]
+        assert len(chunks) == -(-step // chunk)
+        got_dst, got_src, prev_hi = [], [], 0
+        for ch in chunks:
+            assert ch.dst.perm is None and ch.src.perm is not None
+            m = int(ch.dst.counts().sum())
+            assert ch.src.perm.shape[0] == m
+            idx = ch.dst.index[:m]
+            assert torch.all(idx[1:] >= idx[:-1])
+            lo, hi = ch.dst.bounds.tolist()
+            if m:
+                assert (lo, hi) == (int(idx[0]), int(idx[-1]) + 1) and lo >= prev_hi - 1
+                prev_hi = hi
+            got_dst.append(idx)
+            got_src.append(ch.src.index[:m])
+            deg += ch.dst.counts().long()
+        # the rows, in order, are the valid edges sorted stably by dst
+        assert torch.equal(torch.cat(got_dst), blk[1].new_tensor(edges[1].numpy()[want_ids]))
+        assert torch.equal(torch.cat(got_src), blk[0].new_tensor(edges[0].numpy()[want_ids]))
+        for node in np.unique(edges[1].numpy()[want_ids]):
+            mine = want_ids[edges[1].numpy()[want_ids] == node]
+            assert np.all(np.diff(mine) > 0)
+    valid = (edges[0] >= 0) & (edges[1] >= 0)
+    want_deg = torch.bincount(edges[1][valid].long(), minlength=50)
+    assert torch.equal(deg, want_deg) and torch.equal(plan.deg, want_deg.float())
+
+
+def test_node_sums_keep_ascending_edge_order():
+    """Messages whose sum depends on its order ((1e8 + 1) - 1e8 + 1 = 1 in
+    f32, other orders give 0 or 2): summed through the chunks' dst plans in
+    place, each node gets the sum in ascending original edge order, as an
+    unchunked sequential index_add_ does, bit for bit."""
+    n, e = 6, 48
+    rng = np.random.default_rng(3)
+    dst = rng.integers(0, n, e).astype(np.int32)
+    src = rng.integers(0, n, e).astype(np.int32)
+    vals = np.tile(np.array([1e8, 1.0, -1e8, 1.0], np.float32), e // 4)[:, None]
+    edges = torch.from_numpy(np.stack([src, dst]))
+    want = torch.zeros((n, 1)).index_add_(0, torch.from_numpy(dst).long(),
+                                           torch.from_numpy(vals))
+    for chunk in (5, 16, 48):
+        _, cfg = _cfgs(n_layers=1, d_hidden=4, d_feat=2, n_classes=2)
+        plan = TG.edge_plan(edges, n, dataclasses.replace(cfg, edge_chunk=chunk))
+        order = np.argsort(dst, kind="stable")
+        rows = torch.from_numpy(vals[order])
+        acc = None
+        for i, ch in enumerate(plan.entries[0][1]):
+            acc = TG.S.sum_rows(rows[i * chunk:(i + 1) * chunk], ch.dst, acc, inplace=True)
+        assert torch.equal(acc.view(torch.int32), want.view(torch.int32))
+
+
 def test_equivariance():
     """Mirrors the reference's test_egnn_equivariance with the port's own
     initial weights (3 layers, d_hidden 16, 30 nodes, 90 edges)."""

@@ -1,12 +1,15 @@
 """The port's segment sum (`repro_torch.kernels.segment_sum`, plain version
-`ref.segment_sum`) on the CPU: against `jax.ops.segment_sum`, against a
-sequential `index_add_` bit for bit, chunked against unchunked bit for bit,
-its index plan, and the two autograd Functions (`sum_rows`, `gather_rows`)
-against `torch.autograd.gradcheck` in f64 and against `jax.grad`.
+`ref.segment_sum`) on the CPU: both plans (permuted, for the gather route;
+sorted, for the stream route over rows already in segment order) against
+`jax.ops.segment_sum`, against a sequential `index_add_` and against each
+other bit for bit, chunked and node-ranged in place against unchunked bit for
+bit, the plans themselves (on meta too), and the autograd Functions
+(`sum_rows`, in place or not, `gather_rows`, `gather_pair`) against
+`torch.autograd.gradcheck` in f64 and against `jax.grad`.
 
-The card's kernel (`csrc/segment_sum.cu`) is held to the same plain version
-bit for bit by `chip_smoke.py` phase 8a; a CUDA tensor launches it or the
-wrapper raises, which a meta tensor shows here.
+The card's kernels (`csrc/segment_sum.cu`) are held to the same plain
+version bit for bit by `chip_smoke.py` phase 8a; a CUDA tensor launches one
+or the wrapper raises, which a meta tensor shows here.
 """
 import jax
 import jax.numpy as jnp
@@ -179,3 +182,186 @@ def test_grads_match_jax(kind):
         want = np.asarray(want)
         np.testing.assert_allclose(got.numpy(), want, rtol=1e-5,
                                    atol=1e-6 * np.abs(want).max())
+
+
+# -- the sorted plan (the stream route: rows already in segment order) ------------
+
+def _sorted(rows, idx, n):
+    """The valid rows put in segment order (stably) and the sorted plan of
+    their index, beside the permuted plan of `idx`."""
+    p = S.plan(torch.from_numpy(idx), n)
+    order = p.perm.long()
+    key = p.index[order]
+    return p, torch.from_numpy(rows)[order], key, S.sorted_plan(key, n)
+
+
+@pytest.mark.parametrize("f", FS)
+@pytest.mark.parametrize("n,e,kind", CASES)
+def test_sorted_plan_matches_jax_segment_sum(n, e, kind, f):
+    rows, idx, out0 = _case(n, e, f, kind)
+    _, srt, _, sp = _sorted(rows, idx, n)
+    got = S.segment_sum(srt, None, sp.offsets, None if out0 is None else torch.from_numpy(out0),
+                        bounds=sp.bounds).numpy()
+    valid = idx >= 0
+    want = np.asarray(jax.ops.segment_sum(jnp.asarray(rows[valid]), jnp.asarray(idx[valid]),
+                                          num_segments=n))
+    if out0 is not None:
+        want = want + out0
+    np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6 * max(1.0, np.abs(want).max()))
+
+
+@pytest.mark.parametrize("f", FS)
+@pytest.mark.parametrize("n,e,kind", CASES)
+def test_sorted_plan_equals_index_add_and_permuted_plan(n, e, kind, f):
+    """The sorted plan's plain version on the rows in segment order equals a
+    sequential index_add_ over the valid rows in edge order and the permuted
+    plan on the rows as they were, bit for bit."""
+    rows, idx, out0 = _case(n, e, f, kind)
+    p, srt, key, sp = _sorted(rows, idx, n)
+    o0 = None if out0 is None else torch.from_numpy(out0)
+    got = S.segment_sum(srt, None, sp.offsets, o0, bounds=sp.bounds)
+    valid = idx >= 0
+    base = torch.zeros((n, f)) if o0 is None else o0.clone()
+    want = base.index_add_(0, torch.from_numpy(idx[valid]).long(),
+                           torch.from_numpy(rows[valid]))
+    assert torch.equal(_bits(got), _bits(want))
+    assert torch.equal(_bits(got), _bits(S.segment_sum(torch.from_numpy(rows), p.perm,
+                                                       p.offsets, o0)))
+
+
+@pytest.mark.parametrize("cuts", [(1, 7, 333), (0, 0, 50, 51), (2, 600), (699,)])
+@pytest.mark.parametrize("f", FS)
+def test_ranges_in_place_equal_unchunked(cuts, f):
+    """The rows in segment order cut anywhere (an empty range too), each cut
+    a sorted plan over its own node range summed in place on a running sum:
+    equal to one call bit for bit, with a hub segment (node 3) longer than
+    any cut, and nothing written outside a range."""
+    n, e = 50, 700
+    rows, idx, out0 = _case(n, e, f, "pad", seed=len(cuts))
+    idx[(idx >= 0) & (np.arange(e) % 3 == 0)] = 3
+    _, srt, key, sp = _sorted(rows, idx, n)
+    o0 = torch.from_numpy(out0) if out0 is not None else torch.randn((n, f))
+    whole = S.segment_sum(srt, None, sp.offsets, o0, bounds=sp.bounds)
+    run = o0.clone()
+    m = srt.shape[0]
+    edges = sorted({min(c, m) for c in cuts} | {0, m})
+    for c0, c1 in zip(edges, edges[1:] + [m]):
+        cp = S.sorted_plan(key[c0:c1], n)
+        lo, hi = cp.bounds.tolist()
+        before = run.clone()
+        out = S.segment_sum(srt[c0:c1], None, cp.offsets, run, bounds=cp.bounds, out=run)
+        assert out is run
+        assert torch.equal(run[:lo], before[:lo]) and torch.equal(run[hi:], before[hi:])
+    assert torch.equal(_bits(run), _bits(whole))
+    # a range without out sums onto a copy of out0, which it leaves alone
+    cp = S.sorted_plan(key[5:9], n)
+    copy = S.segment_sum(srt[5:9], None, cp.offsets, o0, bounds=cp.bounds)
+    assert copy is not o0 and not torch.equal(copy, o0)
+
+
+def test_sorted_plan_offsets_bounds_and_index():
+    idx = torch.tensor([1, 1, 3, 3, 3, 4, 9, -1], dtype=torch.int32)
+    valid = torch.tensor([True] * 6 + [False] * 2)
+    p = S.sorted_plan(idx, 6, valid)
+    assert p.perm is None and p.valid is valid and p.n_segments == 6
+    assert p.offsets.tolist() == [0, 0, 2, 2, 5, 6, 6]
+    assert p.bounds.tolist() == [1, 5] and p.bounds.dtype == torch.int32
+    assert p.counts().tolist() == [0, 2, 0, 3, 1, 0]
+    assert p.index.tolist() == [1, 1, 3, 3, 3, 4, 5, 5]     # nondecreasing
+    q = S.sorted_plan(torch.tensor([0, 2, 2]), 4)
+    assert q.valid is None and q.bounds.tolist() == [0, 3] and q.offsets.tolist() == [0, 1, 1, 3, 3]
+    # no valid row, and no row at all: an empty range
+    none = S.sorted_plan(torch.tensor([-1, -1], dtype=torch.int32), 4,
+                         torch.tensor([False, False]))
+    assert none.bounds.tolist() == [0, 0] and none.counts().tolist() == [0] * 4
+    assert S.sorted_plan(torch.zeros(0, dtype=torch.int32), 4).bounds.tolist() == [0, 0]
+    out0 = torch.randn((4, 2))
+    got = S.segment_sum(torch.ones((2, 2)), None, none.offsets, out0, bounds=none.bounds)
+    assert torch.equal(got, out0)
+
+
+def test_sorted_plan_on_meta_keeps_its_shapes():
+    """No host read: the dry run builds sorted plans and sums on meta."""
+    idx = torch.empty(40, dtype=torch.int32, device="meta")
+    p = S.sorted_plan(idx, 9, torch.empty(40, dtype=torch.bool, device="meta"))
+    assert p.offsets.is_meta and p.offsets.shape == (10,) and p.bounds.shape == (2,)
+    rows = torch.empty((40, 3), device="meta")
+    assert S.segment_sum(rows, None, p.offsets, bounds=p.bounds).shape == (9, 3)
+    acc = torch.empty((9, 3), device="meta")
+    assert S.sum_rows(rows, p, acc, inplace=True) is acc
+    assert S.gather_rows(torch.empty((9, 3), device="meta"), p).shape == (40, 3)
+
+
+def test_stream_route_never_takes_the_plain_version_off_the_cpu():
+    """A sorted plan's operands off the CPU go to the kernel's checks, never
+    to ref: a meta row tensor beside CPU offsets and bounds raises."""
+    p = S.sorted_plan(torch.tensor([0, 1], dtype=torch.int32), 2)
+    meta = torch.empty((2, 4), device="meta")
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        S.segment_sum(meta, None, p.offsets, bounds=p.bounds)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        S.segment_sum(torch.ones((2, 4)), None, p.offsets, bounds=p.bounds.to("meta"))
+
+
+def test_gradcheck_on_a_sorted_plan_f64():
+    rows, idx, _ = _case(9, 40, 3, "pad", seed=5)
+    _, srt, key, sp = _sorted(rows, idx, 9)
+    r = srt.double().requires_grad_()
+    o = torch.randn((9, 3), dtype=torch.float64, requires_grad=True)
+    assert torch.autograd.gradcheck(lambda a, b: S.sum_rows(a, sp, b), (r, o))
+    assert torch.autograd.gradcheck(lambda a: S.sum_rows(a, sp), (r,))
+    t = torch.randn((9, 3), dtype=torch.float64, requires_grad=True)
+    assert torch.autograd.gradcheck(lambda a: S.gather_rows(a, sp), (t,))
+    # a valid prefix: the rows past it gather zeros and take no gradient
+    valid = torch.arange(12) < 9
+    k = torch.cat([key[:9], torch.full((3,), -1, dtype=torch.int32)])
+    vp = S.sorted_plan(k, 9, valid)
+    assert torch.autograd.gradcheck(lambda a: S.gather_rows(a, vp), (t,))
+    assert torch.autograd.gradcheck(lambda a: S.sum_rows(a, vp),
+                                    (torch.randn((12, 3), dtype=torch.float64,
+                                                 requires_grad=True),))
+
+
+@pytest.mark.parametrize("sorted_", [False, True])
+def test_sum_rows_in_place(sorted_):
+    """In place on a running sum (not a leaf): the same values and gradients
+    as out of place, out0 returned, and its gradient passed through."""
+    rows, idx, _ = _case(20, 120, 5, "pad", seed=7)
+    p, srt, key, sp = _sorted(rows, idx, 20)
+    plan_, r_in = (sp, srt) if sorted_ else (p, torch.from_numpy(rows))
+    base = torch.randn((20, 5), dtype=torch.float64).float()
+    g = torch.randn((20, 5))
+    grads = []
+    for inplace in (False, True):
+        r = r_in.clone().requires_grad_()
+        b = base.clone().requires_grad_()
+        acc = b * 1.0                       # a running sum, not a leaf
+        y = S.sum_rows(r, plan_, acc, inplace=inplace)
+        assert (y is acc) == inplace
+        grads.append((y.detach().clone(), *torch.autograd.grad(y, (r, b), g)))
+    for a, b_ in zip(*grads):
+        assert torch.equal(_bits(a), _bits(b_))
+
+
+@pytest.mark.parametrize("kinds", [("sorted", "permuted"), ("permuted", "permuted")])
+def test_gather_pair(kinds):
+    """Two gathers of one table: the same rows as gather_rows; the backward
+    (the sums by the second plan, then the first's rows added on in place)
+    passes gradcheck in f64 and equals the two gathers' summed gradients."""
+    n, e = 12, 70
+    rows, idx, _ = _case(n, e, 4, "pad", seed=9)
+    rng = np.random.default_rng(9)
+    other = rng.integers(0, n, e).astype(np.int32)
+    p, _, key, sp = _sorted(rows, idx, n)
+    first = sp if kinds[0] == "sorted" else p
+    m = key.shape[0] if kinds[0] == "sorted" else e
+    q = S.plan(torch.from_numpy(other[:m]), n)
+    t = torch.randn((n, 4), dtype=torch.float64, requires_grad=True)
+    a, b = S.gather_pair(t, first, q)
+    assert torch.equal(a, S.gather_rows(t, first)) and torch.equal(b, S.gather_rows(t, q))
+    assert torch.autograd.gradcheck(lambda x: S.gather_pair(x, first, q), (t,))
+    ga, gb = torch.randn(a.shape, dtype=torch.float64), torch.randn(b.shape, dtype=torch.float64)
+    (got,) = torch.autograd.grad((a, b), t, (ga, gb))
+    (w1,) = torch.autograd.grad(S.gather_rows(t, first), t, ga)
+    (w2,) = torch.autograd.grad(S.gather_rows(t, q), t, gb)
+    torch.testing.assert_close(got, w1 + w2, rtol=1e-12, atol=1e-12)
