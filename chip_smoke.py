@@ -11,6 +11,11 @@ a non-zero exit):
      (exact for the integer kernels, allclose for bit_matvec), every tile
      of the autotuner's spaces too (warps 1-32 a block of coverage_gain,
      bit_matvec and partition_gain; clause_match's queries a block);
+     coverage_gain and bit_matvec on both routes, forced (warp: a warp a
+     row; split: a row to a cluster of CTAs), at C 1, 2, 3, 7 and R 1, 3 on
+     ragged widths up to 40003 words, rows and masks aligned and not: each
+     == the plain version, the other route and a repeat (bit_matvec bit for
+     bit on weights k/256, allclose on random ones);
      partition_gain also against coverage_gain, sparse_gain on masks on
      both sides of its shared-memory limit; clause_match on empty
      clauses, clauses of 4 and of 5+ tokens (its compact table's
@@ -69,7 +74,13 @@ a non-zero exit):
      permuted (identical answers), with ops.fused_match's time there; and
      sparse_gain once more at solve_sparse_xl's own shapes (2^20 lists of
      4096 ids over 2^28 docs, the L2 route), then with the ids folded into
-     2^24 docs.
+     2^24 docs. Then (1b, 2b) one-row coverage_gain and bit_matvec at lazy's
+     state when 3d's run stopped, on 64 clauses: both routes == the plain
+     version and a repeat, timed in turns (event and device ms) beside the
+     launch floor (an empty kernel through the wrappers' launch path), the
+     plain version and the bound; and the sweep of both routes' device ms
+     at C = 1 .. 2048 and 625 to 32768 words, beside the route the shape
+     picks (`tiles.gain_route`).
   T. the tuning phase, after phase 1's production timings and before phase
      5 (the autotuner's cache is off everywhere else: the script sets
      REPRO_TORCH_KERNEL_TILES=off first): `autotune.search` over
@@ -400,6 +411,20 @@ SPARSE_M = 4096                # solve_sparse_xl's padded list length
 XL_CLAUSES, XL_DOCS = 2 ** 20, 2 ** 28   # solve_sparse_xl, uncut
 XL_FOLD_DOCS = 2 ** 24         # the folded run's reach: a 2 MiB slice of the mask
 MAIN_KERNELS = ("coverage_gain", "bit_matvec", "clause_match", "tier_match")
+# the split route of coverage_gain and bit_matvec (calls of few rows over
+# wide rows): their paths are lazy's and agnostic's exact evaluations (3d)
+# and ingest's offers (5e-b) at production widths, not phase 3's greedy and
+# serving, nor any call at `medium`'s widths
+SPLIT_KERNELS = ("coverage_gain_split", "bit_matvec_split")
+ONE_ROW_ROWS = 64              # 1b, 2b: the clauses lazy's evaluation is timed on
+ONE_ROW_SEED = 33              # ... drawn from this seed
+# a path's kernel is launched when either of its routes is
+ROUTES_OF = {"coverage_gain": ("coverage_gain", "coverage_gain_split"),
+             "bit_matvec": ("bit_matvec", "bit_matvec_split")}
+SWEEP_C = tuple(1 << k for k in range(12))   # 1b, 2b: the route sweep, C = 1 .. 2048
+# ... at the production width, `medium`'s (doc, query words) and either
+# side of each kernel's least split width
+SWEEP_W = {"coverage_gain": (32768, 625, 4096, 8192), "bit_matvec": (32768, 849, 1024, 2048)}
 HOST_THREADS = 6               # torch threads of phase 2's CPU half (a worker
                                # beside the card's phases, on 8 cores)
 # phase 5's solves and refits at `medium`: at most 64 selections
@@ -527,6 +552,11 @@ def card_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
+
+
+def ran(launches: dict, k: str) -> bool:
+    """Did kernel `k` launch (coverage_gain and bit_matvec on either route)?"""
+    return sum(launches.get(n, 0) for n in ROUTES_OF.get(k, (k,))) > 0
 
 
 def check(cond: bool, what: str) -> None:
@@ -712,6 +742,7 @@ def phase1_small(device) -> float:
                 check(torch.equal(partition_gain.partition_gain(
                     aa, mask, bounds, warps=warps), want[2]),
                     f"partition_gain {c}x{w} over {bounds} warps {warps}")
+    worst = max(worst, one_row_small(gen, device, misaligned))
     for name, q, cl in itertools.islice(clause_cases(gen, device), 6):
         want = ref.clause_match(q, cl)
         for qpb in clause_match.QPB:
@@ -778,6 +809,70 @@ def phase1_small(device) -> float:
     check(smem_route(limit) and not smem_route(limit + 1),
           "the shared-memory limit is not where phase 1 tests it")
     torch.cuda.synchronize()
+    return worst
+
+
+def one_row_small(gen, device, misaligned) -> float:
+    """Both routes of coverage_gain and bit_matvec, forced, at C 1, 2, 3, 7
+    and R 1, 3 over ragged widths (1 to 4097 words: a cluster of 1 or 2
+    CTAs; 9001, 30001 and 32768: 3 to 8; 40003: 8 CTAs of two chunks), rows
+    and masks aligned and 4 bytes off: each against the plain version and
+    the other route, and the split route against a repeat, bit for bit;
+    bit_matvec bit for bit on weights k/256 (their f32 sums are exact, so
+    every order rounds alike) and within rtol 1e-5, atol 1e-4 on random
+    ones. Then every `warps` of the autotuner's space on the split route.
+    Returns bit_matvec's largest error on the random weights."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.bit_matvec import bit_matvec
+    from repro_torch.kernels.coverage_gain import coverage_gain
+    from repro_torch.kernels.tiles import WARPS, split_ctas
+    worst = 0.0
+    for w in (1, 3, 5, 625, 849, 1029, 4097, 9001, 30001, 32768, 40003):
+        for c in (1, 2, 3, 7):
+            what = f"{c}x{w} ({split_ctas(w)} CTAs a row)"
+            a = rand_words(gen, (c, w), device)
+            a[0] = -1                                # an all-ones row
+            mask = rand_words(gen, (w,), device)
+            for aa in (a, misaligned(a)):
+                for mm in (mask, misaligned(mask)):
+                    want = ref.coverage_gain(aa, mm)
+                    got = coverage_gain(aa, mm, route="split")
+                    check(torch.equal(got, want)
+                          and torch.equal(coverage_gain(aa, mm, route="warp"), want)
+                          and torch.equal(coverage_gain(aa, mm, route="split"), got),
+                          f"coverage_gain split route {what}")
+            for r in (1, 3):
+                xq = torch.randint(0, 257, (w * 32, r), dtype=torch.int32, device=device,
+                                   generator=gen).float() / 256
+                xr = torch.rand((w * 32, r), generator=gen, device=device)
+                for aa in (a, misaligned(a)):
+                    want = ref.bit_matvec(aa, xq)
+                    got = bit_matvec(aa, xq, route="split")
+                    check(torch.equal(got, want)
+                          and torch.equal(bit_matvec(aa, xq, route="warp"), want)
+                          and torch.equal(bit_matvec(aa, xq, route="split"), got),
+                          f"bit_matvec split route {what}, R {r}, weights k/256")
+                    want = ref.bit_matvec(aa, xr)
+                    got = bit_matvec(aa, xr, route="split")
+                    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
+                    torch.testing.assert_close(bit_matvec(aa, xr, route="warp"), got,
+                                               rtol=1e-5, atol=1e-4)
+                    check(torch.equal(bit_matvec(aa, xr, route="split"), got),
+                          f"bit_matvec split route {what}, R {r}: a repeat differs")
+                    worst = max(worst, float((got - want).abs().max()))
+    for c, w in ((1, 849), (3, 625), (1, 32768), (7, 9001)):
+        a = rand_words(gen, (c, w), device)
+        mask = rand_words(gen, (w,), device)
+        xq = torch.randint(0, 257, (w * 32, 1), dtype=torch.int32, device=device,
+                           generator=gen).float() / 256
+        want = (ref.coverage_gain(a, mask), ref.bit_matvec(a, xq))
+        for warps in WARPS:
+            for aa in (a, misaligned(a)):
+                check(torch.equal(coverage_gain(aa, mask, warps=warps, route="split"),
+                                  want[0])
+                      and torch.equal(bit_matvec(aa, xq, warps=warps, route="split"),
+                                      want[1]),
+                      f"split route {c}x{w} warps {warps}")
     return worst
 
 
@@ -1054,7 +1149,7 @@ def compare_solvers(gpu: dict, cpu: dict, main: dict, part: dict,
                         ("stochastic", ("bit_matvec", "coverage_gain")),
                         ("lazy-caps", ("bit_matvec", "partition_gain")),
                         ("multitier", ("bit_matvec", "coverage_gain"))):
-        check(all(gpu["launches"][key].get(k, 0) > 0 for k in want_k),
+        check(all(ran(gpu["launches"][key], k) for k in want_k),
               f"{key} launched none of {want_k}: {gpu['launches'][key]}")
     mg = main["greedy"]
     log(f"[phase 2] other solvers (cuda s / cpu s, selections, evals): "
@@ -1119,7 +1214,7 @@ def phase2(counts, pool, scale: str = "medium", device=None) -> dict:
     _build.reset_launches()
     gpu = run_pipeline(pipe)
     counts.update(_build.LAUNCHES)
-    check(all(counts[k] > 0 for k in MAIN_KERNELS),
+    check(all(ran(counts, k) for k in MAIN_KERNELS),
           f"a kernel of the main path never launched: {counts}")
     seconds["2a"] = time.perf_counter() - t
     t = time.perf_counter()
@@ -1174,7 +1269,7 @@ def phase2_compare(p2: dict, counts: dict) -> None:
                     p2["budget"])
     log(f"[phase 2] launches {dict(counts)}; orders, selections, caps, fills, "
         f"match sets and ServeStats equal to the device='cpu' run")
-    check(all(counts[k] > 0 for k in TIERING_KERNELS)
+    check(all(ran(counts, k) for k in TIERING_KERNELS)
           and all(counts[k] == 0 for k in LM_KERNELS),
           f"a kernel never launched, or an LM kernel did: {counts}")
 
@@ -1397,7 +1492,7 @@ def phase3(seed: int, counts: dict, dev=torch.device("cuda"),
     peak = torch.cuda.max_memory_allocated()
     log(f"[phase 3] launches {dict(counts)}; max_memory_allocated "
         f"{peak / 2 ** 30:.2f} GiB")
-    check(all(counts[k] > 0 for k in MAIN_KERNELS),
+    check(all(ran(counts, k) for k in MAIN_KERNELS),
           f"a kernel of the main path never launched: {counts}")
     check(peak >= min_peak, f"phase 3 held less than {min_peak / 2 ** 30} GiB")
     # where a serve batch's time goes: the engine's steps, one at a time
@@ -1466,7 +1561,7 @@ def phase3_shards(p3: dict, counts: dict) -> dict:
             f"{steps.max() if len(steps) else None}; fills "
             f"{res.extra['g_part'].tolist()}")
     add_counts(counts, _build.LAUNCHES)
-    check(_build.LAUNCHES["partition_gain"] > 0 and _build.LAUNCHES["bit_matvec"] > 0,
+    check(_build.LAUNCHES["partition_gain"] > 0 and ran(_build.LAUNCHES, "bit_matvec"),
           f"a kernel of the per-shard path never launched: {_build.LAUNCHES}")
     ordered_or_tied(problem, results["greedy"].order, results["optpes"].order,
                     "per-shard greedy vs optpes (production shapes)")
@@ -1582,9 +1677,11 @@ def phase3_solvers(p3: dict) -> dict:
         torch.cuda.synchronize()
         dt = time.perf_counter() - t
         launches = {k: v for k, v in _build.LAUNCHES.items() if v}
-        check(launches.get("bit_matvec", 0) > 0
-              and launches.get("coverage_gain", 0) > 0,
+        check(ran(launches, "bit_matvec") and ran(launches, "coverage_gain"),
               f"{name} at production shapes launched {launches}")
+        if name in ("lazy", "agnostic"):
+            check(all(ran(launches, k) for k in SPLIT_KERNELS),
+                  f"{name}'s exact evaluations never took the split route: {launches}")
         med, mx = per_step_ms(res)
         out[name] = dict(result=res, s=dt, median_ms=med, max_ms=mx,
                          evals=res.n_exact_evals, launches=launches)
@@ -1624,12 +1721,16 @@ def phase3_solvers(p3: dict) -> dict:
     lz = out["lazy"]
     n_sel = len(lz["result"].order)
     out["lazy_exact_evals"] = (lz["evals"] - 2 * problem.n_clauses) // 2
+    out["lazy_ms_a_selection"] = lz["s"] * 1e3 / max(1, n_sel)
+    out["lazy_ms_an_eval"] = lz["s"] * 1e3 / max(1, out["lazy_exact_evals"])
     log(f"[phase 3] one exact evaluation (one-row bit_matvec + coverage_gain "
         f"+ one host read): median {out['exact_eval_ms']:.4f} ms, max "
         f"{out['exact_eval_max_ms']:.4f} ms over 64 clauses; lazy made "
         f"{out['lazy_exact_evals']} exact evaluations in {n_sel} selections "
         f"({'its ' + str(LAZY_LIMIT_S) + ' s limit' if n_sel < 128 else 'all 128'}"
-        f"), == greedy's first {n_sel} up to f32 ties")
+        f"), == greedy's first {n_sel} up to f32 ties; {out['lazy_ms_a_selection']:.3f} "
+        f"ms a lazy selection, {out['lazy_ms_an_eval']:.4f} ms an exact evaluation "
+        f"within lazy's run (its heap loop included)")
     return out
 
 
@@ -1819,7 +1920,7 @@ def phase5_medium(data, card=torch.device("cuda")) -> dict:
                       ("fleet", ("bit_matvec", "partition_gain",
                                  "clause_match", "tier_match"))):
         got = gpu["launches"][arm]
-        check(all(got.get(k, 0) > 0 for k in want),
+        check(all(ran(got, k) for k in want),
               f"5a {arm}: a kernel of the path never launched: {got}")
     log(f"[phase 5] medium: windows, refit orders, cumulative and fleet stats, "
         f"BatchTraces and the result cache equal to the device='cpu' run; "
@@ -1924,7 +2025,7 @@ def phase5_production(p3: dict) -> dict:
                           (engine, "swap_tiering"), (engine, "serve")):
             delattr(obj, name)
     launches = {k: v for k, v in _build.LAUNCHES.items() if v}
-    check(all(launches.get(k, 0) > 0 for k in MAIN_KERNELS),
+    check(all(ran(launches, k) for k in MAIN_KERNELS),
           f"5b: a kernel of the re-tiering path never launched: {launches}")
     check(refits and all(r.parity_ok for r in reports if r.refit),
           f"5b: no refit, or a parity check failed")
@@ -2132,7 +2233,7 @@ def phase5_ingest_medium(data, host: dict,
         want = ("bit_matvec", "partition_gain", "clause_match", "tier_match") \
             if split else MAIN_KERNELS
         got = gpu["launches"][arm]
-        check(all(got.get(k, 0) > 0 for k in want),
+        check(all(ran(got, k) for k in want),
               f"5e-a {arm}: a kernel of the path never launched: {got}")
         log(f"[phase 5e] medium {arm}: {rep.summary()}; admission "
             f"{rep.admission_summary}; cuda {gpu['seconds'][arm]:.2f}s cpu "
@@ -2254,7 +2355,7 @@ def phase5_ingest_production(p3: dict, prod: dict) -> dict:
                           (engine, "swap_corpus"), (engine, "serve")):
             delattr(obj, name)
     launches = {k: v for k, v in _build.LAUNCHES.items() if v}
-    check(all(launches.get(k, 0) > 0 for k in MAIN_KERNELS),
+    check(all(ran(launches, k) for k in MAIN_KERNELS + SPLIT_KERNELS),
           f"5e-b: a kernel of the ingest path never launched: {launches}")
     # 5c's tierings, re-derived on the grown problem: the old docs' Tier-1
     # membership is unchanged (append-only), the block's follows the clauses
@@ -2878,6 +2979,162 @@ def phase1_scale(p3: dict) -> list[dict]:
     ids, mask = p3["sparse"]["ids"], p3["sparse"]["covered_d"]
     rec.append(sparse_record(ids, mask, sample(ids.shape[0]), "smem"))
     return rec
+
+
+def cycled(calls):
+    """A function that makes the next of `calls` each time it is called."""
+    it = itertools.cycle(calls)
+    return lambda: next(it)()
+
+
+def one_row_scale(p3: dict, st) -> list[dict]:
+    """1b, 2b: one-row coverage_gain and bit_matvec at phase 3's operands and
+    lazy's state when its 3d run stopped, on ONE_ROW_ROWS clauses from
+    ONE_ROW_SEED (lazy's unit of work): each route against the plain version
+    and the other, then both timed in turns (warp, split, split, warp;
+    CUDA-event ms a call, the wrapper's host work in it, and device ms from a
+    CUDA graph of the calls), beside the launch floor (an empty kernel
+    through `_build.launch`'s path), the plain version and the byte bound
+    (the row, the mask or the x entries at its set bits). Then the sweep of
+    both routes at C = SWEEP_C over the phase-3 rows cut to SWEEP_W: the
+    first C (the most popular clauses, the densest) and, for bit_matvec,
+    whose time follows the set bits, also C drawn from ONE_ROW_SEED; and
+    the route `tiles.gain_route` picks for each."""
+    from repro_torch.kernels import _build, ops, ref
+    from repro_torch.kernels.bit_matvec import bit_matvec
+    from repro_torch.kernels.coverage_gain import coverage_gain
+    from repro_torch.kernels.tiles import (SPLIT_MAX_TASKS, SPLIT_MIN_WORDS, gain_route,
+                                           split_ctas)
+    problem = p3["problem"]
+    aq, ad = problem.clause_query_bits, problem.clause_doc_bits
+    x = problem.uncovered_weights(st.covered_q)[:, None]
+    mask = st.covered_d
+    dev = aq.device
+    js = torch.randperm(problem.n_clauses, generator=torch.Generator().manual_seed(
+        ONE_ROW_SEED))[:ONE_ROW_ROWS].tolist()
+    idx = torch.tensor(js, device=dev)
+    def floor():
+        _build.launch_floor(dev)
+    floor_ms, floor_dev = time_ms(floor, len(js)), graph_ms(floor, len(js))
+    recs = []
+    for name, a, fn, plain, rhs in (("coverage_gain_split", ad, coverage_gain,
+                                     ref.coverage_gain, mask),
+                                    ("bit_matvec_split", aq, bit_matvec, ref.bit_matvec, x)):
+        w = a.shape[1]
+        rows = [a[j:j + 1] for j in js]
+        split = torch.cat([fn(r, rhs, route="split") for r in rows])
+        warp = torch.cat([fn(r, rhs, route="warp") for r in rows])
+        want = plain(a[idx], rhs)
+        check(torch.equal(split, torch.cat([fn(r, rhs, route="split") for r in rows])),
+              f"{name}: a repeat differs at phase 3's state")
+        nnz = ops.coverage_gain(a[idx], torch.zeros_like(a[0]))
+        if name == "coverage_gain_split":
+            check(torch.equal(split, want) and torch.equal(warp, want),
+                  f"{name} != the warp route or the plain version at phase 3's state")
+            nbytes, flops = 4 * (2 * w + 1), 0.0
+        else:
+            torch.testing.assert_close(split, want, rtol=1e-5, atol=1e-6)
+            torch.testing.assert_close(warp, want, rtol=1e-5, atol=1e-6)
+            nbytes, flops = 4 * (w + float(nnz.double().mean()) + 1), float(nnz.double().mean())
+        err = float((split.double() - want.double()).abs().max())
+        t = {"warp": [], "split": [], "warp_dev": [], "split_dev": []}
+        calls = {r: [lambda a_=a_, r=r: fn(a_, rhs, route=r) for a_ in rows]
+                 for r in ("warp", "split")}
+        for r in ("warp", "split", "split", "warp"):
+            t[r].append(time_ms(cycled(calls[r]), len(js)))
+            t[r + "_dev"].append(graph_ms(cycled(calls[r]), len(js)))
+        b_ms, b_by = bound(nbytes, flops)
+        rec = dict(name=name, shape=[1, w], rows=len(js), ctas=split_ctas(w),
+                   max_abs_err=err, equal_to_warp=int((split == warp).reshape(len(js), -1).all(-1).sum()),
+                   ms=statistics.fmean(t["split"]), device_ms=statistics.fmean(t["split_dev"]),
+                   warp_ms=statistics.fmean(t["warp"]),
+                   warp_device_ms=statistics.fmean(t["warp_dev"]), runs=t,
+                   floor_ms=floor_ms, floor_device_ms=floor_dev,
+                   plain_ms=time_ms(lambda: plain(rows[0], rhs), 2),
+                   bound_ms=b_ms, bound_by=b_by,
+                   nnz_mean=float(nnz.double().mean()), nnz_max=int(nnz.max()))
+        log(f"[phase 1] at scale {name} one row [1, {w}] over {len(js)} clauses at lazy's "
+            f"state ({rec['ctas']} CTAs a row): split {rec['ms']:.4f} ms (device "
+            f"{rec['device_ms']:.4f}), warp {rec['warp_ms']:.4f} ms (device "
+            f"{rec['warp_device_ms']:.4f}) in the same call; launch floor {floor_ms:.4f} ms "
+            f"(device {floor_dev:.4f}); bound {b_ms:.6f} ms by {b_by}; plain "
+            f"{rec['plain_ms']:.3f} ms; nnz mean {rec['nnz_mean']:.1f} max {rec['nnz_max']}; "
+            f"max abs err {err:.3g}, {rec['equal_to_warp']} of {len(js)} rows == the warp "
+            f"route bit for bit")
+        recs.append(rec)
+    # the route sweep: device ms of both routes a call, in turns
+    sweep = []
+    perm = torch.randperm(aq.shape[0], generator=torch.Generator().manual_seed(
+        ONE_ROW_SEED)).to(dev)
+    for kernel, fn, rows in (("coverage_gain", coverage_gain, "first"),
+                             ("bit_matvec", bit_matvec, "first"),
+                             ("bit_matvec", bit_matvec, "random")):
+        a, rhs = (ad, mask) if kernel == "coverage_gain" else (aq, x)
+        for w in SWEEP_W[kernel]:
+            r_w = rhs[:w] if kernel == "coverage_gain" else rhs[:w * 32]
+            r_w = r_w.contiguous()
+            for c in SWEEP_C:
+                idx = perm[:c] if rows == "random" else torch.arange(c, device=dev)
+                a_c = a[idx, :w].contiguous()
+                t = {"warp": [], "split": []}
+                for r in ("warp", "split", "split", "warp"):
+                    t[r].append(graph_ms(lambda r=r: fn(a_c, r_w, route=r)))
+                warp_ms, split_ms = statistics.fmean(t["warp"]), statistics.fmean(t["split"])
+                sweep.append(dict(kernel=kernel, rows=rows, c=c, w=w, warp_ms=warp_ms,
+                                  split_ms=split_ms,
+                                  faster="split" if split_ms < warp_ms else "warp",
+                                  picked=gain_route(kernel, c, w)))
+    for kernel, rows in (("coverage_gain", "first"), ("bit_matvec", "first"),
+                         ("bit_matvec", "random")):
+        for w in SWEEP_W[kernel]:
+            row = [e for e in sweep if (e["kernel"], e["rows"], e["w"]) == (kernel, rows, w)]
+            log(f"[phase 1] route sweep {kernel} W={w} {rows} rows, device ms warp/split "
+                f"(picked): "
+                + ", ".join(f"C={e['c']} {e['warp_ms']:.4f}/{e['split_ms']:.4f}"
+                            f" ({e['picked']})" for e in row))
+    slower = [e for e in sweep if e["picked"] != e["faster"]]
+    log(f"[phase 1] route sweep: the split route up to {SPLIT_MAX_TASKS} tasks from "
+        f"{SPLIT_MIN_WORDS} words a row; "
+        f"{len(slower)} of {len(sweep)} shapes on the slower route: "
+        + ", ".join(f"{e['kernel']} C={e['c']} W={e['w']} {e['rows']} {e['picked']} "
+                    f"{e[e['picked'] + '_ms']:.4f} vs {e[e['faster'] + '_ms']:.4f}"
+                    for e in slower))
+    for rec in recs:
+        rec["sweep"] = [e for e in sweep if rec["name"].startswith(e["kernel"])]
+        kernel = rec["name"].removesuffix("_split")
+        rec["split_max_tasks"] = SPLIT_MAX_TASKS[kernel]
+        rec["split_min_words"] = SPLIT_MIN_WORDS[kernel]
+    return recs
+
+
+def medium_routes(problem) -> dict:
+    """Both routes' device ms (in turns, a CUDA graph of 20 calls) at the
+    calls phase 2's solvers make on `medium`'s own rows at the empty state:
+    the f- and g-gains of every clause, and of one clause (64 of them)."""
+    from repro_torch.kernels.bit_matvec import bit_matvec
+    from repro_torch.kernels.coverage_gain import coverage_gain
+    from repro_torch.kernels.tiles import gain_route
+    aq, ad = problem.clause_query_bits, problem.clause_doc_bits
+    x = problem.uncovered_weights(torch.zeros_like(aq[0]))[:, None]
+    mask = torch.zeros_like(ad[0])
+    js = torch.randperm(aq.shape[0], generator=torch.Generator().manual_seed(
+        ONE_ROW_SEED))[:ONE_ROW_ROWS].tolist()
+    out = {}
+    for kernel, fn, a, rhs in (("bit_matvec", bit_matvec, aq, x),
+                               ("coverage_gain", coverage_gain, ad, mask)):
+        for what, rows in (("all", [a]), ("one", [a[j:j + 1] for j in js])):
+            t = {"warp": [], "split": []}
+            for r in ("warp", "split", "split", "warp"):
+                t[r].append(graph_ms(cycled([lambda a_=a_, r=r: fn(a_, rhs, route=r)
+                                             for a_ in rows]), 20))
+            out[f"{kernel}_{what}"] = dict(
+                shape=list(rows[0].shape), warp_ms=statistics.fmean(t["warp"]),
+                split_ms=statistics.fmean(t["split"]),
+                picked=gain_route(kernel, rows[0].shape[0], rows[0].shape[1]))
+    log("[phase 2] medium's own rows, device ms warp/split (picked): " + "; ".join(
+        f"{k} {v['shape']} {v['warp_ms']:.4f}/{v['split_ms']:.4f} ({v['picked']})"
+        for k, v in out.items()))
+    return out
 
 
 def mesh_partition_gain(a, mask, bounds, direct) -> dict:
@@ -6438,6 +6695,11 @@ def phase8_kernel_ogb(seed: int, dev) -> dict:
                        SEG_REPS)
     c_ms = time_ms(lambda: S.segment_sum(rc, None, cp.offsets, run, bounds=cp.bounds,
                                          out=run), SEG_REPS)
+    c_plain_ms = time_ms(lambda: ref.segment_sum(rc, None, cp.offsets, run, cp.bounds,
+                                                 out=run), 2)
+    ck64 = torch.where(key[c0:c0 + chunk] < n, key[c0:c0 + chunk], 0).long()
+    c_add_ms = time_ms(lambda: run.index_add_(0, ck64, rc), SEG_REPS)
+    del ck64
     part = -(-m // SEG_FLOOR_PARTS)
     buf = torch.empty((part, f), device=dev)
     perm64 = p.perm.long()
@@ -6478,7 +6740,9 @@ def phase8_kernel_ogb(seed: int, dev) -> dict:
                   copy_floor_ms=copy_floor_ms, copy_floor_bound_ms=cf_ms,
                   floor_share=copy_floor_ms / s_ms,
                   chunk=dict(shape=f"{mc} rows over nodes [{lo}, {hi}), in place", ms=c_ms,
-                             bound_ms=cb_ms, bound_by=cb_by, bytes=c_bytes),
+                             bound_ms=cb_ms, bound_by=cb_by, bytes=c_bytes,
+                             plain_ms=c_plain_ms, library_ms=c_add_ms,
+                             library="index_add_ of the chunk's rows onto the running sum"),
                   route_note="stream route: the rows as if laid out in dst order")
     log(f"[phase 8a] segment_sum at ogb_products' [E, 64] ({m} valid of {e} edges onto "
         f"{n} nodes): gather route {ms:.3f} ms (bound {b_ms:.3f} ms by {b_by}, "
@@ -6488,7 +6752,8 @@ def phase8_kernel_ogb(seed: int, dev) -> dict:
         f"ms (bound {sb_ms:.3f} ms, {sb_ms / s_ms:.1%}; the copy floor {copy_floor_ms:.3f} "
         f"ms), plain {s_plain_ms:.3f} ms, index_add_ {s_add_ms:.3f} ms, index_put_ "
         f"{s_put_ms:.3f} ms; one {chunk}-row chunk over nodes [{lo}, {hi}) in place "
-        f"{c_ms:.3f} ms (bound {cb_ms:.3f} ms, {cb_ms / c_ms:.1%}); both == plain bit for "
+        f"{c_ms:.3f} ms (bound {cb_ms:.3f} ms, {cb_ms / c_ms:.1%}; plain {c_plain_ms:.3f} "
+        f"ms, index_add_ {c_add_ms:.3f} ms); both == plain bit for "
         f"bit, repeats identical; the atomics' result within {lib_err:.3g} of it (two "
         f"index_add_ calls identical: {lib_bits}); the plan (two sorts' worth) "
         f"{plan_ms:.1f} ms")
@@ -7185,7 +7450,7 @@ def phase9_solvers(p3: dict, dev=torch.device("cuda")) -> dict:
                          ("serve_route", ("clause_match", "tier_match"))):
         for mname, _ in meshes:
             got = out["launches"][f"{name}/{mname}"]
-            check(all(got.get(k, 0) > 0 for k in want_k),
+            check(all(ran(got, k) for k in want_k),
                   f"9a {name}/{mname}: launched none of {want_k}: {got}")
     log("[phase 9a] tiering-scsk solve_fn on phase 3's operands, direct / "
         "Mesh(('model',), 4 x cuda:0) / 2 x 2 ('data', 'model'); ms per selection "
@@ -7251,6 +7516,11 @@ SOURCES = {
                       "src/repro/kernels/coverage_gain.py:33"),
     "bit_matvec": ("src/repro_torch/kernels/csrc/bit_matvec.cu",
                    "src/repro/kernels/bit_matvec.py:80"),
+    # the same two functions' split route, one row to a cluster of CTAs
+    "coverage_gain_split": ("src/repro_torch/kernels/csrc/coverage_gain.cu",
+                            "src/repro/kernels/coverage_gain.py:33"),
+    "bit_matvec_split": ("src/repro_torch/kernels/csrc/bit_matvec.cu",
+                         "src/repro/kernels/bit_matvec.py:80"),
     "clause_match": ("src/repro_torch/kernels/csrc/clause_match.cu",
                      "src/repro/kernels/clause_match.py:67"),
     "tier_match": ("src/repro_torch/kernels/csrc/tier_match.cu",
@@ -7283,8 +7553,8 @@ SOURCES = {
 # and phase 8 EGNN's segment sum (GNN_KERNELS)
 LM_KERNELS = ("flash_attention", "flash_decode", "flash_prefill")
 TRAIN_KERNELS = ("flash_backward", "flash_backward_tc", "flash_backward_short")
-TIERING_KERNELS = tuple(k for k in SOURCES
-                        if k not in LM_KERNELS + TRAIN_KERNELS + GNN_KERNELS)
+TIERING_KERNELS = tuple(k for k in SOURCES if k not in
+                        LM_KERNELS + TRAIN_KERNELS + GNN_KERNELS + SPLIT_KERNELS)
 
 
 def ptxas_lines(build_log: str) -> list[str]:
@@ -7412,7 +7682,7 @@ def production_phases(seed: int):
     p3 = phase3(seed, counts)
     p3["shards"] = phase3_shards(p3, counts)
     p3["sparse"] = phase3_sparse(p3, counts)
-    check(all(counts[k] > 0 for k in TIERING_KERNELS) and len(counts) == len(SOURCES)
+    check(all(ran(counts, k) for k in TIERING_KERNELS) and len(counts) == len(SOURCES)
           and all(counts[k] == 0 for k in LM_KERNELS + TRAIN_KERNELS + GNN_KERNELS),
           f"a kernel never launched in phase 3, or an LM kernel did: {counts}")
     log(f"[phase 3] launches {dict(counts)}; {time.perf_counter() - t:.1f}s")
@@ -7424,6 +7694,7 @@ def production_phases(seed: int):
     t = time.perf_counter()
     plane = obs.set_enabled(False)     # kernel timings as before the plane
     rec = phase1_scale(p3)
+    rec += one_row_scale(p3, solvers["lazy"]["result"].state)
     obs.set_enabled(plane)
     t_scale = time.perf_counter() - t
     t = time.perf_counter()
@@ -7454,6 +7725,7 @@ def tiering_phases(seed: int) -> tuple[list[dict], dict, dict, dict]:
     try:
         p2 = phase2(medium_counts, pool)
         log(f"[phase 2] card half {time.perf_counter() - t:.1f}s")
+        routes_medium = medium_routes(p2["problem"])
         rec, p3, counts, solvers, telemetry, t_scale = production_phases(seed)
         p7 = phase7_wait(seed)
         p8 = phase8_wait(seed)
@@ -7501,6 +7773,12 @@ def tiering_phases(seed: int) -> tuple[list[dict], dict, dict, dict]:
                                   for path, n in p5.items()},
                  launches_phase9={path: n.get(r["name"], 0)
                                   for path, n in p9["solvers"]["launches"].items()})
+        if r["name"] in SPLIT_KERNELS:
+            # their main path: lazy's exact evaluations (3d), counted from 0
+            r.update(launches=solvers["lazy"]["launches"][r["name"]],
+                     launches_path="phase 3d lazy",
+                     medium={k: v for k, v in routes_medium.items()
+                             if r["name"].startswith(k.rsplit("_", 1)[0])})
         prof = [x for x in telemetry["rows"] if x["op"] == r["name"]]
         if prof:
             r["profiler"] = prof[0]

@@ -30,7 +30,8 @@ LIB_NAME = "librepro_torch_kernels.so"
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-KERNELS = ("coverage_gain", "bit_matvec", "clause_match", "tier_match",
+KERNELS = ("coverage_gain", "coverage_gain_split", "bit_matvec", "bit_matvec_split",
+           "clause_match", "tier_match",
            "partition_gain", "sparse_gain", "flash_attention", "flash_decode",
            "flash_prefill", "flash_backward", "flash_backward_tc",
            "flash_backward_short", "segment_sum", "segment_sum_stream")
@@ -42,7 +43,9 @@ _PINT = ctypes.POINTER(ctypes.c_int)
 _PI64 = ctypes.POINTER(ctypes.c_int64)
 _SIGNATURES = {
     "coverage_gain_launch": [_P, _P, _P, _I64, _I64, _INT, _INT, _P],
+    "coverage_gain_split_launch": [_P, _P, _P, _I64, _I64, _INT, _INT, _P],
     "bit_matvec_launch": [_P, _P, _P, _I64, _I64, _I64, _INT, _INT, _P],
+    "bit_matvec_split_launch": [_P, _P, _P, _I64, _I64, _I64, _INT, _INT, _P],
     "clause_match_launch": [_P] * 5 + [_I64] * 3 + [_INT, _INT, _P],
     "clause_tokens_launch": [_P] * 3 + [_I64] * 2 + [_INT, _P],
     "tier_match_launch": [_P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _INT, _P],
@@ -59,6 +62,7 @@ _SIGNATURES = {
                                    + [_F32, _F32, _INT, _INT, _I64, _P],
     "segment_sum_launch": [_P] * 5 + [_I64, _I64, _INT, _P],
     "segment_sum_stream_launch": [_P] * 5 + [_I64, _P],
+    "empty_launch": [_P],
 }
 
 _lib: ctypes.CDLL | None = None
@@ -156,9 +160,7 @@ def lib() -> ctypes.CDLL:
     return _lib
 
 
-def launch(name: str, device: torch.device, call) -> None:
-    """Run `call(lib, stream)` for kernel `name` on `device`'s current stream;
-    raise if the launch was refused, else count it."""
+def _call(name: str, device: torch.device, call) -> None:
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         handle = lib()
@@ -166,7 +168,19 @@ def launch(name: str, device: torch.device, call) -> None:
     if code != 0:
         msg = handle.rt_error_string(code).decode()
         raise RuntimeError(f"{name} kernel launch failed: {msg} (code {code})")
+
+
+def launch(name: str, device: torch.device, call) -> None:
+    """Run `call(lib, stream)` for kernel `name` on `device`'s current stream;
+    raise if the launch was refused, else count it."""
+    _call(name, device, call)
     LAUNCHES[name] += 1
+
+
+def launch_floor(device: torch.device) -> None:
+    """Launch an empty kernel the way `launch` launches a wrapper's (not
+    counted): what a one-row gain call costs at the least."""
+    _call("empty", device, lambda lib, stream: lib.empty_launch(stream))
 
 
 def require(t: torch.Tensor, name: str, dtype: torch.dtype, ndim: int,

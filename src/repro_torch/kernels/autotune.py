@@ -7,7 +7,9 @@ which lands here: the call shape is rounded to a power-of-two bucket
 ``"{op}|{path}|{bucket}"``, path being where the operands lie (`ops.path_of`:
 "cuda"). A hit passes the tile to the kernel's wrapper as a keyword: the
 warps per block of `coverage_gain`, `bit_matvec` and `partition_gain` (one
-row a warp, the counterpart of Pallas's `block_c`; 8 by default), the
+row a warp, the counterpart of Pallas's `block_c`; on the split route of the
+first two, which one-row buckets take, the warps of each CTA of a row's
+cluster; 8 by default), the
 queries per block of `clause_match`'s pass B (`qpb`, the counterpart of
 `block_b`; `clause_match.plan`'s pick by default). A miss keeps the
 defaults, so the cache is a pure speed overlay: a pick never changes a
