@@ -95,14 +95,17 @@ a non-zero exit):
      again. Each bucket's pick, its median device ms and the default's go
      into the kernel's record.
   4. the LM serving path, once the tiering operands are freed. Attention
-     has three kernels, routed by the operands: the wgmma kernel
-     (flash_prefill) for Sq > 1 in bf16 with D in (64, 128, 256) and
-     16-byte aligned operands, the tile kernel (flash_attention) for every
-     other Sq > 1 call (f32 among them), the split-KV kernel (flash_decode)
-     for one query position.
+     has four kernels, routed by the operands: the one-pass short kernel
+     (flash_attention_short) for Sq > 1, or any Sq at D < 8, up to 256 keys
+     at D <= 32, the wgmma kernel (flash_prefill) for Sq > 1 in bf16 with D
+     in (64, 128, 256) and 16-byte aligned operands, the tile kernel
+     (flash_attention) for every other Sq > 1 call (f32 among them), the
+     split-KV kernel (flash_decode) for one query position.
      a. flash_attention against its plain version on ragged shapes (f32 on
         the tile kernel, bf16 on flash_prefill where it takes the shape,
-        rows that see no key, kv_len 0, keys past kv_len poisoned with NaN);
+        short shapes on flash_attention_short, also against
+        ref.flash_attention_short on its tensor-core route, rows that see
+        no key, kv_len 0, keys past kv_len poisoned with NaN);
         flash_decode on ragged decode shapes (every head dim, G
         1-16, 0 to 5000 keys, B*Hkv 1-140 so the plan runs from 1 split to
         its most, 8-byte bf16 rows, no visible key); then both at gemma2-2b's
@@ -292,19 +295,22 @@ a non-zero exit):
      card work beside phase 2's CPU worker (after the tuning phase, phase
      3's operands resident), its training half after phase 6; every cut in
      RECSYS_REDUCED:
-     a. the tile kernel forward and the routed backward against their
-        plain versions on ragged f32 cases (the forward pads D 4 to 8 with
-        the scale 1/sqrt(4); S 1 on the tile kernel; a batch of 65537 in
-        two forward launches and one of the short backward; windows, a
+     a. the routed forward and backward against their plain versions on
+        ragged f32 cases (up to 256 keys the short forward, D 4 read in
+        place, one launch even at a batch of 65537, also against
+        `ref.flash_attention_short` on its tensor-core route; S 300 on the
+        tile kernel, D 4 padded to 8 with the scale 1/sqrt(4), one launch a
+        slice of 65535; S 1 at D 4 on the short forward; windows, a
         softcap, causal and not, G 1-2, D 4-32; the short backward also
         against `ref.flash_backward_short`, and S 300 on the CUDA-core
-        kernel), each call's launches counted, the autograd Function's
-        gradient == the direct calls; flash_backward_tc non-causal (bf16,
-        D 64 and 256, each lse from flash_prefill); then at BST's attention
-        (B 65536, S 21, H 8, D 4) and BERT4Rec's (B 1024, S 200, H 2, D 32)
-        timed beside their bounds, plain versions and SDPA's f32 forward
-        and backward, the short backward beside flash_backward.cu on the
-        same inputs;
+        kernel), each call's launches counted against the routes, the
+        autograd Function's gradient == the direct calls; flash_backward_tc
+        non-causal (bf16, D 64 and 256, each lse from flash_prefill); then
+        at BST's attention (B 65536, S 21, H 8, D 4) and BERT4Rec's (B
+        1024, S 200, H 2, D 32) timed beside their bounds, plain versions
+        and SDPA's f32 forward and backward, the short forward beside the
+        tile kernel on the same inputs (padded as its route pads them), the
+        short backward beside flash_backward.cu;
      b. each arch's SMOKE config, card == CPU: loss, every gradient leaf,
         every serve output (top-k ids in jax.lax.top_k's tie order); DeepFM
         failed at step 3 and resumed == an uninterrupted run, bit for bit;
@@ -313,7 +319,9 @@ a non-zero exit):
         registry's serve functions, two-tower's beside retrieval_cand_tiered
         (Tier-1 a random half); `top_k` at 10^6 scores beside torch.topk and
         a stable sort; then train_batch steps through make_train_step (ms a
-        step, examples/s, peak GiB), each arch's launches counted;
+        step, examples/s, peak GiB), each arch's launches counted; BST's
+        and BERT4Rec's logged beside their times before the short forward
+        (RECSYS_BEFORE);
      d. `build_tiered_index` at medium with optpes on the card; ψ of every
         query by clause_match == classify_queries; Theorem 3.1 on 256
         eligible queries (the Tier-1 top-100 == the whole index's); after
@@ -3493,6 +3501,22 @@ FA_CASES = [
     (1, 130, 200, 64, 8, 128, True, None, None, 70, 200),
     (3, 1, 700, 40, 8, 128, True, None, None, 650, 651),
     (2, 1, 500, 64, 8, 128, True, None, None, 499, None),
+    # flash_attention_short's shapes (up to 256 keys at D <= 32), both
+    # routes: BST's head (D 4) and D 3, 6 on the CUDA-core route, with a
+    # query offset, kv_len < Skv, Sq != Skv, one query row at D 4, rows that
+    # see no key (all, some) and kv_len 0; BERT4Rec's head and D 12, 32 on
+    # the tensor-core route, the same edges, G 3 and 4
+    (3, 21, 21, 8, 8, 4, False, None, None, 0, None),
+    (2, 13, 32, 6, 2, 4, True, 5, 30.0, 10, 25),
+    (1, 9, 20, 4, 4, 4, True, 3, None, 30, 17),
+    (2, 7, 7, 9, 3, 3, True, None, None, 0, 0),
+    (5, 1, 30, 8, 8, 4, True, None, None, 29, 30),
+    (2, 11, 24, 4, 2, 6, False, 4, None, 14, 20),
+    (2, 200, 200, 2, 2, 32, False, None, None, 0, None),
+    (1, 40, 256, 8, 2, 32, True, 60, 50.0, 200, 230),
+    (1, 24, 100, 4, 2, 32, True, 8, None, 80, 90),
+    (2, 33, 70, 12, 4, 12, True, None, None, 30, 64),
+    (1, 17, 17, 4, 1, 16, True, None, None, 0, 0),
 ]
 
 
@@ -3537,13 +3561,18 @@ def phase4_kernel_small(dev) -> dict:
     D in (64, 128, 256) flash_prefill, the rest the tile kernel; the
     outputs of flash_prefill and of the tile kernel are also held to their
     own plain versions `ref.flash_prefill` and `ref.flash_tile` at the same
-    tolerances. Errors are kept per kernel and dtype, for the dtypes that
-    kernel was given."""
+    tolerances, and those of flash_attention_short's tensor-core route to
+    `ref.flash_attention_short` (its CUDA-core route's plain version is
+    `ref.flash_attention`), and flash_attention_short on the same operands
+    as strided views (odd row strides, NaN in the padding) equal to its
+    contiguous call bit for bit. Errors are kept per kernel and dtype, for
+    the dtypes that kernel was given."""
     from repro_torch.kernels import _build, ops, ref
-    from repro_torch.kernels.flash_attention import route
+    from repro_torch.kernels.flash_attention import route, short_plan
     gen = torch.Generator(dev).manual_seed(13)
     worst = {k: {} for k in LM_KERNELS}
     want_launch = {k: 0 for k in LM_KERNELS}
+    views = 0
     before = dict(_build.LAUNCHES)
     for case in FA_CASES:
         b, sq, skv, hq, hkv, d, causal, window, cap, qo, kvl = case
@@ -3564,6 +3593,8 @@ def phase4_kernel_small(dev) -> dict:
                 wants.append(ref.flash_prefill(qq, kk, vv, **kw))
             if kn == "flash_attention":
                 wants.append(ref.flash_tile(qq, kk, vv, **kw))
+            if kn == "flash_attention_short" and not short_plan(sq, skv, d, hq, hkv, dt).tiny:
+                wants.append(ref.flash_attention_short(qq, kk, vv, **kw))
             check(got.dtype == dt and bool(torch.isfinite(got).all()),
                   f"flash_attention {dt} not finite at {case}")
             for want in wants:
@@ -3572,6 +3603,21 @@ def phase4_kernel_small(dev) -> dict:
                 name = "bf16" if dt == torch.bfloat16 else "f32"
                 worst[kn][name] = max(worst[kn].get(name, 0.0),
                                       float((got.float() - want.float()).abs().max()))
+            if kn == "flash_attention_short":
+                # the same operands as views with odd row strides (q padded,
+                # k and v one layer of a stacked cache), NaN in every padded
+                # column: the element-wise loads, the same bits
+                qv = torch.full((b, sq, hq, d + 3), float("nan"), device=dev, dtype=dt)
+                cache = torch.full((2, b, skv, hkv, d + 3), float("nan"), device=dev,
+                                   dtype=dt)
+                qv[..., :d] = qq
+                cache[1, ..., :d] = kk
+                cache[0, ..., :d] = vv
+                want_launch[kn] += 1
+                check(torch.equal(ops.flash_attention(qv[..., :d], cache[1, ..., :d],
+                                                      cache[0, ..., :d], **kw), got),
+                      f"{kn} {dt} {case}: strided views != the contiguous call")
+                views += 1
     torch.cuda.synchronize()
     launched = {k: _build.LAUNCHES[k] - before[k] for k in LM_KERNELS}
     if dev.type == "cuda":
@@ -3580,7 +3626,9 @@ def phase4_kernel_small(dev) -> dict:
     log(f"[phase 4] flash_attention == plain on {len(FA_CASES)} ragged cases x 2 "
         f"dtypes (rows with no visible key, kv_len 0, NaN past kv_len among them; "
         f"flash_prefill also against ref.flash_prefill, the tile kernel against "
-        f"ref.flash_tile): "
+        f"ref.flash_tile, flash_attention_short's tensor-core route against "
+        f"ref.flash_attention_short, and on {views} strided views == its contiguous "
+        f"call): "
         + "; ".join(f"{k} max abs err " + ", ".join(f"{n} {e:.3g}" for n, e in w.items())
                     for k, w in worst.items() if w)
         + f" (2e-4 f32, 2e-2 bf16); launches {launched}")
@@ -3663,7 +3711,8 @@ def phase4_decode_small(dev) -> dict:
     n = 2 * len(DECODE_CASES)
     launched = {k: _build.LAUNCHES[k] - before[k] for k in LM_KERNELS}
     if dev.type == "cuda":
-        check(launched == {"flash_attention": 0, "flash_decode": n, "flash_prefill": 0},
+        check(launched == {"flash_attention": 0, "flash_decode": n, "flash_prefill": 0,
+                           "flash_attention_short": 0},
               f"ragged decode launched {launched}, expected flash_decode {n}")
     log(f"[phase 4] flash_decode == plain on {len(DECODE_CASES)} ragged decode "
         f"cases x 2 dtypes (splits {splits}): worst "
@@ -3880,12 +3929,14 @@ def phase4_kernel_model(seed: int, dev) -> dict:
     torch.cuda.synchronize()
     routed = {kn: sorted(n for n in wk if n != "abs") for kn, wk in worst.items()}
     check(routed == {"flash_attention": ["f32"], "flash_prefill": ["bf16"],
-                     "flash_decode": ["bf16", "f32"]},
+                     "flash_decode": ["bf16", "f32"], "flash_attention_short": []},
           f"gemma2-2b shapes took the routes {routed}")
     where = {"flash_attention": f"prefill 8192 and {PREFILL_S}",
              "flash_prefill": f"prefill 8192 and {PREFILL_S}",
              "flash_decode": f"decode at cur_len 0/4095/4096/{DECODE_S - 1}"}
     for kn, wk in worst.items():
+        if not routed[kn]:
+            continue
         log(f"[phase 4] {kn} == plain at gemma2-2b shapes ({where[kn]}, window "
             f"{win} and global, softcap {cap}): worst error / limit "
             + ", ".join(f"{n} {wk[n]:.3g}" for n in routed[kn])
@@ -4274,9 +4325,11 @@ def phase4_kernel_lm(seed: int, dev, cfg, decode_b: int, tag: str = "[phase 4c]"
     torch.cuda.synchronize()
     routed = {kn: sorted(n for n in wk if n != "abs") for kn, wk in worst.items()}
     check(routed == {"flash_attention": ["f32"], "flash_prefill": ["bf16"],
-                     "flash_decode": ["bf16", "f32"]},
+                     "flash_decode": ["bf16", "f32"], "flash_attention_short": []},
           f"{cfg.name} shapes took the routes {routed}")
     for kn, wk in worst.items():
+        if not routed[kn]:
+            continue
         log(f"{tag} {kn} == plain at {cfg.name} shapes (Hq {hq}, Hkv {hkv}, "
             f"D {d}, windows {windows}; prefill {s}, decode B={decode_b} at "
             f"cur_len {curs}): worst error / limit "
@@ -5258,7 +5311,7 @@ def phase6_card_vs_cpu(seed: int, host, dev) -> dict:
     (the plain versions), f32, at full width and 2 layers over 256
     positions (internlm2-1.8b, gemma2-2b) and at kimi-k2's SMOKE config."""
     import importlib
-    from repro_torch.kernels import _build, flash_backward
+    from repro_torch.kernels import _build, flash_attention, flash_backward
     card = {}
     _build.reset_launches()
     for mod, n, s, smoke in TRAIN_CARD_CPU:
@@ -5267,10 +5320,13 @@ def phase6_card_vs_cpu(seed: int, host, dev) -> dict:
         q, k = (torch.empty((1, s, h, cfg.d_head), device="meta")
                 for h in (cfg.n_heads, cfg.n_kv_heads))
         kernel = flash_backward.route(q, k, k, None)   # f32: no lse
-        n0 = _build.LAUNCHES[kernel]
+        fwd = flash_attention.route(q, k, k)           # kimi-k2's SMOKE: the short forward
+        n0, f0 = _build.LAUNCHES[kernel], _build.LAUNCHES[fwd]
         card[mod] = train_grads(mod, n, s, smoke, seed, dev)
         check(_build.LAUNCHES[kernel] >= n0 + n,
               f"{mod}: the card's gradient did not launch {kernel}")
+        check(_build.LAUNCHES[fwd] >= f0 + n,
+              f"{mod}: the card's forward did not launch {fwd}")
     launches = {k: v for k, v in _build.LAUNCHES.items() if v}
     check(launches.get("flash_backward_tc", 0) == 0,
           f"6c's f32 gradients launched flash_backward_tc: {launches}")
@@ -5577,14 +5633,15 @@ def phase6(seed: int, host, dev=torch.device("cuda")) -> tuple[list[dict], dict,
 # -- phase 7: the recsys family --------------------------------------------------
 
 RECSYS_ARCHS = ("deepfm", "bst", "bert4rec", "two-tower-retrieval")
-# 7a: ragged f32 cases of the tile kernel's forward and the routed backward
-# (b, s, hq, hkv, d, window, causal, softcap): non-causal D 4 (the forward
-# pads it to 8) at odd S, G 1 and 2 and with a window; S 1 at D 4 (the tile
-# kernel, not flash_decode; forward only: with one key dq and dk are 0 but
-# for rounding) and S 2; a batch past the grid's z limit (two forward
-# launches, one of the short backward); D 8, 16 and 32; the short backward
-# causal, softcapped, windowed and at G 2 and 4; S 300 at D 32 and at D 4,
-# past SHORT_MAX_S, on the CUDA-core backward
+# 7a: ragged f32 cases of the routed forward and backward (b, s, hq, hkv,
+# d, window, causal, softcap): non-causal D 4 (read in place by the short
+# forward) at odd S, G 1 and 2 and with a window; S 1 at D 4 (the short
+# forward, not flash_decode; forward only: with one key dq and dk are 0 but
+# for rounding) and S 2; a batch past the grid's z limit (one launch of each
+# short kernel); D 8, 16 and 32; both short kernels causal, softcapped,
+# windowed and at G 2 and 4; S 300 at D 32 and at D 4, past SHORT_MAX_S, on
+# the tile kernel (D 4 padded to 8, a launch a slice) and the CUDA-core
+# backward
 RECSYS_CASES = [
     (3, 21, 8, 8, 4, None, False, None),
     (2, 1, 4, 2, 4, None, False, None),
@@ -5618,6 +5675,12 @@ RECSYS_RESTART = (4096, 5, 3)   # 7b: DeepFM SMOKE at this batch, steps, the fai
 TIERED_SCALE = "medium"         # 7d: the preset of build_tiered_index (phase 2's)
 TIERED_QUERIES = 256            # 7d: eligible queries held to Theorem 3.1
 TOPK_N = 10 ** 6                # 7c: top_k timed at this many scores
+# 7c: BST's and BERT4Rec's times before the short forward (commit 1a3f20a: the
+# tile kernel, D 4 padded by copies; tools/attention_short_probe.py --root on
+# it, NVIDIA H100 80GB HBM3 700 W): ms a step (host clock, median of 3 after
+# a warm-up), serve ms (CUDA events, median of 3), logged beside this run's times
+RECSYS_BEFORE = {"bst": {"step": 36.131, "serve_p99": 1.198, "retrieval_cand": 206.807},
+                 "bert4rec": {"step": 223.633, "serve_p99": 32.641}}
 RECSYS_REDUCED = {
     "weights": "random from --seed (the init functions' distributions), tables at "
                "the configs' full sizes",
@@ -5637,6 +5700,15 @@ RECSYS_REDUCED = {
     "restart": f"7b: DeepFM's SMOKE config at batch {RECSYS_RESTART[0]} (the "
                "embedding backward's sorting path), not at full width",
 }
+
+
+def recsys_attn_kernel(name: str, cfg) -> str:
+    """The kernel `flash_attention.route` gives an arch's attention blocks
+    (BST's over its history and target, BERT4Rec's over its sequence), f32."""
+    from repro_torch.kernels import flash_attention
+    s = cfg.seq_len + 1 if name == "bst" else cfg.seq_len
+    q = torch.empty((1, s, cfg.n_heads, cfg.embed_dim // cfg.n_heads), device="meta")
+    return flash_attention.route(q, q, q)
 
 
 def recsys_init(name: str):
@@ -5696,42 +5768,70 @@ def cuda_core_bwd(q, k, v, o, do, *, causal, window=None, softcap=None):
     return tuple(g[..., :d] for g in grads)
 
 
+def tile_forward(q, k, v, *, causal, window=None, softcap=None):
+    """csrc/flash_attention.cu (the tile kernel) on the operands as its route
+    took them before the short forward: a head dim below 8 zero-padded to 8
+    (the copies made here, outside the timed call) with the true D's scale,
+    the output sliced back; the yardstick of 7ac and 7ad. Returns the call."""
+    from repro_torch.kernels import flash_attention, flash_backward
+    b, s, _, d = q.shape
+    ops_ = flash_backward.pad_head_dim(q, k, v) if d < 8 else (q, k, v)
+    kw = dict(causal=causal, window=window, softcap=softcap, q_offset=0, kv_len=k.shape[1],
+              scale=1.0 / math.sqrt(d))
+    return lambda: flash_attention._tile(*ops_, **kw)[..., :d]
+
+
 def phase7_kernels(dev) -> dict:
-    """7a: the tile kernel forward and the routed backward against their
-    plain versions (`ref.flash_attention` held per query row to 2e-4 x its
-    rms, `row_error`; `ref.flash_attention_bwd` at BWD_RTOL, the short
-    kernel also `ref.flash_backward_short` at BWD_RTOL) on RECSYS_CASES,
-    each call's launches counted against `flash_backward.route` (a head dim
-    below 8 pads and launches the tile kernel, a batch past 65535 once a
-    slice; the short backward once a call, the CUDA-core one once a slice);
-    the autograd Function's non-causal gradient equal to the direct call;
-    flash_backward_tc non-causal on RECSYS_TC_CASES (BWD_TC_TOL against
-    ref.flash_backward_tc, BWD_BF16_TOL against the f32 plain version); then
-    each RECSYS_ATTN shape timed beside its bound, its plain version and
-    SDPA's f32 forward and backward, the short backward also beside
-    flash_backward.cu on the same inputs (`cuda_core_bwd`). Returns the
-    timed rows and the worst errors."""
-    from repro_torch.kernels import _build, flash_backward, flash_prefill, ops, ref
+    """7a: the routed forward and backward against their plain versions
+    (`ref.flash_attention` held per query row to 2e-4 x its rms,
+    `row_error`, the short forward's tensor-core route also
+    `ref.flash_attention_short`; `ref.flash_attention_bwd` at BWD_RTOL, the
+    short backward also `ref.flash_backward_short` at BWD_RTOL) on
+    RECSYS_CASES, each call's launches counted against `flash_attention.route`
+    and `flash_backward.route` (the short kernels once a call at any batch;
+    the tile kernel, a head dim below 8 padded, and the CUDA-core backward
+    once a slice of 65535); the autograd Function's non-causal gradient equal
+    to the direct call; flash_backward_tc non-causal on RECSYS_TC_CASES
+    (BWD_TC_TOL against ref.flash_backward_tc, BWD_BF16_TOL against the f32
+    plain version); then each RECSYS_ATTN shape timed beside its bound, its
+    plain version and SDPA's f32 forward and backward, the short forward
+    also beside the tile kernel (`tile_forward`) and the short backward
+    beside flash_backward.cu (`cuda_core_bwd`) on the same inputs. Returns
+    the timed rows and the worst errors."""
+    from repro_torch.kernels import (_build, flash_attention, flash_backward, flash_prefill,
+                                     ops, ref)
     gen = torch.Generator(dev).manual_seed(71)
 
     def draw(*shape, dtype=torch.float32):
         return torch.randn(shape, generator=gen, device=dev).to(dtype)
     worst = dict(fwd=0.0, bwd=0.0, abs=0.0, short=0.0, short_own=0.0, short_abs=0.0,
-                 cuda_core=0.0)
+                 cuda_core=0.0, fwd_short=0.0, fwd_short_own=0.0, fwd_short_abs=0.0,
+                 fwd_tile=0.0)
     for b, s, hq, hkv, d, window, causal, cap in RECSYS_CASES:
         what = f"b{b} s{s} hq{hq} hkv{hkv} d{d} window={window} causal={causal} cap={cap}"
         kw = dict(causal=causal, window=window, softcap=cap)
         q, k, v, do = draw(b, s, hq, d), draw(b, s, hkv, d), draw(b, s, hkv, d), \
             draw(b, s, hq, d)
         slices = -(-b // _build.MAX_GRID_Z)
+        fwd = flash_attention.route(q, k, v)
+        check(fwd == ("flash_attention_short" if s <= flash_attention.SHORT_MAX_S
+                      else "flash_attention"), f"7a {what}: the forward routed to {fwd}")
+        want_f = {fwd: 1 if fwd == "flash_attention_short" else slices}
         n0 = launch_counts()
         o = ops.flash_attention(q, k, v, **kw)
         torch.cuda.synchronize()
-        check(launched(n0) == {"flash_attention": slices},
-              f"7a {what}: launches {launched(n0)}, want {slices} of flash_attention")
-        r, e = row_error(o, ref.flash_attention(q, k, v, **kw), False,
-                         f"flash_attention {what}")
+        check(launched(n0) == want_f, f"7a {what}: launches {launched(n0)}, want {want_f}")
+        r, e = row_error(o, ref.flash_attention(q, k, v, **kw), False, f"{fwd} {what}")
         worst.update(fwd=max(worst["fwd"], r), abs=max(worst["abs"], e))
+        if fwd == "flash_attention_short":
+            worst.update(fwd_short=max(worst["fwd_short"], r),
+                         fwd_short_abs=max(worst["fwd_short_abs"], e))
+            if not flash_attention.short_plan(s, s, d, hq, hkv, q.dtype).tiny:
+                own, _ = row_error(o, ref.flash_attention_short(q, k, v, **kw), False,
+                                   f"{fwd} {what} (own plain)")
+                worst["fwd_short_own"] = max(worst["fwd_short_own"], own)
+        else:
+            worst["fwd_tile"] = max(worst["fwd_tile"], r)
         if s == 1:
             continue
         kernel = flash_backward.route(q, k, v, None)
@@ -5758,19 +5858,23 @@ def phase7_kernels(dev) -> dict:
             og = ops.flash_attention(qg, kg, vg, **kw)
             og.backward(do)
             torch.cuda.synchronize()
-            check(launched(n0) == {"flash_attention": 1, "flash_backward_short": 1},
+            check(launched(n0) == {"flash_attention_short": 1, "flash_backward_short": 1},
                   f"7a {what}: autograd launched {launched(n0)}")
             check(torch.equal(og.detach(), o) and all(
                 torch.equal(x.grad, y) for x, y in zip((qg, kg, vg), got)),
                 f"7a {what}: the autograd Function != the direct calls")
-    log(f"[phase 7a] flash_attention / the routed backward on {len(RECSYS_CASES)} ragged "
-        f"cases (D 4 padded to 8 in the forward, S 1 on the tile kernel, B 65537 in two "
-        f"forward slices and one short backward, S 300 on flash_backward.cu): worst "
-        f"{worst['fwd']:.3f} (forward, 2e-4 x row rms) / {worst['bwd']:.3f} (backward, "
-        f"rtol {BWD_RTOL}, atol {BWD_RTOL} x max) of the limit; flash_backward_short "
-        f"{worst['short']:.3f} against ref.flash_attention_bwd, {worst['short_own']:.3f} "
-        f"against ref.flash_backward_short; flash_backward.cu {worst['cuda_core']:.3f}; max "
-        f"abs err {worst['abs']:.3g}; autograd's non-causal gradient == the direct calls")
+    log(f"[phase 7a] the routed forward / backward on {len(RECSYS_CASES)} ragged cases "
+        f"(up to 256 keys the short forward, D 4 in place, S 1 at D 4, B 65537 in one "
+        f"launch of each short kernel; S 300 on the tile kernel, D 4 padded, and on "
+        f"flash_backward.cu): worst {worst['fwd']:.3f} (forward, 2e-4 x row rms) / "
+        f"{worst['bwd']:.3f} (backward, rtol {BWD_RTOL}, atol {BWD_RTOL} x max) of the "
+        f"limit; flash_attention_short {worst['fwd_short']:.3f} against "
+        f"ref.flash_attention, {worst['fwd_short_own']:.3f} against "
+        f"ref.flash_attention_short (tensor-core route); the tile kernel "
+        f"{worst['fwd_tile']:.3f}; flash_backward_short {worst['short']:.3f} against "
+        f"ref.flash_attention_bwd, {worst['short_own']:.3f} against "
+        f"ref.flash_backward_short; flash_backward.cu {worst['cuda_core']:.3f}; max abs "
+        f"err {worst['abs']:.3g}; autograd's non-causal gradient == the direct calls")
 
     tc = []
     for b, s, hq, hkv, d in RECSYS_TC_CASES:
@@ -5823,11 +5927,20 @@ def phase7_kernels(dev) -> dict:
         what = f"{arch} b{b} s{s} h{h} d{d} f32 non-causal"
         q, k, v, do = (draw(b, s, h, d) for _ in range(4))
 
+        fkern = flash_attention.route(q, k, v)
+        check(fkern == "flash_attention_short", f"7a {what}: the forward routes to {fkern}")
+        plan = flash_attention.short_plan(s, s, d, h, h, q.dtype)
+
         def fwd():
             return ops.flash_attention(q, k, v, causal=False)
         o = fwd()
-        r_f, e_f = row_error(o, ref.flash_attention(q, k, v, causal=False), False,
-                             f"flash_attention {what}")
+        plain_f = ref.flash_attention(q, k, v, causal=False)
+        r_f, e_f = row_error(o, plain_f, False, f"flash_attention_short {what}")
+        r_fown = r_f if plan.tiny else row_error(
+            o, ref.flash_attention_short(q, k, v, causal=False), False,
+            f"flash_attention_short {what} (own plain)")[0]
+        tile = tile_forward(q, k, v, causal=False)
+        r_t, e_t = row_error(tile(), plain_f, False, f"flash_attention (tile) {what}")
 
         def bwd():
             return flash_backward.flash_backward(q, k, v, o, do, causal=False)
@@ -5846,14 +5959,20 @@ def phase7_kernels(dev) -> dict:
         lib_f_err = float((lib["out"] - o).abs().max())
         check(lib_f_err <= 2e-2, f"7a {what}: SDPA's output differs by {lib_f_err:.3g}")
         f_bound, f_by = fa_bound(q, k, False, None, 0, s)
-        fwd_row = dict(shape=[b, s, h, h, d], dtype="f32", causal=False,
-                       ms=time_ms(fwd, 5),
+        fwd_ms, tile_ms = time_ms(fwd, 10), time_ms(tile, 5)
+        fwd_row = dict(shape=[b, s, h, h, d], dtype="f32", causal=False, kernel=fkern,
+                       plan=plan._asdict(), ms=fwd_ms,
                        plain_ms=time_ms(lambda: ref.flash_attention(q, k, v, causal=False), 2),
+                       plain_call="ref.flash_attention" + (
+                           "" if plan.tiny else "; own ref.flash_attention_short"),
                        bound_ms=f_bound, bound_by=f_by, library_ms=lib["fwd_ms"],
                        library_call="scaled_dot_product_attention, non-causal, f32, the "
                                     "backend PyTorch picks",
                        library_err=lib_f_err, max_abs_err=e_f, err_over_limit=r_f,
-                       padded_to=8 if d < 8 else None)
+                       err_over_limit_own=r_fown,
+                       tile=dict(ms=tile_ms, max_abs_err=e_t, err_over_limit=r_t,
+                                 padded_to=8 if d < 8 else None,
+                                 source=SOURCES["flash_attention"][0]))
         bwd_row = dict(shape=[b, s, h, h, d], dtype="f32", causal=False, kernel=kernel,
                        ms=time_ms(bwd, 10),
                        plain_ms=time_ms(lambda: ref.flash_backward_short(
@@ -5871,15 +5990,20 @@ def phase7_kernels(dev) -> dict:
                                       padded_to=8 if d < 8 else None,
                                       source=SOURCES["flash_backward"][0]))
         rows[arch] = dict(fwd=fwd_row, bwd=bwd_row)
-        for kn, r in (("flash_attention", fwd_row), (kernel, bwd_row)):
+        for kn, r in ((fkern, fwd_row), (kernel, bwd_row)):
             log(f"[phase 7a] {kn} {what}: {r['ms']:.3f} ms (bound {r['bound_ms']:.3f} ms "
                 f"by {r['bound_by']}, plain {r['plain_ms']:.1f} ms, SDPA "
                 f"{r['library_ms']:.3f} ms), max abs err {r['max_abs_err']:.3g}")
+        log(f"[phase 7a] the tile kernel {what} on the same inputs (padded as its route "
+            f"pads them): {tile_ms:.3f} ms ({r_t:.3f} of its limit); the short forward "
+            f"{fwd_ms:.3f} ms ({fwd_ms / tile_ms:.3f} of it, {f_bound / fwd_ms:.1%} of the "
+            f"bound; plan {plan}), {r_f:.3f} of the limit against ref.flash_attention, "
+            f"{r_fown:.3f} against its own plain version")
         log(f"[phase 7a] flash_backward.cu {what} on the same inputs: "
             f"{bwd_row['cuda_core']['ms']:.3f} ms ({r_cc:.3f} of its limit); the short "
             f"kernel {r_b:.3f} of the limit against ref.flash_attention_bwd, {r_own:.3f} "
             f"against ref.flash_backward_short (plain f32 {bwd_row['plain_f32_ms']:.1f} ms)")
-        del q, k, v, do, o, want, lib, got
+        del q, k, v, do, o, want, lib, got, tile, plain_f
         gc.collect()
         torch.cuda.empty_cache()
     return dict(rows=rows, tc=tc, worst=worst)
@@ -6043,6 +6167,7 @@ def phase7_card_vs_cpu(seed: int, dev) -> dict:
     within TRAIN_GRAD_TOL x its max + 1e-6, every serve output within
     RECSYS_SERVE_TOL and every top-k's ids equal (jax.lax.top_k's tie
     order); then the DeepFM restart."""
+    from repro_torch.configs import registry as R
     out = {}
     for name in RECSYS_ARCHS:
         n0 = launch_counts()
@@ -6070,10 +6195,12 @@ def phase7_card_vs_cpu(seed: int, dev) -> dict:
             if isinstance(want, tuple):
                 check(torch.equal(got[1], want[1]), f"7b {name} {cell}: top-k ids differ")
         if name in ("bst", "bert4rec"):
-            check(card_launch.get("flash_attention", 0) > 0
-                  and card_launch.get("flash_backward_short", 0) > 0,
-                  f"7b {name}: the card's step did not launch the attention kernels: "
-                  f"{card_launch}")
+            fwd = recsys_attn_kernel(name, R.get_arch(name).smoke()[0])
+            check(fwd == "flash_attention_short" and card_launch.get(fwd, 0) > 0
+                  and card_launch.get("flash_backward_short", 0) > 0
+                  and card_launch.get("flash_attention", 0) == 0,
+                  f"7b {name}: the card's step did not launch the attention kernels "
+                  f"(forward {fwd}): {card_launch}")
         out[name] = dict(loss=card["loss"], loss_cpu=cpu["loss"], grad_worst=worst,
                          worst_leaf=where, leaves=len(cpu["grads"]), launches=card_launch)
         log(f"[phase 7b] {name} SMOKE: loss card {card['loss']:.6f} / CPU "
@@ -6168,8 +6295,14 @@ def phase7_serve(seed: int, dev) -> dict:
             rec["retrieval_cand_ms"] = time_ms(lambda: cfn(params, cand), 3)
         rec["launches"] = {k: v for k, v in _build.LAUNCHES.items() if v}
         if name in ("bst", "bert4rec"):
-            check(set(rec["launches"]) == {"flash_attention"},
-                  f"7c {name}: serving launched {rec['launches']}")
+            fwd = recsys_attn_kernel(name, cfg)
+            check(fwd == "flash_attention_short" and set(rec["launches"]) == {fwd},
+                  f"7c {name}: serving launched {rec['launches']}, want {fwd} alone")
+        if name in RECSYS_BEFORE:
+            rec["before"] = {k: (v, rec[f"{k}_ms"]) for k, v in RECSYS_BEFORE[name].items()
+                             if f"{k}_ms" in rec}
+            log(f"[phase 7c] {name} serving before the short forward / now (ms): " + ", ".join(
+                f"{k} {a:.3f} / {b:.3f} ({b / a - 1:+.1%})" for k, (a, b) in rec["before"].items()))
         out[name] = rec
         tier = (f", retrieval_cand_tiered {rec['retrieval_cand_tiered_ms']:.3f} ms over "
                 f"{rec['tier1_bytes'] / 1e9:.2f} GB of Tier-1 rows (bound "
@@ -6220,14 +6353,21 @@ def phase7_train(seed: int, dev) -> dict:
         launches = {k: v for k, v in _build.LAUNCHES.items() if v}
         check(all(math.isfinite(x) for x in losses), f"7c {name}: losses {losses}")
         if name in ("bst", "bert4rec"):
-            check(launches.get("flash_attention", 0) >= RECSYS_TRAIN_STEPS
+            fwd = recsys_attn_kernel(name, cfg)
+            check(fwd == "flash_attention_short"
+                  and launches.get(fwd, 0) >= RECSYS_TRAIN_STEPS
                   and launches.get("flash_backward_short", 0) >= RECSYS_TRAIN_STEPS
-                  and set(launches) == {"flash_attention", "flash_backward_short"},
+                  and set(launches) == {fwd, "flash_backward_short"},
                   f"7c {name}: the steps' attention took other kernels: {launches}")
         ms = statistics.median(times[1:])
         out[name] = dict(batch=b, ms_per_step=ms, examples_per_s=b / ms * 1e3,
                          peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
                          losses=losses, launches=launches)
+        if name in RECSYS_BEFORE:
+            was = RECSYS_BEFORE[name]["step"]
+            out[name]["before_ms_per_step"] = was
+            log(f"[phase 7c] {name} train step before the short forward {was:.3f} ms, now "
+                f"{ms:.3f} ({ms / was - 1:+.1%})")
         log(f"[phase 7c] {name} train_batch at B {b}: {ms:.1f} ms a step "
             f"({out[name]['examples_per_s']:.0f} examples/s), peak "
             f"{out[name]['peak_gib']:.2f} GiB, losses {[round(x, 5) for x in losses]}; "
@@ -6337,16 +6477,18 @@ def phase7_wait(seed: int, dev=torch.device("cuda")) -> dict:
     return out
 
 
-def recsys_records(p7: dict, short_small: dict, p6_launches: dict) -> list[dict]:
-    """The kernels line's recsys rows: the tile kernel and the short
-    backward at BST's and BERT4Rec's attention (7a's timings; the short
-    kernel with flash_backward.cu's time on the same inputs), each with its
-    launches in that arch's 7c run (serve and train); the short kernel's
-    rows also carry 6a's and 7a's ragged errors and its launches in 6c;
+def recsys_records(p7: dict, short_small: dict, p6_launches: dict,
+                   fa_small: dict) -> list[dict]:
+    """The kernels line's recsys rows: the short forward and the short
+    backward at BST's and BERT4Rec's attention (7a's timings; the forward
+    with the tile kernel's time on the same inputs, the backward with
+    flash_backward.cu's), each with its launches in that arch's 7c run
+    (serve and train); the forward's rows also carry phase 4's and 7a's
+    ragged errors, the backward's 6a's and 7a's and its launches in 6c;
     flash_backward_tc's non-causal cases go into that kernel's own row."""
     rows = []
     for arch, r in p7["kernels"]["rows"].items():
-        for kn, key in (("flash_attention", "fwd"), ("flash_backward_short", "bwd")):
+        for kn, key in (("flash_attention_short", "fwd"), ("flash_backward_short", "bwd")):
             src, tpu = SOURCES[kn]
             n = p7["train"][arch]["launches"].get(kn, 0) + \
                 p7["serve"][arch]["launches"].get(kn, 0)
@@ -6354,8 +6496,14 @@ def recsys_records(p7: dict, short_small: dict, p6_launches: dict) -> list[dict]
                        replaces=tpu, launches=n,
                        launches_path=f"7c: {arch} at full width (serve_p99, "
                                      "retrieval_cand, train_batch steps)")
+            w = p7["kernels"]["worst"]
+            if key == "fwd":
+                row.update(max_abs_err=max(row["max_abs_err"], w["fwd_short_abs"],
+                                           *fa_small[kn].values()),
+                           ragged=dict(phase4_abs=fa_small[kn], phase7a_f32=w["fwd_short"],
+                                       phase7a_own=w["fwd_short_own"]),
+                           launches_6c=p6_launches.get(kn, 0))
             if key == "bwd":
-                w = p7["kernels"]["worst"]
                 row.update(replaces_note="the reference has no Pallas backward; this is the "
                                          "gradient of that kernel's function (jax.grad of "
                                          "chunked_attention)",
@@ -7535,6 +7683,8 @@ SOURCES = {
                      "src/repro/kernels/flash_attention.py:93"),
     "flash_prefill": ("src/repro_torch/kernels/csrc/flash_prefill.cu",
                       "src/repro/kernels/flash_attention.py:93"),
+    "flash_attention_short": ("src/repro_torch/kernels/csrc/flash_attention_short.cu",
+                              "src/repro/kernels/flash_attention.py:93"),
     # no Pallas backward exists: the gradient of that kernel's function
     "flash_backward": ("src/repro_torch/kernels/csrc/flash_backward.cu",
                        "src/repro/kernels/flash_attention.py:93"),
@@ -7549,9 +7699,9 @@ SOURCES = {
                            "src/repro/models/egnn.py:108"),
 }
 # the kernels of the tiering paths (phases 1-3); the LM phases check their own:
-# serving's three attention kernels (phase 4) and training's backward (phase 6),
-# and phase 8 EGNN's segment sum (GNN_KERNELS)
-LM_KERNELS = ("flash_attention", "flash_decode", "flash_prefill")
+# serving's four attention kernels (phase 4, the short one also phase 7) and
+# training's backward (phase 6), and phase 8 EGNN's segment sum (GNN_KERNELS)
+LM_KERNELS = ("flash_attention", "flash_decode", "flash_prefill", "flash_attention_short")
 TRAIN_KERNELS = ("flash_backward", "flash_backward_tc", "flash_backward_short")
 TIERING_KERNELS = tuple(k for k in SOURCES if k not in
                         LM_KERNELS + TRAIN_KERNELS + GNN_KERNELS + SPLIT_KERNELS)
@@ -7659,7 +7809,7 @@ def main() -> int:
     t = time.perf_counter()
     p7["train"] = phase7_train(args.seed, cuda)
     next(r for r in rec if r["name"] == "flash_backward_tc")["non_causal"] = p7["kernels"]["tc"]
-    rec += recsys_records(p7, short_small, p6_launches)
+    rec += recsys_records(p7, short_small, p6_launches, fa_small)
     log(f"[phase 7] train: {time.perf_counter() - t:.1f}s; recsys_reduced "
         f"{json.dumps(RECSYS_REDUCED)}")
     rec += gnn_record(p8)

@@ -33,7 +33,7 @@ FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 KERNELS = ("coverage_gain", "coverage_gain_split", "bit_matvec", "bit_matvec_split",
            "clause_match", "tier_match",
            "partition_gain", "sparse_gain", "flash_attention", "flash_decode",
-           "flash_prefill", "flash_backward", "flash_backward_tc",
+           "flash_prefill", "flash_attention_short", "flash_backward", "flash_backward_tc",
            "flash_backward_short", "segment_sum", "segment_sum_stream")
 LAUNCHES: dict[str, int] = {k: 0 for k in KERNELS}
 MAX_GRID_Z = 65535   # gridDim.z at most: a wrapper launches a larger batch in slices
@@ -55,6 +55,8 @@ _SIGNATURES = {
     "flash_decode_launch": [_P] * 5 + [_I64] * 16 + [_INT, _F32, _INT, _INT, _INT, _P],
     "flash_decode_ctas_per_sm": [_I64, _INT, _INT, _PINT],
     "flash_prefill_launch": [_P] * 5 + [_I64] * 17 + [_F32, _INT, _P],
+    "flash_attention_short_launch": [_P] * 4 + [_I64] * 6 + [_PI64] + [_I64] * 3
+                                    + [_F32, _F32, _INT, _INT, _INT] + [_I64] * 5 + [_P],
     "flash_backward_launch": [_P] * 10 + [_I64] * 6 + [_PI64, _I64, _I64, _F32,
                                                        _F32, _INT, _INT, _P],
     "flash_backward_tc_launch": [_P] * 10 + [_I64] * 5 + [_PI64, _I64, _F32, _INT, _P],

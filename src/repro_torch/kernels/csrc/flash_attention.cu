@@ -7,9 +7,10 @@
 //
 // Replaces the Pallas kernel repro/kernels/flash_attention.py::
 // _flash_attention_impl (body `_kernel`, f32 products) for every Sq > 1 call
-// that flash_prefill.cu does not take: f32 operands, head dims 8-32, views
-// that are not 16-byte aligned. One query position (the decode step) goes
-// to flash_decode.cu.
+// that neither flash_attention_short.cu (up to 256 keys at head dims up to
+// 32) nor flash_prefill.cu takes: f32 operands past 256 keys or at D 64 and
+// above, views that are not 16-byte aligned. One query position (the decode
+// step) goes to flash_decode.cu.
 //
 // Bound on an H100: 4*D FLOPs per unmasked (query, key) pair and query head.
 // An f32 product needs three TF32 products to keep f32's accuracy (below),

@@ -664,6 +664,62 @@ def flash_backward_short(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return dq, dk, dv
 
 
+def flash_attention_short(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                          causal: bool = True, window: int | None = None,
+                          softcap: float | None = None, q_offset: int = 0,
+                          kv_len: int | None = None) -> torch.Tensor:
+    """`flash_attention` as the tensor-core route of
+    `csrc/flash_attention_short.cu` computes it: per (batch, kv head) unit,
+    rows r = position * G + head against the first kv_len keys at once, in
+    base 2: q times 1/sqrt(D) * log2(e) before the product (times 1/sqrt(D)
+    alone under a softcap, whose cap * tanh(s / cap) is then times log2(e));
+    each row's max m over its visible keys, p = 2^(s - m) where visible and
+    0 elsewhere (a row that sees no key: p = 1 on every key below kv_len,
+    the uniform mean), l = sum p, o = P·V / l (0 at kv_len 0). Q·K^T and P·V
+    are each three TF32 products of operands split as the kernel splits
+    them (`split_tf32_raw`, `_split_product`), summed in f32; one rounding
+    to q's dtype. (The kernel takes its max from hi·hi products alone: a
+    shift of each row's scores, which the softmax cancels.) Works through
+    blocks of batch entries. (The kernel's CUDA-core route, D <= 8 and Skv
+    <= 32, multiplies in f32: its plain version is `flash_attention`.)"""
+    b, sq, hq, d = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    kv_len = skv if kv_len is None else int(kv_len)
+    g = hq // hkv
+    out = torch.zeros(q.shape, dtype=q.dtype, device=q.device)
+    if kv_len == 0 or out.numel() == 0:
+        return out
+    scale = torch.tensor(1.0 / math.sqrt(d), dtype=torch.float32)
+    log2e = torch.tensor(LOG2E, dtype=torch.float32)
+    qs = scale if softcap is not None else scale * log2e
+    q_pos = torch.arange(sq, device=q.device) + q_offset
+    k_pos = torch.arange(kv_len, device=q.device)
+    mask = torch.ones((sq, kv_len), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= q_pos[:, None] >= k_pos[None, :]
+    if window is not None:
+        mask &= q_pos[:, None] - k_pos[None, :] < window
+    mask = mask.repeat_interleave(g, dim=0)                   # [Sq * G, kv_len]
+    none = ~mask.any(-1, keepdim=True)
+    zero, one = torch.tensor(0.0, device=q.device), torch.tensor(1.0, device=q.device)
+    per = max(1, CHUNK_BYTES // max(1, hkv * sq * g * kv_len * 4 * 4))
+    for b0 in range(0, b, per):
+        n = min(per, b - b0)
+        qr = q[b0:b0 + n].float().reshape(n, sq, hkv, g, d).permute(0, 2, 1, 3, 4) \
+            .reshape(n, hkv, sq * g, d) * qs
+        kb, vb = (x[b0:b0 + n, :kv_len].float().permute(0, 2, 1, 3) for x in (k, v))
+        s = _split_product("bhrd,bhkd->bhrk", split_tf32_raw(qr), split_tf32_raw(kb))
+        if softcap is not None:
+            s = softcap * torch.tanh(s / softcap) * log2e
+        m = torch.where(mask, s, -torch.inf).amax(-1, keepdim=True)
+        p = torch.where(none, one, torch.where(mask, torch.exp2(s - m), zero))
+        o = _split_product("bhrk,bhkd->bhrd", split_tf32_raw(p), split_tf32_raw(vb)) \
+            / p.sum(-1, keepdim=True)
+        out[b0:b0 + n] = o.reshape(n, hkv, sq, g, d).permute(0, 2, 1, 3, 4) \
+            .reshape(n, sq, hq, d).to(q.dtype)
+    return out
+
+
 def segment_sum(rows: torch.Tensor, perm: torch.Tensor | None, offsets: torch.Tensor,
                 out0: torch.Tensor | None = None, bounds: torch.Tensor | None = None,
                 out: torch.Tensor | None = None) -> torch.Tensor:

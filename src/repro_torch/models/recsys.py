@@ -9,9 +9,12 @@ carries the reference's numbers across for the tests). Embedding tables
 go through `embedding.lookup` (row-sharded under a `"model"` mesh); the
 large-vocabulary softmaxes are in-batch (two-tower, with logQ correction)
 or sampled (BERT4Rec). The transformer blocks of BST and BERT4Rec attend
-non-causally through `common.attention`: the tile kernel on the card (BST's
-head dim 32 / 8 = 4 zero-padded to 8) and, under autograd, the CUDA-core
-backward. Every top-k is `common.top_k`, in `jax.lax.top_k`'s order.
+non-causally through `common.attention`: on the card their forward takes
+the one-pass short kernel `csrc/flash_attention_short.cu` (BST's head dim
+32 / 8 = 4 read in place on its CUDA-core route, BERT4Rec's D 32 on its
+TF32 tensor-core route; any batch one launch) and, under autograd, the
+gradient the short backward `csrc/flash_backward_short.cu`. Every top-k is
+`common.top_k`, in `jax.lax.top_k`'s order.
 
 Scoring one query against many candidates is independent per candidate
 (per row for BERT4Rec's catalog), so `bst_serve_candidates` and

@@ -121,14 +121,18 @@ def test_padding_d4_to_8_computes_the_unpadded_function(shape, causal):
 
 
 def test_d4_routes_to_the_tile_kernel():
-    """On the card a head dim below 8 takes the tile kernel at every Sq (the
-    decode and prefill kernels have no scale to pass); its gradient takes
-    the short-sequence kernel up to SHORT_MAX_S keys (BST's S 21) and the
-    CUDA-core kernel past it; the CPU takes the plain version at any D."""
+    """On the card a head dim below 8 takes the short forward up to
+    SHORT_MAX_S keys at every Sq (BST's S 21, and one query row), and the
+    tile kernel, padded, past it (the decode and prefill kernels have no
+    scale to pass); its gradient takes the short-sequence kernel up to
+    SHORT_MAX_S keys and the CUDA-core kernel past it; the CPU takes the
+    plain version at any D."""
     meta = torch.empty((2, 21, 8, 4), device="meta")
     one = torch.empty((2, 1, 8, 4), device="meta")
-    assert flash_attention.route(meta, meta, meta) == "flash_attention"
-    assert flash_attention.route(one, meta, meta) == "flash_attention"
+    assert flash_attention.route(meta, meta, meta) == "flash_attention_short"
+    assert flash_attention.route(one, meta, meta) == "flash_attention_short"
     assert flash_backward.route(meta, meta, meta, None) == "flash_backward_short"
     long = torch.empty((2, flash_backward.SHORT_MAX_S + 1, 8, 4), device="meta")
+    assert flash_attention.route(long, long, long) == "flash_attention"
+    assert flash_attention.route(one, long, long) == "flash_attention"
     assert flash_backward.route(long, long, long, None) == "flash_backward"

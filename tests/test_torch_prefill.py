@@ -182,7 +182,9 @@ def test_route_by_dtype_head_dim_and_sq():
         assert route(q[:, :1], k, k) == "flash_decode"
     for d in (8, 16, 32):
         q, k = _meta((1, 8, 4, d)), _meta((1, 8, 2, d))
-        assert route(q, k, k) == "flash_attention"
+        assert route(q, k, k) == "flash_attention_short"     # up to 256 keys
+        long = _meta((1, 257, 2, d))
+        assert route(_meta((1, 257, 4, d)), long, long) == "flash_attention"
     q, k = _meta((1, 8, 4, 64)), _meta((1, 8, 2, 64))
     assert route(q, k.float(), k) == "flash_attention"
 
