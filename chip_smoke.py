@@ -15,7 +15,11 @@ a non-zero exit):
      row; split: a row to a cluster of CTAs), at C 1, 2, 3, 7 and R 1, 3 on
      ragged widths up to 40003 words, rows and masks aligned and not: each
      == the plain version, the other route and a repeat (bit_matvec bit for
-     bit on weights k/256, allclose on random ones);
+     bit on weights k/256, allclose on random ones); partition_gain's two
+     routes the same way over ragged partitions (P 1, 2, 3, 8, 32 at random
+     cuts, 7 one-word partitions, cuts on, beside and inside its CTAs'
+     slices), every warps, and a forced split route over 2048 partitions
+     refused before any launch;
      partition_gain also against coverage_gain, sparse_gain on masks on
      both sides of its shared-memory limit; clause_match on empty
      clauses, clauses of 4 and of 5+ tokens (its compact table's
@@ -60,7 +64,11 @@ a non-zero exit):
         isk2 (3 x at most 128), 128 selections each: time per selection
         (ISK: per outer iteration), exact evaluations and launches beside
         greedy's; one exact evaluation timed alone; lazy == greedy's prefix
-        up to f32 ties;
+        up to f32 ties; then lazy under b's 8 caps (stopped at 15 s): ==
+        the per-shard greedy's prefix up to f32 ties, fills <= caps, its
+        evaluations on partition_gain's split route, and one evaluation
+        timed alone, which must make one bit_matvec and one partition_gain
+        launch and one host synchronisation;
      e. the telemetry plane: the kernel profiler's measured rows for one
         greedy step and one serve batch (each at most 1.05 of the H100's
         3.35 TB/s), `kernel_words_scanned_total` equal to the ops' word
@@ -80,7 +88,10 @@ a non-zero exit):
      launch floor (an empty kernel through the wrappers' launch path), the
      plain version and the bound; and the sweep of both routes' device ms
      at C = 1 .. 2048 and 625 to 32768 words, beside the route the shape
-     picks (`tiles.gain_route`).
+     picks (`tiles.gain_route`); (5b) one-row partition_gain the same way
+     at lazy's state when its run under the caps stopped, over the caps'
+     8 partitions, and its sweep at C = 1 .. 2048, 625 to 32768 words and
+     1, 2, 8 and 32 partitions.
   T. the tuning phase, after phase 1's production timings and before phase
      5 (the autotuner's cache is off everywhere else: the script sets
      REPRO_TORCH_KERNEL_TILES=off first): `autotune.search` over
@@ -424,15 +435,23 @@ MAIN_KERNELS = ("coverage_gain", "bit_matvec", "clause_match", "tier_match")
 # and ingest's offers (5e-b) at production widths, not phase 3's greedy and
 # serving, nor any call at `medium`'s widths
 SPLIT_KERNELS = ("coverage_gain_split", "bit_matvec_split")
-ONE_ROW_ROWS = 64              # 1b, 2b: the clauses lazy's evaluation is timed on
+# partition_gain's split route: its path is lazy's exact evaluations under
+# phase 3's 8 shard caps (3d), not phase 3's per-shard greedy and optpes
+CAPS_SPLIT_KERNELS = ("partition_gain_split",)
+ONE_ROW_ROWS = 64              # 1b, 2b, 5b: the clauses lazy's evaluation is timed on
 ONE_ROW_SEED = 33              # ... drawn from this seed
 # a path's kernel is launched when either of its routes is
 ROUTES_OF = {"coverage_gain": ("coverage_gain", "coverage_gain_split"),
-             "bit_matvec": ("bit_matvec", "bit_matvec_split")}
+             "bit_matvec": ("bit_matvec", "bit_matvec_split"),
+             "partition_gain": ("partition_gain", "partition_gain_split")}
 SWEEP_C = tuple(1 << k for k in range(12))   # 1b, 2b: the route sweep, C = 1 .. 2048
 # ... at the production width, `medium`'s (doc, query words) and either
 # side of each kernel's least split width
-SWEEP_W = {"coverage_gain": (32768, 625, 4096, 8192), "bit_matvec": (32768, 849, 1024, 2048)}
+SWEEP_W = {"coverage_gain": (32768, 625, 4096, 8192), "bit_matvec": (32768, 849, 1024, 2048),
+           "partition_gain": (32768, 625, 4096, 8192)}
+SWEEP_P = (1, 2, 8, 32)        # 5b: partition_gain's sweep, P even partitions of the row
+# phase 1's one-row partition_gain: partition counts of its ragged bounds
+PARTS_SMALL = (1, 2, 3, 8, 32)
 HOST_THREADS = 6               # torch threads of phase 2's CPU half (a worker
                                # beside the card's phases, on 8 cores)
 # phase 5's solves and refits at `medium`: at most 64 selections
@@ -475,6 +494,8 @@ REDUCED = {
                        "s (114 s saved); the card's wait for it after phase 8 "
                        "fell from 152.5 s to 3.4 s after phase 9",
     "lazy": "stops at 30 s of wall clock (max_steps=128)",
+    "lazy_caps": "phase 3d's lazy under the 8 shard caps stops at 15 s of wall "
+                 "clock (max_steps=128)",
     "stream": "phase 5b: 6 rotate windows of 4096 queries, refits of at most "
               "128 selections, 3 windows apart; 5a (medium): 6 windows of "
               "512 (8 until the chip script was cut to fit its limit: 5a "
@@ -751,6 +772,7 @@ def phase1_small(device) -> float:
                     aa, mask, bounds, warps=warps), want[2]),
                     f"partition_gain {c}x{w} over {bounds} warps {warps}")
     worst = max(worst, one_row_small(gen, device, misaligned))
+    partition_one_row_small(gen, device, misaligned)
     for name, q, cl in itertools.islice(clause_cases(gen, device), 6):
         want = ref.clause_match(q, cl)
         for qpb in clause_match.QPB:
@@ -882,6 +904,107 @@ def one_row_small(gen, device, misaligned) -> float:
                                       want[1]),
                       f"split route {c}x{w} warps {warps}")
     return worst
+
+
+def small_bounds(gen, w: int) -> list[tuple[int, ...]]:
+    """Partitions of a `w`-word row for phase 1: P in PARTS_SMALL (as far as
+    `w` allows) at random cuts, mostly off multiples of 4; 7 one-word
+    partitions then the rest; and, where a row takes more than one CTA,
+    cuts on each CTA slice's edges and a word either side of them (one-word
+    partitions across an edge), and cuts inside each slice."""
+    from repro_torch.kernels.tiles import split_ctas
+    out = [(0, w)]
+    for p in PARTS_SMALL[1:]:
+        if p <= w:
+            cuts = (torch.randperm(w - 1, generator=gen, device=gen.device)[:p - 1] + 1).sort()[0]
+            out.append((0, *cuts.tolist(), w))
+    if w > 8:
+        out.append((0, 1, 2, 3, 4, 5, 6, 7, w))
+    ctas = split_ctas(w)
+    step = -(-w // (4 * ctas)) * 4                    # csrc/common.cuh split_slice
+    edges = [k * step for k in range(1, ctas) if k * step < w]
+    if edges:
+        out.append(tuple(sorted({0, w, *(e + d for e in edges for d in (-1, 0, 1)
+                                          if 0 < e + d < w)})))
+        out.append(tuple(sorted({0, w, *(min(w - 1, e - step // 2 + 1) for e in edges)})))
+    return out
+
+
+def partition_one_row_small(gen, device, misaligned) -> None:
+    """Both routes of partition_gain, forced, at C 1, 2, 3, 7 over the
+    ragged widths of `one_row_small` (1 to 40003 words), rows and masks
+    aligned and 4 bytes off, over `small_bounds`' partitions: each against
+    the plain version and the other route, and the split route against a
+    repeat, bit for bit. Then every `warps` of the autotuner's space on both
+    routes, at a few cuts and at `SPLIT_MAX_PARTS` partitions (the split
+    route's most shared memory), and a forced split route over more than `SPLIT_MAX_PARTS`
+    partitions refused before any launch (the shape's own route takes it)."""
+    from repro_torch.kernels import _build, ref
+    from repro_torch.kernels.partition_gain import partition_gain
+    from repro_torch.kernels.tiles import SPLIT_MAX_PARTS, SPLIT_MIN_WORDS, WARPS, split_ctas
+    cases = 0
+    for w in (1, 3, 5, 625, 849, 1029, 4097, 9001, 30001, 32768, 40003):
+        bounds_all = small_bounds(gen, w)
+        for c in (1, 2, 3, 7):
+            a = rand_words(gen, (c, w), device)
+            a[0] = -1                                # an all-ones row
+            mask = rand_words(gen, (w,), device)
+            for bounds in bounds_all:
+                what = (f"partition_gain split route {c}x{w} ({split_ctas(w)} CTAs a row) "
+                        f"over {len(bounds) - 1} partitions {bounds[:6]}...")
+                for aa, mm in ((a, mask), (misaligned(a), mask), (a, misaligned(mask)),
+                               (misaligned(a), misaligned(mask))):
+                    want = ref.partition_gain(aa, mm, bounds)
+                    got = partition_gain(aa, mm, bounds, route="split")
+                    check(torch.equal(got, want)
+                          and torch.equal(partition_gain(aa, mm, bounds, route="warp"), want)
+                          and torch.equal(partition_gain(aa, mm, bounds, route="split"), got),
+                          what)
+                    cases += 1
+    for c, w, k in ((1, 849, 3), (3, 625, 4), (1, 32768, 3), (7, 9001, -1)):
+        bounds = small_bounds(gen, w)[k]
+        a = rand_words(gen, (c, w), device)
+        mask = rand_words(gen, (w,), device)
+        want = ref.partition_gain(a, mask, bounds)
+        for warps in WARPS:
+            for aa in (a, misaligned(a)):
+                check(all(torch.equal(partition_gain(aa, mask, bounds, warps=warps, route=r),
+                                      want) for r in ("warp", "split")),
+                      f"partition_gain {c}x{w} over {len(bounds) - 1} partitions warps {warps}")
+    # the most partitions the split route takes, at every warps: its counts
+    # then fill the most dynamic shared memory, beside 32 KiB of static
+    for c, w in ((1, SPLIT_MAX_PARTS), (1, 4097), (3, 32768)):
+        cuts = (torch.randperm(w - 1, generator=gen, device=gen.device)[:SPLIT_MAX_PARTS - 1]
+                + 1).sort()[0]
+        bounds = (0, *cuts.tolist(), w)
+        a = rand_words(gen, (c, w), device)
+        mask = rand_words(gen, (w,), device)
+        want = ref.partition_gain(a, mask, bounds)
+        for warps in WARPS:
+            check(torch.equal(partition_gain(a, mask, bounds, warps=warps, route="split"), want)
+                  and torch.equal(partition_gain(a, mask, bounds, warps=warps, route="warp"),
+                                  want),
+                  f"partition_gain {c}x{w} over {SPLIT_MAX_PARTS} partitions warps {warps}")
+    p = 2 * SPLIT_MAX_PARTS
+    w = max(p, SPLIT_MIN_WORDS["partition_gain"])   # wide enough for the split route
+    a = rand_words(gen, (1, w), device)
+    mask = rand_words(gen, (w,), device)
+    bounds = tuple(k * w // p for k in range(p + 1))
+    n0 = dict(_build.LAUNCHES)
+    try:
+        partition_gain(a, mask, bounds, route="split")
+        refused = False
+    except ValueError:
+        refused = True
+    check(refused and _build.LAUNCHES == n0,
+          f"a split route over {p} partitions was not refused before any launch")
+    check(torch.equal(partition_gain(a, mask, bounds), ref.partition_gain(a, mask, bounds))
+          and _build.LAUNCHES["partition_gain"] == n0["partition_gain"] + 1,
+          f"partition_gain over {p} partitions did not take the warp route")
+    log(f"[phase 1] partition_gain's routes forced on {cases} one-row cases (C 1-7, W 1-40003, "
+        f"P {PARTS_SMALL} ragged, one-word, on and inside CTA edges), every warps at a few "
+        f"cuts and at P {SPLIT_MAX_PARTS}, and P {p} refused on the split route: equal bit "
+        f"for bit")
 
 
 # -- phase 2: the main path through the normal entry points (medium) ----------
@@ -1739,6 +1862,94 @@ def phase3_solvers(p3: dict) -> dict:
         f"), == greedy's first {n_sel} up to f32 ties; {out['lazy_ms_a_selection']:.3f} "
         f"ms a lazy selection, {out['lazy_ms_an_eval']:.4f} ms an exact evaluation "
         f"within lazy's run (its heap loop included)")
+    return out
+
+
+LAZY_CAPS_LIMIT_S = 15.0       # 3d: lazy under the 8 shard caps (REDUCED["lazy_caps"])
+
+
+def phase3_lazy_caps(p3: dict) -> dict:
+    """3d under per-shard caps: lazy (the paper's Algorithm 1) under
+    `phase3_shards`' 8 binding caps at the production shapes, its launches
+    counted from 0: its order == the per-shard greedy's prefix up to f32
+    ties, its fills <= the caps, its evaluations on `partition_gain`'s split
+    route. Then one exact evaluation under the caps timed alone on
+    ONE_ROW_ROWS clauses from ONE_ROW_SEED at lazy's final state, and the
+    launches and host synchronisations one evaluation makes: one
+    `bit_matvec`, one `partition_gain` and one read."""
+    import warnings
+
+    from repro_torch.core import registry
+    from repro_torch.core.config import SolveConfig
+    from repro_torch.core.lazy_greedy import _exact_gains_one
+    from repro_torch.kernels import _build
+    problem, sh = p3["problem"], p3["shards"]
+    cons = sh["constraint"]
+    caps = cons.caps.astype(np.float64)
+    _build.reset_launches()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    res = registry.solve(problem, SolveConfig(
+        budget=cons.total, solver="lazy", constraint=cons, max_steps=128,
+        time_limit=LAZY_CAPS_LIMIT_S))
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t
+    launches = {k: v for k, v in _build.LAUNCHES.items() if v}
+    check(all(ran(launches, k) for k in ("bit_matvec", "partition_gain"))
+          and all(launches.get(k, 0) > 0 for k in CAPS_SPLIT_KERNELS),
+          f"lazy under the caps never took partition_gain's split route: {launches}")
+    check(np.all(res.extra["g_part"] <= caps), "lazy overfills a shard (production shapes)")
+    greedy = sh["greedy"]
+    ordered_or_tied(problem, res.order, greedy.order[:len(res.order)],
+                    "lazy vs greedy under the caps (production shapes)")
+    st = res.state
+    x = problem.uncovered_weights(st.covered_q)
+    js = torch.randperm(problem.n_clauses, generator=torch.Generator().manual_seed(
+        ONE_ROW_SEED))[:ONE_ROW_ROWS].tolist()
+    _exact_gains_one(problem, cons, x, st.covered_d, js[0])        # warm-up
+    one = []
+    for j in js:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        _exact_gains_one(problem, cons, x, st.covered_d, j)
+        one.append((time.perf_counter() - t) * 1e3)
+    # one evaluation's kernel launches (by the wrappers' counts) and host
+    # synchronisations (PyTorch's sync debug mode warns at each)
+    _build.reset_launches()
+    torch.cuda.synchronize()
+    prev = torch.cuda.get_sync_debug_mode()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            _exact_gains_one(problem, cons, x, st.covered_d, js[1])
+        finally:
+            torch.cuda.set_sync_debug_mode(prev)
+    where = [f"{Path(w.filename).name}:{w.lineno}" for w in caught
+             if "synchronizing CUDA operation" in str(w.message)]
+    syncs = len(where)
+    one_launches = {k: v for k, v in _build.LAUNCHES.items() if v}
+    check(sum(one_launches.values()) == 2
+          and all(sum(one_launches.get(n, 0) for n in ROUTES_OF[k]) == 1
+                  for k in ("bit_matvec", "partition_gain")) and syncs == 1,
+          f"an exact evaluation under the caps made {one_launches} and {syncs} host "
+          f"synchronisations at {where} (one bit_matvec, one partition_gain and one read "
+          f"expected); warnings {[str(w.message)[:120] for w in caught]}")
+    n_sel = len(res.order)
+    evals = (res.n_exact_evals - 2 * problem.n_clauses) // 2
+    out = dict(result=res, s=dt, launches=launches, selections=n_sel, evals=evals,
+               ms_a_selection=dt * 1e3 / max(1, n_sel), ms_an_eval=dt * 1e3 / max(1, evals),
+               exact_eval_ms=float(np.median(one)), exact_eval_max_ms=float(np.max(one)),
+               eval_launches=one_launches, eval_syncs=syncs,
+               fills=res.extra["g_part"].tolist())
+    log(f"[phase 3d] lazy under the 8 shard caps: {res.summary()} in {dt:.2f}s "
+        f"({'its ' + str(LAZY_CAPS_LIMIT_S) + ' s limit' if n_sel < 128 else 'all 128'}); "
+        f"== the per-shard greedy's first {n_sel} up to f32 ties; fills {out['fills']} <= "
+        f"caps {caps.tolist()}; {out['ms_a_selection']:.3f} ms a selection, {evals} exact "
+        f"evaluations, {out['ms_an_eval']:.4f} ms an evaluation within the run; launches "
+        f"{launches}; one evaluation timed alone: median {out['exact_eval_ms']:.4f} ms, max "
+        f"{out['exact_eval_max_ms']:.4f} ms over {len(js)} clauses, launches "
+        f"{one_launches}, {syncs} host synchronisation")
     return out
 
 
@@ -3113,6 +3324,103 @@ def one_row_scale(p3: dict, st) -> list[dict]:
         rec["split_max_tasks"] = SPLIT_MAX_TASKS[kernel]
         rec["split_min_words"] = SPLIT_MIN_WORDS[kernel]
     return recs
+
+
+def partition_one_row_scale(p3: dict, lz: dict) -> dict:
+    """5b: one-row partition_gain at phase 3's operands, the 8 caps' bounds
+    and lazy's state when its 3d run under the caps stopped, on
+    ONE_ROW_ROWS clauses from ONE_ROW_SEED (that run's unit of work): each
+    route against the plain version and the other, and a repeat, bit for
+    bit; then both timed in turns (warp, split, split, warp; CUDA-event ms
+    a call with the wrapper's host work in it, device ms from a CUDA graph
+    of the calls), beside the launch floor, the plain version and the byte
+    bound (the row, the mask, the offsets and the counts, once). Then the
+    sweep of both routes' device ms at C = SWEEP_C over the phase-3 doc rows
+    (the first C, the densest) cut to SWEEP_W["partition_gain"], each cut
+    into SWEEP_P even partitions, and the route `tiles.gain_route` picks."""
+    from repro_torch.core.constraint import partition_bounds
+    from repro_torch.kernels import _build, ops, ref
+    from repro_torch.kernels.partition_gain import partition_gain
+    from repro_torch.kernels.tiles import (SPLIT_MAX_PARTS, SPLIT_MAX_TASKS, SPLIT_MIN_WORDS,
+                                           gain_route, split_ctas)
+    problem = p3["problem"]
+    ad = problem.clause_doc_bits
+    bounds = p3["shards"]["constraint"].bounds
+    mask = lz["result"].state.covered_d
+    dev, (_, w), p = ad.device, ad.shape, len(bounds) - 1
+    js = torch.randperm(problem.n_clauses, generator=torch.Generator().manual_seed(
+        ONE_ROW_SEED))[:ONE_ROW_ROWS].tolist()
+    idx = torch.tensor(js, device=dev)
+    rows = [ad[j:j + 1] for j in js]
+    split = torch.cat([partition_gain(r, mask, bounds, route="split") for r in rows])
+    warp = torch.cat([partition_gain(r, mask, bounds, route="warp") for r in rows])
+    want = ref.partition_gain(ad[idx], mask, bounds)
+    check(torch.equal(split, want) and torch.equal(warp, want)
+          and torch.equal(split, torch.cat([partition_gain(r, mask, bounds, route="split")
+                                            for r in rows])),
+          "partition_gain_split != the warp route, the plain version or a repeat at "
+          "phase 3's state under the caps")
+    err = int((split - want).abs().max())
+
+    def floor():
+        _build.launch_floor(dev)
+    floor_ms, floor_dev = time_ms(floor, len(js)), graph_ms(floor, len(js))
+    t = {"warp": [], "split": [], "warp_dev": [], "split_dev": []}
+    calls = {r: [lambda a_=a_, r=r: partition_gain(a_, mask, bounds, route=r) for a_ in rows]
+             for r in ("warp", "split")}
+    for r in ("warp", "split", "split", "warp"):
+        t[r].append(time_ms(cycled(calls[r]), len(js)))
+        t[r + "_dev"].append(graph_ms(cycled(calls[r]), len(js)))
+    b_ms, b_by = bound(8 * w + 8 * (p + 1) + 4 * p)
+    nnz = ops.coverage_gain(ad[idx], torch.zeros_like(ad[0]))
+    rec = dict(name="partition_gain_split", shape=[1, w, p], rows=len(js), ctas=split_ctas(w),
+               bounds=list(bounds), max_abs_err=err,
+               ms=statistics.fmean(t["split"]), device_ms=statistics.fmean(t["split_dev"]),
+               warp_ms=statistics.fmean(t["warp"]),
+               warp_device_ms=statistics.fmean(t["warp_dev"]), runs=t,
+               floor_ms=floor_ms, floor_device_ms=floor_dev,
+               plain_ms=time_ms(lambda: ref.partition_gain(rows[0], mask, bounds), 2),
+               bound_ms=b_ms, bound_by=b_by,
+               nnz_mean=float(nnz.double().mean()), nnz_max=int(nnz.max()),
+               split_max_tasks=SPLIT_MAX_TASKS["partition_gain"],
+               split_min_words=SPLIT_MIN_WORDS["partition_gain"],
+               split_max_parts=SPLIT_MAX_PARTS)
+    log(f"[phase 1] at scale partition_gain_split one row [1, {w}] over {p} partitions, "
+        f"{len(js)} clauses at lazy's state under the caps ({rec['ctas']} CTAs a row): split "
+        f"{rec['ms']:.4f} ms (device {rec['device_ms']:.4f}), warp {rec['warp_ms']:.4f} ms "
+        f"(device {rec['warp_device_ms']:.4f}) in the same call; launch floor {floor_ms:.4f} "
+        f"ms (device {floor_dev:.4f}); bound {b_ms:.6f} ms by {b_by}; plain "
+        f"{rec['plain_ms']:.3f} ms; doc nnz mean {rec['nnz_mean']:.1f} max {rec['nnz_max']}; "
+        f"== the warp route and the plain version bit for bit")
+    sweep = []
+    for sw in SWEEP_W["partition_gain"]:
+        m_w = mask[:sw].contiguous()
+        for sp in SWEEP_P:
+            b_w = partition_bounds(sw * 32, sp)
+            for c in SWEEP_C:
+                a_c = ad[:c, :sw].contiguous()
+                tt = {"warp": [], "split": []}
+                for r in ("warp", "split", "split", "warp"):
+                    tt[r].append(graph_ms(lambda r=r: partition_gain(a_c, m_w, b_w, route=r)))
+                warp_ms, split_ms = statistics.fmean(tt["warp"]), statistics.fmean(tt["split"])
+                sweep.append(dict(c=c, w=sw, p=len(b_w) - 1, warp_ms=warp_ms, split_ms=split_ms,
+                                  faster="split" if split_ms < warp_ms else "warp",
+                                  picked=gain_route("partition_gain", c, sw, len(b_w) - 1)))
+            row = [e for e in sweep if (e["w"], e["p"]) == (sw, len(b_w) - 1)]
+            log(f"[phase 1] route sweep partition_gain W={sw} P={len(b_w) - 1}, device ms "
+                f"warp/split (picked): " + ", ".join(
+                    f"C={e['c']} {e['warp_ms']:.4f}/{e['split_ms']:.4f} ({e['picked']})"
+                    for e in row))
+    slower = [e for e in sweep if e["picked"] != e["faster"]]
+    log(f"[phase 1] route sweep: partition_gain's split route up to "
+        f"{SPLIT_MAX_TASKS['partition_gain']} rows from {SPLIT_MIN_WORDS['partition_gain']} "
+        f"words a row; {len(slower)} of "
+        f"{len(sweep)} shapes on the slower route: "
+        + ", ".join(f"C={e['c']} W={e['w']} P={e['p']} {e['picked']} "
+                    f"{e[e['picked'] + '_ms']:.4f} vs {e[e['faster'] + '_ms']:.4f}"
+                    for e in slower))
+    rec["sweep"] = sweep
+    return rec
 
 
 def medium_routes(problem) -> dict:
@@ -7675,6 +7983,8 @@ SOURCES = {
                    "src/repro/kernels/fused_match.py:80"),
     "partition_gain": ("src/repro_torch/kernels/csrc/partition_gain.cu",
                        "src/repro/kernels/partition_gain.py:57"),
+    "partition_gain_split": ("src/repro_torch/kernels/csrc/partition_gain.cu",
+                             "src/repro/kernels/partition_gain.py:57"),
     "sparse_gain": ("src/repro_torch/kernels/csrc/sparse_gain.cu",
                     "src/repro/kernels/sparse_gain.py:41"),
     "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -7704,7 +8014,8 @@ SOURCES = {
 LM_KERNELS = ("flash_attention", "flash_decode", "flash_prefill", "flash_attention_short")
 TRAIN_KERNELS = ("flash_backward", "flash_backward_tc", "flash_backward_short")
 TIERING_KERNELS = tuple(k for k in SOURCES if k not in
-                        LM_KERNELS + TRAIN_KERNELS + GNN_KERNELS + SPLIT_KERNELS)
+                        LM_KERNELS + TRAIN_KERNELS + GNN_KERNELS + SPLIT_KERNELS
+                        + CAPS_SPLIT_KERNELS)
 
 
 def ptxas_lines(build_log: str) -> list[str]:
@@ -7838,6 +8149,7 @@ def production_phases(seed: int):
     log(f"[phase 3] launches {dict(counts)}; {time.perf_counter() - t:.1f}s")
     t = time.perf_counter()
     solvers = phase3_solvers(p3)
+    solvers["lazy_caps"] = phase3_lazy_caps(p3)
     telemetry = phase3_telemetry(p3)
     log(f"[phase 3] other solvers and telemetry: {time.perf_counter() - t:.1f}s")
 
@@ -7845,6 +8157,7 @@ def production_phases(seed: int):
     plane = obs.set_enabled(False)     # kernel timings as before the plane
     rec = phase1_scale(p3)
     rec += one_row_scale(p3, solvers["lazy"]["result"].state)
+    rec.append(partition_one_row_scale(p3, solvers["lazy_caps"]))
     obs.set_enabled(plane)
     t_scale = time.perf_counter() - t
     t = time.perf_counter()
@@ -7929,6 +8242,10 @@ def tiering_phases(seed: int) -> tuple[list[dict], dict, dict, dict]:
                      launches_path="phase 3d lazy",
                      medium={k: v for k, v in routes_medium.items()
                              if r["name"].startswith(k.rsplit("_", 1)[0])})
+        if r["name"] in CAPS_SPLIT_KERNELS:
+            # its main path: lazy's exact evaluations under the 8 caps (3d)
+            r.update(launches=solvers["lazy_caps"]["launches"][r["name"]],
+                     launches_path="phase 3d lazy under the 8 shard caps")
         prof = [x for x in telemetry["rows"] if x["op"] == r["name"]]
         if prof:
             r["profiler"] = prof[0]

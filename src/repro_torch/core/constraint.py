@@ -73,6 +73,11 @@ class KnapsackConstraint:
         """(g_total f32 [C], g_part f32 [C, P]) marginal costs."""
         raise NotImplementedError
 
+    def gain_counts(self, problem, covered_d, *, rows=None, out=None):
+        """g_part as the kernel's int32 counts [C, P], from one launch and
+        nothing else on the device; into `out` (int32 [C, P]) when given."""
+        raise NotImplementedError
+
     def feasible(self, used, g_part) -> torch.Tensor:
         """bool [C]: used[k] + g_part[:, k] <= B_k for every partition k."""
         raise NotImplementedError
@@ -106,6 +111,11 @@ class GlobalBudget(KnapsackConstraint):
     def gains(self, problem, covered_d, *, rows=None):
         gg = problem.g_gains(covered_d, rows=rows)
         return gg, gg[..., None]
+
+    def gain_counts(self, problem, covered_d, *, rows=None, out=None):
+        got = problem.g_counts(covered_d, rows=rows,
+                               out=None if out is None else out[:, 0])
+        return got[:, None] if out is None else out
 
     def feasible(self, used, g_part) -> torch.Tensor:
         return used[0] + g_part[..., 0] <= self.budget
@@ -196,6 +206,9 @@ class PartitionedBudget(KnapsackConstraint):
     def gains(self, problem, covered_d, *, rows=None):
         g_part = problem.g_gains(covered_d, rows=rows, bounds=self.bounds)
         return g_part.sum(-1), g_part
+
+    def gain_counts(self, problem, covered_d, *, rows=None, out=None):
+        return problem.g_counts(covered_d, rows=rows, bounds=self.bounds, out=out)
 
     def feasible(self, used, g_part) -> torch.Tensor:
         return torch.all(used + g_part <= self.caps_on(used.device), dim=-1)

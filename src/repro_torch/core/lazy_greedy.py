@@ -9,7 +9,8 @@ by the optimistic ratio f̄(j|X)/g̲(j|X) where
 
 Only heap-top candidates get an exact re-evaluation: one one-row
 `bit_matvec` and one one-row `coverage_gain` (per-shard budgets:
-`partition_gain`) launch, read to the host in one transfer. The count of
+`partition_gain`) launch into one buffer, read to the host in one
+transfer. The count of
 exact oracle calls, `n_exact_evals`, is the laziness metric of Figs. 2/4.
 The selected sequence equals dense greedy's up to f32 ties (the ratios here
 are float64 on the host, greedy's f32 on the device).
@@ -42,14 +43,22 @@ from repro_torch.kernels import ops
 
 def _exact_gains_one(problem: SCSKProblem, constraint, x: torch.Tensor,
                      covered_d: torch.Tensor, j: int) -> tuple[float, np.ndarray]:
-    """Exact f(j|X) and g_k(j|X) of one clause, read to the host in one
-    transfer. `x` is `problem.uncovered_weights(covered_q)`, which does not
-    change within a selection."""
-    fg = ops.bit_matvec(problem.clause_query_bits[j:j + 1], x[:, None])[0]
-    _, gg_part = constraint.gains(problem, covered_d,
-                                  rows=problem.clause_doc_bits[j:j + 1])
-    vals = torch.cat([fg, gg_part[0]]).tolist()
-    return vals[0], np.asarray(vals[1:], np.float64)
+    """Exact f(j|X) and g_k(j|X) of one clause. `x` is
+    `problem.uncovered_weights(covered_q)`, which does not change within a
+    selection.
+
+    Two launches and one host read: `bit_matvec` writes the f-gain's f32
+    bits, and `coverage_gain` or `partition_gain` the P int32 counts, into
+    one int32 buffer [1 + P], read to the host in one transfer. Each count
+    is rounded to f32 there, then widened to float64: the values the device
+    cast used to give."""
+    buf = torch.empty(1 + constraint.n_parts, dtype=torch.int32, device=x.device)
+    ops.bit_matvec(problem.clause_query_bits[j:j + 1], x[:, None],
+                   out=buf[:1].view(torch.float32)[None])
+    constraint.gain_counts(problem, covered_d, rows=problem.clause_doc_bits[j:j + 1],
+                           out=buf[1:][None])
+    host = buf.cpu().numpy()
+    return float(host[:1].view(np.float32)[0]), host[1:].astype(np.float32).astype(np.float64)
 
 
 def _singleton_gains(problem: SCSKProblem, constraint, covered_q, covered_d):

@@ -201,10 +201,18 @@ class SCSKProblem:
         With `bounds` (word offsets of a doc-space partition, see
         `core.constraint`), the per-partition cost gains g_k(j|X) as
         f32 [C, P] from one `ops.partition_gain` launch."""
+        return self.g_counts(covered_d, rows=rows, bounds=bounds).to(torch.float32)
+
+    def g_counts(self, covered_d: torch.Tensor, *,
+                 rows: torch.Tensor | None = None,
+                 bounds: tuple[int, ...] | None = None,
+                 out: torch.Tensor | None = None) -> torch.Tensor:
+        """`g_gains` as the kernel's int32 counts, [C] (with `bounds`,
+        [C, P]), from one launch and no cast; into `out` when given."""
         a = self.clause_doc_bits if rows is None else rows
         if bounds is None:
-            return ops.coverage_gain(a, covered_d).to(torch.float32)
-        return ops.partition_gain(a, covered_d, bounds).to(torch.float32)
+            return ops.coverage_gain(a, covered_d, out=out)
+        return ops.partition_gain(a, covered_d, bounds, out=out)
 
     def f_value(self, covered_q: torch.Tensor, *,
                 weights: torch.Tensor | None = None) -> torch.Tensor:

@@ -32,7 +32,7 @@ FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 KERNELS = ("coverage_gain", "coverage_gain_split", "bit_matvec", "bit_matvec_split",
            "clause_match", "tier_match",
-           "partition_gain", "sparse_gain", "flash_attention", "flash_decode",
+           "partition_gain", "partition_gain_split", "sparse_gain", "flash_attention", "flash_decode",
            "flash_prefill", "flash_attention_short", "flash_backward", "flash_backward_tc",
            "flash_backward_short", "segment_sum", "segment_sum_stream")
 LAUNCHES: dict[str, int] = {k: 0 for k in KERNELS}
@@ -50,6 +50,7 @@ _SIGNATURES = {
     "clause_tokens_launch": [_P] * 3 + [_I64] * 2 + [_INT, _P],
     "tier_match_launch": [_P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _INT, _P],
     "partition_gain_launch": [_P, _P, _P, _P, _I64, _I64, _I64, _INT, _INT, _P],
+    "partition_gain_split_launch": [_P, _P, _P, _P, _I64, _I64, _I64, _INT, _INT, _P],
     "sparse_gain_launch": [_P, _P, _P, _I64, _I64, _I64, _INT, _INT, _P],
     "flash_attention_launch": [_P] * 4 + [_I64] * 17 + [_F32, _F32, _INT, _INT, _I64, _P],
     "flash_decode_launch": [_P] * 5 + [_I64] * 16 + [_INT, _F32, _INT, _INT, _INT, _P],
@@ -163,10 +164,18 @@ def lib() -> ctypes.CDLL:
 
 
 def _call(name: str, device: torch.device, call) -> None:
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        handle = lib()
-        code = call(handle, stream)
+    """`call(lib, stream)` on `device`'s current stream: under that device's
+    context only when it is not the current device already (a launch goes
+    to the current device), with the stream read as the raw handle the
+    launch takes. Raise if the launch was refused."""
+    handle = _lib if _lib is not None else lib()
+    current = torch.cuda.current_device()
+    index = current if device.index is None else device.index
+    if index == current:
+        code = call(handle, torch._C._cuda_getCurrentRawStream(index))
+    else:
+        with torch.cuda.device(index):
+            code = call(handle, torch._C._cuda_getCurrentRawStream(index))
     if code != 0:
         msg = handle.rt_error_string(code).decode()
         raise RuntimeError(f"{name} kernel launch failed: {msg} (code {code})")
@@ -200,6 +209,18 @@ def require(t: torch.Tensor, name: str, dtype: torch.dtype, ndim: int,
         raise ValueError(f"{name} must have rank {ndim}, got shape {tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+def output(out: torch.Tensor | None, shape: tuple, dtype: torch.dtype,
+           device: torch.device) -> torch.Tensor:
+    """A new contiguous `dtype` tensor of `shape` on `device`, or `out`
+    once it is checked to be one (a kernel writes it whole, densely)."""
+    if out is None:
+        return torch.empty(shape, dtype=dtype, device=device)
+    require(out, "out", dtype, len(shape), device)
+    if tuple(out.shape) != shape:
+        raise ValueError(f"out has shape {tuple(out.shape)}, need {shape}")
+    return out
 
 
 def aligned16(*ts: torch.Tensor) -> bool:

@@ -7,9 +7,9 @@ which lands here: the call shape is rounded to a power-of-two bucket
 ``"{op}|{path}|{bucket}"``, path being where the operands lie (`ops.path_of`:
 "cuda"). A hit passes the tile to the kernel's wrapper as a keyword: the
 warps per block of `coverage_gain`, `bit_matvec` and `partition_gain` (one
-row a warp, the counterpart of Pallas's `block_c`; on the split route of the
-first two, which one-row buckets take, the warps of each CTA of a row's
-cluster; 8 by default), the
+row a warp, the counterpart of Pallas's `block_c`; on the split route, which
+one-row buckets take, the warps of each CTA of a row's cluster; 8 by
+default), the
 queries per block of `clause_match`'s pass B (`qpb`, the counterpart of
 `block_b`; `clause_match.plan`'s pick by default). A miss keeps the
 defaults, so the cache is a pure speed overlay: a pick never changes a
@@ -190,7 +190,9 @@ DEFAULT_WORKLOAD: List[Tuple[str, str, Tuple[int, ...]]] = [
     ("bit_matvec", "cuda", (PROD_REFRESH, PROD_WORDS, 1)),
     ("clause_match", "cuda", (PROD_BATCH, 128, PROD_VOCAB_WORDS)),
     ("clause_match", "cuda", (PROD_BATCH, PROD_CLAUSES, PROD_VOCAB_WORDS)),
-    # the one-row evaluations of lazy, agnostic and ingest's offers
+    # the one-row evaluations of lazy, agnostic and ingest's offers (lazy's
+    # under per-shard caps: partition_gain), each timed on the route its
+    # shape picks (`tiles.gain_route`: the split route at this width)
     ("coverage_gain", "cuda", (1, PROD_WORDS)),
     ("bit_matvec", "cuda", (1, PROD_WORDS, 1)),
     ("partition_gain", "cuda", (1, PROD_WORDS, PROD_SHARDS)),

@@ -25,19 +25,22 @@ from repro_torch.kernels.tiles import (DEFAULT_WARPS, WORD, check_route, check_w
 
 
 def bit_matvec(a_bits: torch.Tensor, x: torch.Tensor, *,
-               warps: int = DEFAULT_WARPS, route: str | None = None) -> torch.Tensor:
-    """int32 words a_bits [C, W], f32 x [W*32, R] -> f32 [C, R]."""
+               warps: int = DEFAULT_WARPS, route: str | None = None,
+               out: torch.Tensor | None = None) -> torch.Tensor:
+    """int32 words a_bits [C, W], f32 x [W*32, R] -> f32 [C, R] (into
+    `out`, an f32 [C, R] tensor beside the operands, when given)."""
     check_warps(warps)
     check_route(route)
     if _build.on_cpu(a_bits, x) or _build.on_meta(a_bits, x):
-        return ref.bit_matvec(a_bits, x)
+        got = ref.bit_matvec(a_bits, x)
+        return got if out is None else out.copy_(got)
     _build.require(a_bits, "a_bits", torch.int32, 2)
     _build.require(x, "x", torch.float32, 2, a_bits.device)
     c, w = a_bits.shape
     r = x.shape[1]
     if x.shape[0] != w * WORD:
         raise ValueError(f"x has {x.shape[0]} rows, need {w * WORD} for {w} words")
-    out = torch.empty((c, r), dtype=torch.float32, device=a_bits.device)
+    out = _build.output(out, (c, r), torch.float32, a_bits.device)
     if c * r == 0:
         return out
     if (route or gain_route("bit_matvec", c * r, w)) == "split":

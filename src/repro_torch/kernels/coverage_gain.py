@@ -21,18 +21,21 @@ from repro_torch.kernels.tiles import (DEFAULT_WARPS, check_route, check_warps,
 
 
 def coverage_gain(a_bits: torch.Tensor, mask: torch.Tensor, *,
-                  warps: int = DEFAULT_WARPS, route: str | None = None) -> torch.Tensor:
-    """int32 words a_bits [C, W], mask [W] -> int32 [C]."""
+                  warps: int = DEFAULT_WARPS, route: str | None = None,
+                  out: torch.Tensor | None = None) -> torch.Tensor:
+    """int32 words a_bits [C, W], mask [W] -> int32 [C] (into `out`, an
+    int32 [C] tensor beside the operands, when given)."""
     check_warps(warps)
     check_route(route)
     if _build.on_cpu(a_bits, mask) or _build.on_meta(a_bits, mask):
-        return ref.coverage_gain(a_bits, mask)
+        got = ref.coverage_gain(a_bits, mask)
+        return got if out is None else out.copy_(got)
     _build.require(a_bits, "a_bits", torch.int32, 2)
     _build.require(mask, "mask", torch.int32, 1, a_bits.device)
     c, w = a_bits.shape
     if mask.shape[0] != w:
         raise ValueError(f"mask has {mask.shape[0]} words, a_bits has {w}")
-    out = torch.empty(c, dtype=torch.int32, device=a_bits.device)
+    out = _build.output(out, (c,), torch.int32, a_bits.device)
     if c == 0:
         return out
     if (route or gain_route("coverage_gain", c, w)) == "split":

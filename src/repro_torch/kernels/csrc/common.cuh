@@ -25,7 +25,8 @@ constexpr unsigned kFull = 0xffffffffu;
 inline int64_t ceil_div(int64_t a, int64_t b) { return (a + b - 1) / b; }
 
 // -- the split route of the one-row gain kernels (coverage_gain.cu,
-// bit_matvec.cu): a row to a cluster of CTAs, each a slice of its words
+// bit_matvec.cu, partition_gain.cu): a row to a cluster of CTAs, each a
+// slice of its words
 constexpr int kSplitChunk = 4096;   // words a CTA stages in shared memory at a time
 constexpr int kMaxSplitCtas = 16;   // CTAs a cluster (above 8: non-portable)
 
@@ -48,12 +49,12 @@ __device__ inline Window aligned_window(const void* p, int n) {
   return Window{off, off < n ? (n - off) / 4 * 4 : 0};
 }
 
-// launch `kernel` on `tasks` clusters of `ctas` CTAs of `warps` warps each
-// (cudaLaunchKernelEx with a cluster dimension); the launch's own error, or
-// cudaGetLastError()
+// launch `kernel` on `tasks` clusters of `ctas` CTAs of `warps` warps each,
+// with `smem` bytes of dynamic shared memory a CTA (cudaLaunchKernelEx with a
+// cluster dimension); the launch's own error, or cudaGetLastError()
 template <typename... Params, typename... Args>
-inline int split_launch(void (*kernel)(Params...), int64_t tasks, int ctas, int warps,
-                        void* stream, Args... args) {
+inline int split_launch_smem(void (*kernel)(Params...), int64_t tasks, int ctas, int warps,
+                             size_t smem, void* stream, Args... args) {
   if (warps < 1 || warps > kMaxWarps || ctas < 1 || ctas > kMaxSplitCtas ||
       tasks * ctas > 0x7fffffff)
     return (int)cudaErrorInvalidValue;
@@ -62,10 +63,17 @@ inline int split_launch(void (*kernel)(Params...), int64_t tasks, int ctas, int 
         cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
     if (e != cudaSuccess) return (int)e;
   }
+  // without this opt-in, static and dynamic shared memory together may not
+  // pass 48 KiB, and a split kernel's static staging buffers already take 32
+  if (smem > 0) {
+    const cudaError_t e =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3((unsigned)(tasks * ctas));
   cfg.blockDim = dim3(warps * kWarp);
-  cfg.dynamicSmemBytes = 0;
+  cfg.dynamicSmemBytes = smem;
   cfg.stream = (cudaStream_t)stream;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
@@ -77,6 +85,13 @@ inline int split_launch(void (*kernel)(Params...), int64_t tasks, int ctas, int 
   const cudaError_t e = cudaLaunchKernelEx(&cfg, kernel, args...);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
+}
+
+// split_launch_smem with no dynamic shared memory
+template <typename... Params, typename... Args>
+inline int split_launch(void (*kernel)(Params...), int64_t tasks, int ctas, int warps,
+                        void* stream, Args... args) {
+  return split_launch_smem(kernel, tasks, ctas, warps, 0, stream, args...);
 }
 
 __device__ __forceinline__ int warp_sum(int v) {

@@ -126,14 +126,23 @@ def _run(op: str, fn, cost, *args, path: str | None = None):
 
 # -- public ops ----------------------------------------------------------------
 
-def bit_matvec(a_bits: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """gains [C, R] = unpack(a_bits [C, W]) @ x [W*32, R]."""
-    return _run("bit_matvec", _bm.bit_matvec, _cost_bit_matvec, a_bits, x)
+def _into(fn, out):
+    """`fn` writing its result into `out` when one is given."""
+    return fn if out is None else functools.partial(fn, out=out)
 
 
-def coverage_gain(a_bits: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-    """gains [C] = popcount(a_bits & ~mask)."""
-    return _run("coverage_gain", _cg.coverage_gain, _cost_coverage_gain,
+def bit_matvec(a_bits: torch.Tensor, x: torch.Tensor, *,
+               out: torch.Tensor | None = None) -> torch.Tensor:
+    """gains [C, R] = unpack(a_bits [C, W]) @ x [W*32, R] (into `out`, an
+    f32 [C, R] tensor beside the operands, when given)."""
+    return _run("bit_matvec", _into(_bm.bit_matvec, out), _cost_bit_matvec, a_bits, x)
+
+
+def coverage_gain(a_bits: torch.Tensor, mask: torch.Tensor, *,
+                  out: torch.Tensor | None = None) -> torch.Tensor:
+    """gains [C] = popcount(a_bits & ~mask) (into `out`, an int32 [C]
+    tensor beside the operands, when given)."""
+    return _run("coverage_gain", _into(_cg.coverage_gain, out), _cost_coverage_gain,
                 a_bits, mask)
 
 
@@ -157,9 +166,10 @@ def fused_match(query_bits: torch.Tensor, clause_bits: torch.Tensor,
 
 
 def partition_gain(a_bits: torch.Tensor, mask: torch.Tensor,
-                   bounds) -> torch.Tensor:
+                   bounds, *, out: torch.Tensor | None = None) -> torch.Tensor:
     """gains [C, P]: per-partition popcount(a & ~mask) over the word ranges
-    of `bounds` (P+1 word offsets).
+    of `bounds` (P+1 word offsets), into `out` (an int32 [C, P] tensor
+    beside the operands) when given.
 
     Under a `"shard"` mesh the partitions are the fleet's shards: each mesh
     entry computes its own partitions' gains (`_partition_gain_mesh`) and
@@ -174,13 +184,16 @@ def partition_gain(a_bits: torch.Tensor, mask: torch.Tensor,
     fused = _dist.mesh_fused(_partition_gain_mesh)
     if fused is not None:
         def fn(a, m):
-            return fused(a, m, bounds)
+            got = fused(a, m, bounds)
+            return got if out is None else out.copy_(got)
         return _run("partition_gain", fn, cost, a_bits, mask, path="mesh")
 
     tiles = _dist.current_plan().tile_params(
         "partition_gain", path_of(a_bits),
         _autotune.bucket("partition_gain", a_bits.shape[0], a_bits.shape[1],
                          len(bounds) - 1))
+    if out is not None:
+        tiles["out"] = out
 
     def fn(a, m):
         return _pg.partition_gain(a, m, bounds, **tiles)

@@ -53,8 +53,9 @@ def test_the_limits_are_the_sweeps():
     route; lazy's and ingest's one row takes the split route at the
     production width (32768 words); `medium`'s rows (625 doc words, 849
     query words) stay on the warp route."""
-    assert SPLIT_MAX_TASKS == {"coverage_gain": 128, "bit_matvec": 1024}
-    assert SPLIT_MIN_WORDS == {"coverage_gain": 8192, "bit_matvec": 2048}
+    kernels = ("coverage_gain", "bit_matvec")
+    assert {k: SPLIT_MAX_TASKS[k] for k in kernels} == {"coverage_gain": 128, "bit_matvec": 1024}
+    assert {k: SPLIT_MIN_WORDS[k] for k in kernels} == {"coverage_gain": 8192, "bit_matvec": 2048}
     for k in ("coverage_gain", "bit_matvec"):
         assert tiles.gain_route(k, 4096, 32768) == tiles.gain_route(k, 65536, 32768) == "warp"
         assert tiles.gain_route(k, 1, 32768) == tiles.gain_route(k, 1, 33163) == "split"

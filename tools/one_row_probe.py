@@ -1,5 +1,6 @@
 """Where the time of a one-row exact evaluation goes, and which route of
-`coverage_gain` and `bit_matvec` a call of C rows should take.
+`coverage_gain` and `bit_matvec` a call of C rows should take; the same
+for `partition_gain` under per-shard caps.
 
     python3 tools/one_row_probe.py [--root DIR] [--seed 0]
                                    [--parts offer,lazy,ab,eval,launch,sweep]
@@ -13,7 +14,10 @@ a directory that `.gitignore` lists and run both in turns.
 The operands are `chip_smoke.py` phase 3's (2^16 clauses, 2^20 queries and
 docs, W = 32768 words a row), at the state after greedy's first `--prefix`
 selections (6: lazy's prefix when its 30 s run stops; lazy == greedy up to
-f32 ties), and 64 clauses drawn from `--seed`.
+f32 ties), and 64 clauses drawn from `--seed`. The per-shard forms take
+`chip_smoke.py` phase 3's 8 shard caps, built as `phase3_shards` builds
+them (each shard capped at half of the global greedy's fill there after its
+128 selections, so the caps bind), as a `PartitionedBudget`.
 
 - `eval`: the nnz of the 64 clauses' query and doc rows; each one-row
   kernel over them, by route where the checkout has routes: CUDA-event ms a
@@ -23,16 +27,27 @@ f32 ties), and 64 clauses drawn from `--seed`.
   `_exact_gains_one` (lazy's unit of work) on the host clock, and the same
   64 evaluations under `torch.profiler`: the device time an evaluation by
   kernel or copy, so that the host's share is the wall time less it.
+  Per-shard form (`shard`): one-row `partition_gain` by route where the
+  checkout has routes (event and device ms), and the exact evaluation
+  under the caps on the host clock, under the profiler, and the kernel
+  launches it makes.
 - `launch`: host µs a launch (perf_counter over 512 launches, then one
   sync) of an empty kernel by <<<>>>, by cudaLaunchKernelEx without and
   with a cluster dimension (the split route's launch), and of a kernel
   compiled with __cluster_dims__(8) (`tools/one_row_launch.cu`); the same
-  for a one-row wrapper call on each route the checkout has.
+  for a one-row wrapper call on each route the checkout has. Per-shard
+  form (`shard`): the host µs of each part of a one-row `partition_gain`
+  call (`ops.partition_gain`, its mesh gate and tile lookup, the wrapper,
+  its bounds check, the output's allocation, `_build.launch`, its device
+  context and stream lookup, the ctypes call alone, the telemetry plane's
+  record, the call and the evaluation with the plane off) and of the
+  evaluation's other steps where the checkout makes them (the f32 cast,
+  the sum, the concatenation, the host read).
 - `ab` (a checkout with routes only): `eval`'s exact evaluation, `offer`
   and `lazy` with each route forced in one process, in turns (warp, split,
   split, warp), so that the host's own spread drops out of the comparison.
 - `lazy`: two lazy selections from the empty state: ms a selection, exact
-  evaluations.
+  evaluations; and (`shard`) two under the caps.
 - `offer`: an ingest offer's gain reads (`IngestController._admit`'s body
   for one clause: its one-row f-gain under the problem's weights, its
   one-row g-gains, the used budget and feasibility, three host reads) over
@@ -122,7 +137,6 @@ def kw(route) -> dict:
 
 def part_eval(p3, st, js, x) -> dict:
     from repro_torch.core.constraint import GlobalBudget
-    from repro_torch.core.lazy_greedy import _exact_gains_one
     from repro_torch.kernels import _build, ops
     from repro_torch.kernels.bit_matvec import bit_matvec
     from repro_torch.kernels.coverage_gain import coverage_gain
@@ -146,8 +160,20 @@ def part_eval(p3, st, js, x) -> dict:
         out["launch_floor"] = dict(event_ms=event_ms(fl), device_ms=graph_ms(fl))
     else:
         out["launch_floor"] = "not in this checkout"
-    cons = GlobalBudget(p3["budget"])
+    out.update(evaluation(problem, GlobalBudget(p3["budget"]), x, st, js))
+    return out
+
+
+def evaluation(problem, cons, x, st, js) -> dict:
+    """One `_exact_gains_one` under `cons` over the clauses `js`: host-clock
+    ms (median, mean), the kernel launches an evaluation makes, and the same
+    evaluations under the profiler (device ms an evaluation by kernel or
+    copy; the host's share is the wall time less it)."""
+    from repro_torch.core.lazy_greedy import _exact_gains_one
+    from repro_torch.kernels import _build
+    out = {}
     _exact_gains_one(problem, cons, x, st.covered_d, js[0])
+    _build.reset_launches()
     wall = []
     for j in js:
         torch.cuda.synchronize()
@@ -156,7 +182,7 @@ def part_eval(p3, st, js, x) -> dict:
         wall.append((time.perf_counter() - t) * 1e3)
     out["exact_eval_ms"] = statistics.median(wall)
     out["exact_eval_mean_ms"] = statistics.fmean(wall)
-    # the same evaluations under the profiler: device time an evaluation
+    out["launches_an_eval"] = {k: v / len(js) for k, v in _build.LAUNCHES.items() if v}
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -165,18 +191,55 @@ def part_eval(p3, st, js, x) -> dict:
             _exact_gains_one(problem, cons, x, st.covered_d, j)
         torch.cuda.synchronize()
         traced = (time.perf_counter() - t) * 1e3 / len(js)
-    dev_items = {}
+    dev_items, dev_calls = {}, {}
     for e in prof.key_averages():
         d = getattr(e, "self_device_time_total", None)
         if d is None:
             d = getattr(e, "self_cuda_time_total", 0)
         if d and e.device_type.name == "CUDA":
             dev_items[e.key] = d / 1e3 / len(js)
+            dev_calls[e.key] = e.count / len(js)
     dev = sum(dev_items.values())
     out["profiled"] = dict(wall_ms=traced, device_ms=dev, host_ms=traced - dev,
-                           device_items=dict(sorted(dev_items.items(), key=lambda kv: -kv[1])))
+                           device_items=dict(sorted(dev_items.items(), key=lambda kv: -kv[1])),
+                           device_calls_an_eval=dev_calls)
     out["split"] = dict(wall_ms=out["exact_eval_mean_ms"], device_ms=dev,
                         host_ms=out["exact_eval_mean_ms"] - dev)
+    return out
+
+
+def shard_caps(p3, n_parts: int):
+    """`chip_smoke.phase3_shards`' constraint: `n_parts` word-aligned shards,
+    each capped at half of the global greedy's fill there after its 128
+    selections."""
+    import numpy as np
+
+    from repro_torch.core import bitset
+    from repro_torch.core.constraint import PartitionedBudget, partition_bounds
+    problem, state = p3["problem"], p3["state"]
+    bounds = partition_bounds(problem.n_docs, n_parts)
+    covered = bitset.to_numpy(state.covered_d)
+    fills = np.array([bitset.np_popcount(covered[lo:hi])
+                      for lo, hi in zip(bounds, bounds[1:])], np.float64)
+    return PartitionedBudget(fills / 2, bounds)
+
+
+def part_eval_shard(p3, st, js, x, cons) -> dict:
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.partition_gain import partition_gain
+    problem = p3["problem"]
+    ad = problem.clause_doc_bits
+    bounds = cons.bounds
+    out = dict(rows=len(js), words=int(ad.shape[1]), parts=len(bounds) - 1,
+               bounds=list(bounds), caps=cons.caps.tolist())
+    for route in routes_of(partition_gain):
+        calls = [lambda j=j: partition_gain(ad[j:j + 1], st.covered_d, bounds, **kw(route))
+                 for j in js]
+        out[f"partition_gain_{route or 'warp'}"] = dict(event_ms=event_ms(calls),
+                                                        device_ms=graph_ms(calls))
+    calls = [lambda j=j: ops.partition_gain(ad[j:j + 1], st.covered_d, bounds) for j in js]
+    out["ops_partition_gain"] = dict(event_ms=event_ms(calls), device_ms=graph_ms(calls))
+    out.update(evaluation(problem, cons, x, st, js))
     return out
 
 
@@ -226,6 +289,73 @@ def part_launch(p3, st, js, x) -> dict:
     return out
 
 
+def part_launch_shard(p3, st, js, x, cons) -> dict:
+    """Host µs of each part of a one-row `partition_gain` call under the
+    caps' bounds, and of the evaluation's other steps."""
+    from repro_torch import distributed as dist
+    from repro_torch.core.lazy_greedy import _exact_gains_one
+    from repro_torch.kernels import _build, autotune, ops
+    from repro_torch.kernels import partition_gain as pgm
+    problem = p3["problem"]
+    j = js[1]
+    row, mask, bounds = problem.clause_doc_bits[j:j + 1], st.covered_d, cons.bounds
+    dev, w, p = row.device, row.shape[1], len(bounds) - 1
+    lib = _build.lib()
+    out_t = torch.empty((1, p), dtype=torch.int32, device=dev)
+    dev_b = torch.tensor(bounds, dtype=torch.int64, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def raw(lib_, s):
+        return lib_.partition_gain_launch(row.data_ptr(), mask.data_ptr(), dev_b.data_ptr(),
+                                          out_t.data_ptr(), 1, w, p, 0, 8, s)
+
+    def context():
+        with torch.cuda.device(dev):
+            pass
+
+    g_f = out_t.to(torch.float32)
+    f = torch.zeros(1, device=dev)
+    read = torch.zeros(1 + p, device=dev)
+    from repro_torch import obs
+    plane = obs.set_enabled(False)
+    try:
+        plane_off = {
+            "exact_eval_plane_off": host_us(
+                lambda: _exact_gains_one(problem, cons, x, mask, j), 256),
+            "ops_partition_gain_plane_off": host_us(lambda: ops.partition_gain(row, mask, bounds)),
+        }
+    finally:
+        obs.set_enabled(plane)
+    parts = {
+        **plane_off,
+        "ops_obs_record": host_us(lambda: ops._profiler().record("partition_gain", "cuda", 1, 1)),
+        "exact_eval": host_us(lambda: _exact_gains_one(problem, cons, x, mask, j), 256),
+        "ops_partition_gain": host_us(lambda: ops.partition_gain(row, mask, bounds)),
+        "ops_mesh_gate_and_tile_lookup": host_us(lambda: (
+            dist.mesh_fused(ops._partition_gain_mesh),
+            dist.current_plan().tile_params("partition_gain", "cuda",
+                                            autotune.bucket("partition_gain", 1, w, p)))),
+        "wrapper": host_us(lambda: pgm.partition_gain(row, mask, bounds)),
+        "wrapper_check_bounds": host_us(lambda: pgm.check_bounds(bounds, w)),
+        "wrapper_require": host_us(lambda: (
+            _build.require(row, "a_bits", torch.int32, 2),
+            _build.require(mask, "mask", torch.int32, 1, dev))),
+        "alloc_out": host_us(lambda: torch.empty((1, p), dtype=torch.int32, device=dev)),
+        "build_launch": host_us(lambda: _build.launch("partition_gain", dev, raw)),
+        "device_context": host_us(context),
+        "stream_lookup": host_us(lambda: torch.cuda.current_stream(dev).cuda_stream),
+        "current_device": host_us(torch.cuda.current_device),
+        "ctypes_call": host_us(lambda: raw(lib, stream)),
+        "data_ptrs": host_us(lambda: (row.data_ptr(), mask.data_ptr(), dev_b.data_ptr(),
+                                      out_t.data_ptr())),
+        "eval_cast": host_us(lambda: out_t.to(torch.float32)),
+        "eval_sum": host_us(lambda: g_f.sum(-1)),
+        "eval_cat": host_us(lambda: torch.cat([f, g_f[0]])),
+        "eval_host_read": host_us(lambda: read.tolist(), 256),
+    }
+    return {"parts_us": parts}
+
+
 def part_ab(p3, st, js, x) -> dict:
     """The host-bound paths with each route forced in one process, in turns
     (warp, split, split, warp): one exact evaluation over the 64 clauses,
@@ -260,6 +390,37 @@ def part_ab(p3, st, js, x) -> dict:
     return out
 
 
+def part_ab_shard(p3, st, js, x, cons) -> dict:
+    """The evaluation and two lazy selections under the caps with
+    `partition_gain`'s route forced, in turns (warp, split, split, warp),
+    through `tiles`' route limits (`bit_matvec` on the route its shape
+    picks)."""
+    from repro_torch.core.lazy_greedy import _exact_gains_one
+    from repro_torch.kernels import tiles
+    problem = p3["problem"]
+    saved = (dict(tiles.SPLIT_MAX_TASKS), dict(tiles.SPLIT_MIN_WORDS))
+    out = {r: {"eval_ms": [], "lazy_ms_a_selection": []} for r in ("warp", "split")}
+    try:
+        for r in ("warp", "split", "split", "warp"):
+            tiles.SPLIT_MAX_TASKS["partition_gain"] = 1 << 30 if r == "split" else 0
+            tiles.SPLIT_MIN_WORDS["partition_gain"] = 0 if r == "split" else 1 << 30
+            _exact_gains_one(problem, cons, x, st.covered_d, js[0])
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            for j in js:
+                _exact_gains_one(problem, cons, x, st.covered_d, j)
+            out[r]["eval_ms"].append((time.perf_counter() - t) * 1e3 / len(js))
+            lz = part_lazy(p3, cons)
+            out[r]["lazy_ms_a_selection"].append(lz["ms_a_selection"])
+            out[r]["lazy_order"] = lz["order"]
+            out[r]["lazy_launches"] = lz["launches"]
+    finally:
+        for d, old in zip((tiles.SPLIT_MAX_TASKS, tiles.SPLIT_MIN_WORDS), saved):
+            d.clear()
+            d.update(old)
+    return out
+
+
 def part_offer(p3, st, js) -> dict:
     from repro_torch.core.constraint import GlobalBudget
     problem = p3["problem"]
@@ -284,16 +445,19 @@ def part_offer(p3, st, js) -> dict:
     return dict(ms_an_offer=statistics.median(passes), passes=passes)
 
 
-def part_lazy(p3) -> dict:
+def part_lazy(p3, cons=None) -> dict:
+    """Two lazy selections from the empty state, under the global budget or
+    the constraint `cons`."""
     from repro_torch.core import registry
     from repro_torch.core.config import SolveConfig
     from repro_torch.kernels import _build
     problem = p3["problem"]
+    budget = p3["budget"] if cons is None else cons.total
     _build.reset_launches()
     torch.cuda.synchronize()
     t = time.perf_counter()
-    res = registry.solve(problem, SolveConfig(budget=p3["budget"], solver="lazy",
-                                              max_steps=2))
+    res = registry.solve(problem, SolveConfig(budget=budget, solver="lazy",
+                                              constraint=cons, max_steps=2))
     torch.cuda.synchronize()
     dt = time.perf_counter() - t
     evals = (res.n_exact_evals - 2 * problem.n_clauses) // 2
@@ -380,23 +544,30 @@ def main(argv=None) -> int:
     js = torch.randperm(problem.n_clauses, generator=gen)[:64].tolist()
     parts = args.parts.split(",")
     res = {"tag": args.tag, "root": str(root), "card": card}
+    cons = shard_caps(p3, chip_smoke.N_PARTS)
+
+    def put(key, value):
+        res[key] = value
+        print(json.dumps({key: value}), flush=True)
+
     # the host-bound paths first, before any graph capture or profiler
     if "offer" in parts:
-        res["offer"] = part_offer(p3, st, js)
-        print(json.dumps({"offer": res["offer"]}), flush=True)
+        put("offer", part_offer(p3, st, js))
     if "lazy" in parts:
-        res["lazy"] = part_lazy(p3)
-        print(json.dumps({"lazy": res["lazy"]}), flush=True)
+        put("lazy", part_lazy(p3))
+        put("lazy_shard", part_lazy(p3, cons))
     from repro_torch.kernels.coverage_gain import coverage_gain
+    from repro_torch.kernels.partition_gain import partition_gain
     if "ab" in parts and routes_of(coverage_gain) != [None]:
-        res["ab"] = part_ab(p3, st, js, x)
-        print(json.dumps({"ab": res["ab"]}), flush=True)
+        put("ab", part_ab(p3, st, js, x))
+    if "ab" in parts and routes_of(partition_gain) != [None]:
+        put("ab_shard", part_ab_shard(p3, st, js, x, cons))
     if "eval" in parts:
-        res["eval"] = part_eval(p3, st, js, x)
-        print(json.dumps({"eval": res["eval"]}), flush=True)
+        put("eval", part_eval(p3, st, js, x))
+        put("eval_shard", part_eval_shard(p3, st, js, x, cons))
     if "launch" in parts:
-        res["launch"] = part_launch(p3, st, js, x)
-        print(json.dumps({"launch": res["launch"]}), flush=True)
+        put("launch", part_launch(p3, st, js, x))
+        put("launch_shard", part_launch_shard(p3, st, js, x, cons))
     if "sweep" in parts and routes_of(coverage_gain) != [None]:
         res["sweep"] = part_sweep(p3, st, x)
         print(json.dumps({"cluster_sizes_c1": res["sweep"]["cluster_sizes_c1"]}), flush=True)
